@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch versions.
+
+``dfr_scan`` (the fused masking + reservoir scan) and ``ridge_gram`` (the
+batched readout Gram) replace the JAX package's two Pallas TPU kernels.
+Each ``ops.py`` wrapper launches its CUDA kernel (``csrc/*.cu``, built by
+``_build.py`` at first use) for CUDA tensors, takes the plain PyTorch
+version for CPU tensors, and counts its launches.
+"""

@@ -1,0 +1,109 @@
+"""Wrapper for the DFR scan kernel (``kernels/csrc/dfr_scan.cu``).
+
+Port of ``repro/kernels/dfr_scan/ops.py:71`` (``dfr_scan``), which tiles
+the batch onto the TPU's (sublane × 128-lane) vregs and calls the Pallas
+kernel ``dfr_scan_tiled`` (``dfr_scan.py:97``).  Here:
+
+* a CUDA tensor launches the hand-written kernel — one thread per batch
+  lane; see the source for what bounds it and why — or raises;
+* a CPU tensor takes ``dfr_scan_plain``, the plain PyTorch version (the
+  sequential oracle of ``ref.py`` plus the output casts).
+
+The wrapper transposes to the kernel's lane-contiguous layout (j [K, B],
+carry [N, B], states [K, N, B]) and back to [B, K, N], as the reference
+wrapper does for its [K, S, L] tiling.  ``block_s`` (the TPU sublane tile)
+is validated for API parity and otherwise unused: a CUDA thread per lane
+needs no batch tile and no padding.
+
+``mask`` is [N] (one mask broadcast over the batch) or [B, N] (per lane).
+``return_final=True`` also returns the final state [B, N] in the input
+dtype; feeding it back as ``s0`` resumes the scan bit-exactly for f32
+input.  ``out_dtype`` (float32 or bfloat16) narrows only the emitted
+states; compute is f32 throughout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...device import resolve_dtype
+from .. import _build
+from .ref import dfr_scan_ref
+
+BLOCK_S_CHOICES = (1, 2, 4, 8, 16, 32)
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+def dfr_scan_plain(model, j, mask, s0, *, out_dtype=None):
+    """Plain PyTorch version: (states [B, K, N] in ``out_dtype`` (default
+    j's dtype), final state [B, N] in j's dtype)."""
+    states, fin = dfr_scan_ref(model, j, mask, s0, return_final=True)
+    return states.to(resolve_dtype(out_dtype) or j.dtype), fin.to(j.dtype)
+
+
+def _launch(model, j, mask, s0, out_dtype):
+    spec = getattr(model, "kernel_spec", None)
+    if spec is None:
+        raise NotImplementedError(
+            f"the CUDA scan kernel has no form of {type(model).__name__}; "
+            "it inlines SiliconMR, SiliconMRLiteral, MackeyGlass and MZISine "
+            "(the CMT cavity is ROADMAP Queue 1 item 11)")
+    model_id, params = spec()
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the scan kernel emits float32 or bfloat16, not {out_dtype}")
+    b, k_periods = j.shape
+    n_nodes = s0.shape[1]
+    dev = j.device
+    fin = torch.empty((n_nodes, b), dtype=torch.float32, device=dev)
+    fin.copy_(s0.t())                   # the kernel updates the carry in place
+    out = torch.empty((k_periods, n_nodes, b), dtype=out_dtype, device=dev)
+    if b and k_periods:
+        jt = j.to(torch.float32).t().contiguous()
+        per_lane = mask.ndim == 2
+        mt = (mask.to(torch.float32).t() if per_lane else mask.to(torch.float32)).contiguous()
+        fn = _build.load("dfr_scan").dfr_scan_launch
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(jt.data_ptr(), mt.data_ptr(), int(per_lane), fin.data_ptr(),
+                     out.data_ptr(), int(out_dtype == torch.bfloat16), b,
+                     k_periods, n_nodes, model_id, *params, stream)
+        _build.check(err, "dfr_scan")
+        dfr_scan.launches += 1
+    return out.permute(2, 0, 1).contiguous(), fin.t().to(j.dtype).contiguous()
+
+
+def dfr_scan(model, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, *,
+             block_s: int | None = None, return_final: bool = False,
+             out_dtype=None):
+    """States [B, K, N]; with ``return_final`` also the final state [B, N]."""
+    if block_s is not None and block_s not in BLOCK_S_CHOICES:
+        raise ValueError(f"block_s must be one of {BLOCK_S_CHOICES}, got {block_s}")
+    if j.ndim != 2:
+        raise ValueError(f"j must be [B, K], got {tuple(j.shape)}")
+    b = j.shape[0]
+    n_nodes = int(mask.shape[-1])
+    if mask.ndim == 2 and mask.shape[0] != b:
+        raise ValueError(f"per-lane mask batch {mask.shape[0]} != j batch {b}")
+    if mask.ndim not in (1, 2) or tuple(s0.shape) != (b, n_nodes):
+        raise ValueError(f"mask {tuple(mask.shape)} / s0 {tuple(s0.shape)} do not "
+                         f"match j {tuple(j.shape)}")
+    if mask.device != j.device or s0.device != j.device:
+        raise ValueError("j, mask and s0 must be on one device")
+    out_dtype = resolve_dtype(out_dtype) or j.dtype
+    if j.device.type == "cuda":
+        states, fin = _launch(model, j, mask, s0, out_dtype)
+    elif j.device.type == "cpu":
+        states, fin = dfr_scan_plain(model, j, mask, s0, out_dtype=out_dtype)
+    else:
+        raise ValueError(f"dfr_scan runs on cuda or cpu tensors, not {j.device}")
+    return (states, fin) if return_final else states
+
+
+dfr_scan.launches = 0   # kernel launches (plain-version calls are not counted)

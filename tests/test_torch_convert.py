@@ -1,0 +1,85 @@
+"""Port parity: carrying reference models, configs and readouts across
+(repro_torch.convert).
+
+A readout fitted by the JAX pipeline, carried across as numpy, must give
+the port's predictions on the port's states of the same inputs: the states
+agree to 1e-6 (SiliconMR), so the predictions agree to 1e-4.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.core import MZISine as JMZI
+from repro.core import MackeyGlass as JMG
+from repro.core import SiliconMR as JMR
+from repro.core import SiliconMRLiteral as JLit
+from repro.core import generate_states as jgenerate_states
+from repro.core import make_mask as jmake_mask
+from repro.core import tasks as jtasks
+from repro.pipeline import Experiment as JExperiment
+from repro.pipeline import ExperimentConfig as JConfig
+from repro.pipeline import apply_readout as japply_readout
+from repro.pipeline import fit_ridge_batched as jfit_ridge_batched
+from repro_torch import convert
+from repro_torch.core import MackeyGlass, MZISine, SiliconMR, SiliconMRLiteral, generate_states
+from repro_torch.pipeline import Experiment, apply_readout
+
+
+@pytest.mark.parametrize("ref,port", [
+    (JMR(gamma=0.8, beta_tpa=0.3), SiliconMR(gamma=0.8, beta_tpa=0.3)),
+    (JLit(gamma=0.5), SiliconMRLiteral(gamma=0.5)),
+    (JMG(eta=0.6), MackeyGlass(eta=0.6)),
+    (JMZI(phi=0.2), MZISine(phi=0.2))])
+def test_model_from_reference(ref, port):
+    assert convert.model_from_reference(ref) == port
+
+
+def test_model_from_reference_rejects_unported_models():
+    @dataclasses.dataclass(frozen=True)
+    class MRCavityCMT:
+        q: float = 1.0
+
+    with pytest.raises(TypeError, match="no port"):
+        convert.model_from_reference(MRCavityCMT())
+
+
+def test_config_from_reference_carries_every_field():
+    ref = JConfig(model=JMG(), n_nodes=40, mask_levels=(-1.0, 1.0), mask_seed=3,
+                  input_gain=0.7, washout=12, ridge_l2=(1e-4, 1e-2), state_noise_rel=0.0,
+                  noise_seed=5, state_method="kernel", readout_use_kernel=True, quantize=True,
+                  collect_y_pred=False, kernel_block_s=2, readout_block_t=64)
+    port = convert.config_from_reference(ref)
+    for f in dataclasses.fields(ref):
+        if f.name != "model":
+            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert port.model == MackeyGlass()
+    with pytest.raises(TypeError):
+        convert.config_from_reference(JMR())
+
+
+def test_reference_config_runs_the_same_in_the_port():
+    batch = [np.stack([getattr(jtasks.narma10(300, seed=s), f) for s in range(2)])
+             for f in ("inputs_train", "targets_train", "inputs_test", "targets_test")]
+    ref = JConfig(model=JMR(), n_nodes=24, washout=30, ridge_l2=(1e-4,), state_noise_rel=0.0)
+    want = JExperiment(ref).run(*batch)
+    got = Experiment(convert.config_from_reference(ref), device="cpu").run(*batch)
+    assert np.max(np.abs(got.nrmse - want.nrmse)) <= 1e-3
+
+
+def test_jax_fitted_readout_carried_across():
+    rng = np.random.default_rng(0)
+    j = rng.uniform(0, 1, (3, 120)).astype(np.float32)
+    y = rng.standard_normal((3, 120)).astype(np.float32)
+    jmask = jmake_mask(20, seed=2)
+    mask = convert.mask_from_numpy(np.asarray(jmask))
+    jst = jgenerate_states(JMR(), jnp.asarray(j), jmask, method="ref")
+    w_j, _ = jfit_ridge_batched(jst, jnp.asarray(y), lambdas=(1e-4,))
+    want = np.asarray(japply_readout(jst, w_j))
+    w = convert.readout_from_numpy(np.asarray(w_j))
+    st = generate_states(SiliconMR(), j, mask, method="kernel", device="cpu")
+    got = apply_readout(st, w)
+    assert w.shape == (3, 21, 1) and tuple(got.shape) == want.shape == (3, 120)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)

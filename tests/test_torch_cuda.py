@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA GPU (and nvcc, which builds the kernels at first
+use); without one they skip.  Run them on the GPU with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: SiliconMR 1e-6 (the kernel evaluates the plain version's
+separately rounded f32 ops); MackeyGlass and MZISine 1e-5 (powf/sinf vs
+torch's pow/sin); bf16 states 4e-2; Gram rtol 1e-5 / atol 1e-4 (f32 sums in
+another order); chunk resume and accumulate-into bitwise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import MackeyGlass, MZISine, SiliconMR, make_mask
+from repro_torch.kernels.dfr_scan import ops as scan_ops
+from repro_torch.kernels.ridge_gram import ops as gram_ops
+from repro_torch.pipeline import Experiment, ExperimentConfig
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _scan_inputs(dev, b=37, k=21, n=45):
+    rng = np.random.default_rng(b + k + n)
+    j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32, device=dev)
+    s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32, device=dev)
+    return j, s0
+
+
+@pytest.mark.parametrize("model,levels,tol", [(SiliconMR(), (0.0, 1.0), 1e-6),
+                                              (SiliconMR(beta_tpa=0.5), (0.0, 1.0), 1e-6),
+                                              (MackeyGlass(), (-1.0, 1.0), 1e-5),
+                                              (MZISine(), (0.0, 1.0), 1e-5)])
+def test_scan_kernel_matches_plain(dev, model, levels, tol):
+    j, s0 = _scan_inputs(dev)
+    mask = make_mask(s0.shape[1], levels=levels, device=dev)
+    before = scan_ops.dfr_scan.launches
+    out, fin = scan_ops.dfr_scan(model, j, mask, s0, return_final=True)
+    assert scan_ops.dfr_scan.launches == before + 1
+    ref, ref_fin = scan_ops.dfr_scan_plain(model, j, mask, s0)
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(fin, ref_fin, rtol=0, atol=tol)
+    a, f1 = scan_ops.dfr_scan(model, j[:, :8], mask, s0, return_final=True)
+    b, f2 = scan_ops.dfr_scan(model, j[:, 8:], mask, f1, return_final=True)
+    assert torch.equal(torch.cat([a, b], dim=1), out) and torch.equal(f2, fin)
+
+
+def test_scan_kernel_bf16_states_and_per_lane_masks(dev):
+    j, s0 = _scan_inputs(dev)
+    n = s0.shape[1]
+    mask = make_mask(n, device=dev)
+    out16 = scan_ops.dfr_scan(SiliconMR(), j, mask, s0, out_dtype=torch.bfloat16)
+    ref = scan_ops.dfr_scan_plain(SiliconMR(), j, mask, s0)[0]
+    assert out16.dtype == torch.bfloat16
+    torch.testing.assert_close(out16.float(), ref, rtol=0, atol=4e-2)
+    masks = torch.stack([make_mask(n, seed=s, device=dev) for s in range(1, j.shape[0] + 1)])
+    lane = scan_ops.dfr_scan(SiliconMR(), j, masks, s0)
+    torch.testing.assert_close(lane, scan_ops.dfr_scan_plain(SiliconMR(), j, masks, s0)[0],
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_kernel_matches_plain(dev, dtype):
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((3, 517, 203)), dtype=dtype, device=dev)
+    y = torch.as_tensor(rng.standard_normal((3, 517, 2)), dtype=torch.float32, device=dev)
+    before = gram_ops.gram_accumulate_batched.launches
+    g, c = gram_ops.gram_accumulate_batched(x, y)
+    assert gram_ops.gram_accumulate_batched.launches == before + 1
+    gp, cp = gram_ops.gram_plain_batched(x, y)
+    torch.testing.assert_close(g, gp, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(c, cp, rtol=1e-5, atol=1e-4)
+
+
+def test_gram_into_bitwise_equals_one_shot_for_any_split(dev):
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((2, 301, 70)), dtype=torch.float32, device=dev)
+    y = torch.as_tensor(rng.standard_normal((2, 301, 1)), dtype=torch.float32, device=dev)
+    g1, c1 = gram_ops.gram_accumulate_batched(x, y)
+    g, c = torch.zeros_like(g1), torch.zeros_like(c1)
+    for lo, hi in ((0, 7), (7, 200), (200, 301)):
+        gram_ops.gram_accumulate_batched_into(g, c, x[:, lo:hi], y[:, lo:hi])
+    assert torch.equal(g, g1) and torch.equal(c, c1)
+
+
+def test_experiment_kernel_path_matches_ref_path(dev):
+    from repro_torch.core import tasks
+
+    ds = [tasks.narma10(360, seed=s) for s in range(4)]
+    batch = [np.stack([getattr(d, f) for d in ds])
+             for f in ("inputs_train", "targets_train", "inputs_test", "targets_test")]
+    runs = {}
+    for method, use_kernel in (("kernel", True), ("ref", False)):
+        cfg = ExperimentConfig(n_nodes=32, washout=40, ridge_l2=(1e-4,), state_noise_rel=0.0,
+                               state_method=method, readout_use_kernel=use_kernel)
+        runs[method] = Experiment(cfg, device=dev).run(*batch)
+    assert np.max(np.abs(runs["kernel"].nrmse - runs["ref"].nrmse)) <= 1e-3

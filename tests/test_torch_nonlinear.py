@@ -1,0 +1,87 @@
+"""Port parity: device models (repro_torch.core.nonlinear vs repro.core.nonlinear).
+
+One node step and one whole period are compared with the JAX models on the
+same f32 inputs.  Tolerance 1e-6: both evaluate the same separately rounded
+f32 ops (SiliconMR, Literal); MackeyGlass and MZISine also call pow/sin,
+whose libm implementations may differ by an ulp.  The reference's
+associative-scan period updates round differently from a sequential chain,
+which the whole-period comparison allows for (1e-5).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import nonlinear as ref
+from repro_torch.core import nonlinear as port
+
+PAIRS = [
+    (port.SiliconMR(), ref.SiliconMR()),
+    (port.SiliconMR(beta_tpa=0.5), ref.SiliconMR(beta_tpa=0.5)),
+    (port.SiliconMRLiteral(), ref.SiliconMRLiteral()),
+    (port.MackeyGlass(), ref.MackeyGlass()),
+    (port.MZISine(), ref.MZISine()),
+]
+IDS = ["mr", "mr_tpa", "literal", "mg", "mzi"]
+
+
+def _inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(-0.5, 1.5, shape).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=IDS)
+def test_node_update_matches_reference(pair):
+    pm, rm = pair
+    u, s_tau, s_pn = _inputs(1, (256,))
+    got = pm.node_update(*(torch.as_tensor(a) for a in (u, s_tau, s_pn)))
+    want = rm.node_update(*(jnp.asarray(a) for a in (u, s_tau, s_pn)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=IDS)
+def test_period_update_chains_node_update(pair):
+    """Within the port, period_update is exactly the node_update chain."""
+    pm, rm = pair
+    u, s_prev, _ = (torch.as_tensor(a) for a in _inputs(2, (4, 19)))
+    s_last = s_prev[:, -1]
+    got = pm.period_update(u, s_prev, s_last)
+    s_pn, chain = s_last, []
+    for i in range(u.shape[-1]):
+        s_pn = pm.node_update(u[:, i], s_prev[:, i], s_pn)
+        chain.append(s_pn)
+    assert torch.equal(got, torch.stack(chain, dim=-1))
+    want = rm.period_update(jnp.asarray(u.numpy()), jnp.asarray(s_prev.numpy()),
+                            jnp.asarray(s_last.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=IDS)
+def test_kernel_spec_rounds_constants_to_f32(pair):
+    pm, _ = pair
+    model_id, params = pm.kernel_spec()
+    assert model_id in (port.KERNEL_SILICON_MR, port.KERNEL_SILICON_MR_LITERAL,
+                        port.KERNEL_MACKEY_GLASS, port.KERNEL_MZI_SINE)
+    assert len(params) == 4
+    assert all(float(np.float32(p)) == p for p in params)
+
+
+def test_registry_and_names_match_reference():
+    assert set(port.MODEL_REGISTRY) >= {"silicon_mr", "silicon_mr_literal",
+                                        "mackey_glass", "mzi_sine"}
+    for key, cls in port.MODEL_REGISTRY.items():
+        if key in ref.MODEL_REGISTRY:
+            assert cls.__name__ == ref.MODEL_REGISTRY[key].__name__
+            assert cls().name == ref.MODEL_REGISTRY[key]().name
+    assert port.register_model("silicon_mr", port.SiliconMR) is port.SiliconMR
+    with pytest.raises(ValueError, match="already registered"):
+        port.register_model("silicon_mr", port.MZISine)
+
+
+@pytest.mark.parametrize("name", ["identity", "sat", "sin2"])
+def test_link_nonlinearities_match_reference(name):
+    p = np.linspace(-3, 3, 101).astype(np.float32)
+    got = port.LINK_NONLINEARITIES[name](torch.as_tensor(p))
+    want = ref.LINK_NONLINEARITIES[name](jnp.asarray(p))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
