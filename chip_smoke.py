@@ -16,11 +16,13 @@ Phases, each printing one JSON line:
    digitiser noise 0.003) over 64 seeds through the scan kernel (2
    launches) and the Gram kernel (1 launch), then channel equalisation at
    the paper's N = 30; NRMSE/SER held to the bands of tests/test_pipeline.py;
-   a stage breakdown (states, Gram, eigh solve, evaluation);
+   a stage breakdown of one more run, from the pipeline's own stage marks
+   (``repro_torch.pipeline.record_stages``);
 4. small end-to-end parity — kernel path vs the ``ref`` path (≤1e-3) and
    the Gram vs the SVD readout (≤5e-3) at N = 32, noise off;
 5. the ``kernels`` line: launches on the main path, error vs the plain
-   version, kernel / plain / library times and the roofline bound.
+   version, kernel / plain / library times and the roofline bound; and
+   the time of one bare ``torch.linalg.eigh`` of the main path's Gram.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -254,7 +256,10 @@ def phase_main_path(dev, narma, chan, card: str) -> dict:
           "run_wall_s_first": first_s, "run_wall_s_second": second_s})
 
     # Channel equalisation at the paper's N = 30 (quantized 4-PAM output).
-    # Asserted with the SVD readout; the Gram/eigh readout is reported too.
+    # Asserted with the SVD readout; the Gram/eigh readout is reported too:
+    # it misses the band in the JAX package as well, with the same SERs on
+    # the same states (tests/test_torch_experiment.py::
+    # test_chan_eq_paper_point_readouts_match_reference).
     chan_out = {}
     for use_kernel in (False, True):
         ccfg = ExperimentConfig(model=SiliconMR(), n_nodes=30, washout=WASHOUT, ridge_l2=LAMS,
@@ -276,39 +281,42 @@ def phase_main_path(dev, narma, chan, card: str) -> dict:
     return {"cfg": cfg, "exp": exp, "launches": launches}
 
 
-def phase_stages(dev, narma, cfg, exp, card: str) -> dict:
-    """Stage breakdown of the same run: the pipeline's own functions, each
-    timed on the host clock with a device synchronise around it."""
-    import torch
+def phase_stages(dev, narma, exp, card: str) -> None:
+    """Stage breakdown of one more ``Experiment.run`` of the main path,
+    recorded by the pipeline's own stage marks (host clock, a device
+    synchronise at each mark)."""
+    import numpy as np
 
-    from repro_torch.core import generate_states
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
     from repro_torch.kernels.ridge_gram import ops as gram_ops
-    from repro_torch.pipeline import solve_gcv, with_bias
-    from repro_torch.pipeline.experiment import (_add_state_noise, _canon_batch, _evaluate,
-                                                 _input_layer)
+    from repro_torch.pipeline import record_stages
+
+    scan_ops.dfr_scan.launches = 0
+    gram_ops.gram_accumulate_batched.launches = 0
+    with record_stages() as stages:
+        res, run_s = wall(lambda: exp.run(*narma))
+    launches = (scan_ops.dfr_scan.launches, gram_ops.gram_accumulate_batched.launches)
+    check(launches == (2, 1), f"timed run launches (scan, gram) = {launches}")
+    check(bool(np.all(res.nrmse < 0.72)), f"timed run NRMSE {res.nrmse}")
+    emit({"phase": "stages", "task": "narma10", "card": card, "B": B_MAIN, "N": N_MAIN,
+          "wall_s": stages, "run_wall_s": run_s,
+          "unmarked_s": run_s - sum(stages.values()),
+          "nrmse_mean": float(res.nrmse.mean())})
+
+
+def kernel_inputs(dev, narma, cfg, exp) -> dict:
+    """The kernels' inputs at the main path's shapes: the train split's
+    sample series j [B, K] and the features [B, T - washout, N + 1] with
+    their targets [B, T - washout, 1]."""
+    from repro_torch.core import generate_states
+    from repro_torch.pipeline import with_bias
+    from repro_torch.pipeline.experiment import _canon_batch, _input_layer
 
     tr_in = _canon_batch(narma[0], "inputs_train", dev)
-    te_in = _canon_batch(narma[2], "inputs_test", dev)
-    tr_tg = _canon_batch(narma[1], "targets_train", dev)
-    te_tg = _canon_batch(narma[3], "targets_test", dev)
-    stages = {}
-    (j_tr, j_te), stages["input_layer"] = wall(lambda: _input_layer(cfg, tr_in, te_in))
-    (st_tr, carry), stages["states_train"] = wall(lambda: generate_states(
-        cfg.model, j_tr, exp.mask, method="kernel", return_final=True, device=dev))
-    st_te, stages["states_test"] = wall(lambda: generate_states(
-        cfg.model, j_te, exp.mask, s0=carry, method="kernel", device=dev))
-    st_fit, stages["noise"] = wall(lambda: _add_state_noise(cfg, st_tr[:, WASHOUT:]))
-    x = with_bias(st_fit)
-    y = tr_tg[:, WASHOUT:, None]
-    (g, c), stages["gram"] = wall(lambda: gram_ops.gram_accumulate_batched(x, y))
-    y2 = torch.sum(y * y, dim=(1, 2))
-    (w_fit, _), stages["eigh_solve"] = wall(lambda: solve_gcv(g, c, y2, x.shape[1], LAMS))
-    (_, nrmse, _), stages["evaluation"] = wall(lambda: _evaluate(cfg, st_te, w_fit, te_tg))
-    eigh_only = wall(lambda: torch.linalg.eigh(g))[1]
-    emit({"phase": "stages", "task": "narma10", "card": card, "B": B_MAIN, "N": N_MAIN,
-          "wall_s": stages, "eigh_call_s": eigh_only,
-          "nrmse_mean": float(nrmse.mean())})
-    return {"j_tr": j_tr, "x": x, "y": y, "mask": exp.mask}
+    j_tr, _ = _input_layer(cfg, tr_in, tr_in)
+    states = generate_states(cfg.model, j_tr, exp.mask, method="kernel", device=dev)
+    y = _canon_batch(narma[1], "targets_train", dev)[:, WASHOUT:, None]
+    return {"j_tr": j_tr, "x": with_bias(states[:, WASHOUT:]), "y": y, "mask": exp.mask}
 
 
 def phase_parity(dev, tasks) -> None:
@@ -379,7 +387,9 @@ def phase_kernels_line(dev, data: dict, launches) -> None:
     gram_ms = cuda_ms(lambda: gram_ops.gram_accumulate_batched(x, y), reps=5)
     gram_plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(x, y), reps=5)
     gram_lib_ms = cuda_ms(lambda: torch.bmm(x.mT, x), reps=5)
-    gram_ops_n = 2 * bb * t * f * (f + cols)
+    # G is symmetric: the function needs F(F+1)/2 dot products over T (the
+    # kernel computes all F² of them), plus the F·C of c.
+    gram_ops_n = bb * t * f * (f + 1) + 2 * bb * t * f * cols
     gram_bytes = 4 * (bb * t * f + bb * t * cols + bb * f * f + bb * f * cols)
     gram_bound, gram_by = bound_ms(gram_bytes, gram_ops_n)
 
@@ -399,9 +409,11 @@ def phase_kernels_line(dev, data: dict, launches) -> None:
     into_plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(
         xs, ys, g0=g_run, c0=c_run), reps=5)
     into_lib_ms = cuda_ms(lambda: torch.baddbmm(g0, xs.mT, xs), reps=5)
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(g), reps=2)
     tc = t - split
     into_bound, into_by = bound_ms(4 * (bb * tc * (f + cols) + 2 * bb * f * (f + cols)),
-                                   2 * bb * tc * f * (f + cols))
+                                   bb * tc * f * (f + 1) + 2 * bb * tc * f * cols
+                                   + bb * (f * (f + 1) // 2 + f * cols))
     emit({"kernels": [
         {"name": "dfr_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/dfr_scan.cu",
          "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97", "launches": launches[0],
@@ -421,6 +433,8 @@ def phase_kernels_line(dev, data: dict, launches) -> None:
          "bound_ms": into_bound, "bound_by": into_by, "library_ms": into_lib_ms,
          "shape_btf": [bb, tc, f]},
     ]})
+    emit({"phase": "library", "call": "torch.linalg.eigh", "shape": list(g.shape),
+          "ms": eigh_ms})
 
 
 def main() -> int:
@@ -448,9 +462,10 @@ def main() -> int:
     phase_gram_checks(dev)
     narma, chan = main_inputs(tasks, B_MAIN)
     main = phase_main_path(dev, narma, chan, card)
-    data = phase_stages(dev, narma, main["cfg"], main["exp"], card)
+    phase_stages(dev, narma, main["exp"], card)
     phase_parity(dev, tasks)
-    phase_kernels_line(dev, data, main["launches"])
+    phase_kernels_line(dev, kernel_inputs(dev, narma, main["cfg"], main["exp"]),
+                       main["launches"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,7 @@ from ..core.reservoir import generate_states
 from ..core.tasks import SYMBOLS
 from ..device import resolve_device
 from .ridge import apply_readout, fit_ridge_batched
+from .stages import stage
 
 _SYMBOLS = tuple(float(s) for s in SYMBOLS)
 
@@ -194,20 +195,27 @@ def _evaluate(cfg: ExperimentConfig, st_te: torch.Tensor, w_fit: torch.Tensor,
 
 
 def _run_pipeline(cfg: ExperimentConfig, mask, tr_in, tr_tg, te_in, te_tg):
-    """The whole materialized experiment on the inputs' device."""
-    j_tr, j_te = _input_layer(cfg, tr_in, te_in)
+    """The whole materialized experiment on the inputs' device.  Each stage
+    is marked for ``stages.record_stages`` (the readout's marks are inside
+    ``fit_ridge_batched``)."""
     dev = tr_in.device
-    st_tr, s_carry = generate_states(cfg.model, j_tr, mask, method=cfg.state_method,
-                                     block_s=cfg.kernel_block_s, return_final=True,
-                                     device=dev)
-    st_te = generate_states(cfg.model, j_te, mask, s0=s_carry, method=cfg.state_method,
-                            block_s=cfg.kernel_block_s, device=dev)
+    with stage("input_layer", dev):
+        j_tr, j_te = _input_layer(cfg, tr_in, te_in)
+    with stage("states_train", dev):
+        st_tr, s_carry = generate_states(cfg.model, j_tr, mask, method=cfg.state_method,
+                                         block_s=cfg.kernel_block_s, return_final=True,
+                                         device=dev)
+    with stage("states_test", dev):
+        st_te = generate_states(cfg.model, j_te, mask, s0=s_carry, method=cfg.state_method,
+                                block_s=cfg.kernel_block_s, device=dev)
     w = cfg.washout
-    st_fit = _add_state_noise(cfg, st_tr[:, w:])
+    with stage("noise", dev):
+        st_fit = _add_state_noise(cfg, st_tr[:, w:])
     w_fit, lam_idx = fit_ridge_batched(st_fit, tr_tg[:, w:], lambdas=cfg.ridge_l2,
                                        use_kernel=cfg.readout_use_kernel,
                                        block_t=cfg.readout_block_t, device=dev)
-    y_out, nrmse, ser = _evaluate(cfg, st_te, w_fit, te_tg)
+    with stage("evaluation", dev):
+        y_out, nrmse, ser = _evaluate(cfg, st_te, w_fit, te_tg)
     lam = torch.tensor(cfg.ridge_l2, dtype=torch.float32, device=dev)[lam_idx]
     return (y_out if cfg.collect_y_pred else None), nrmse, ser, lam, w_fit
 
@@ -258,8 +266,9 @@ class Experiment:
             raise ValueError(
                 f"inconsistent batch shapes: train {tuple(tr_in.shape)}/"
                 f"{tuple(tr_tg.shape)}, test {tuple(te_in.shape)}/{tuple(te_tg.shape)}")
-        return _pack_result(*_run_pipeline(self.config, self.mask, tr_in, tr_tg,
-                                           te_in, te_tg))
+        out = _run_pipeline(self.config, self.mask, tr_in, tr_tg, te_in, te_tg)
+        with stage("pack", self.device):
+            return _pack_result(*out)
 
     def run_dataset(self, ds) -> ExperimentResult:
         """Convenience for a core.tasks Dataset (single instance, B = 1)."""

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from .stages import stage
 
 
 def with_bias(states: torch.Tensor) -> torch.Tensor:
@@ -155,15 +156,19 @@ def fit_ridge_batched(states, targets, *, lambdas: tuple[float, ...] = (1e-6,),
     states = torch.as_tensor(states, device=dev)
     targets = torch.as_tensor(targets, device=dev)
     y = targets[..., None] if targets.ndim == 2 else targets
-    x = with_bias(states)
+    with stage("bias", dev):
+        x = with_bias(states)
     if use_kernel:
         from ..kernels.ridge_gram import ops as gram_ops
 
-        g, c = gram_ops.gram_accumulate_batched(x, y.to(x.dtype), block_t=block_t)
-        y32 = y.to(torch.float32)
-        y2 = torch.sum(y32 * y32, dim=(1, 2))
-        return solve_gcv(g, c, y2, x.shape[1], tuple(lambdas))
-    return solve_gcv_svd(x, y, tuple(lambdas))
+        with stage("gram", dev):
+            g, c = gram_ops.gram_accumulate_batched(x, y.to(x.dtype), block_t=block_t)
+        with stage("solve", dev):
+            y32 = y.to(torch.float32)
+            y2 = torch.sum(y32 * y32, dim=(1, 2))
+            return solve_gcv(g, c, y2, x.shape[1], tuple(lambdas))
+    with stage("solve", dev):
+        return solve_gcv_svd(x, y, tuple(lambdas))
 
 
 def guard_readout(w_new: torch.Tensor, idx_new: torch.Tensor,

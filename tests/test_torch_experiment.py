@@ -16,6 +16,7 @@ to three times that.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -166,3 +167,95 @@ def test_gram_vs_svd_readout_gap_is_the_references_own():
     assert gaps["jax"].max() > 1e-3 and gaps["port"].max() > 1e-3, gaps
     assert gaps["jax"].max() <= 5e-3 and gaps["port"].max() <= 5e-3, gaps
     np.testing.assert_allclose(gaps["port"], gaps["jax"], atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def chan_paper_states():
+    """Chan-eq at the paper's Silicon MR point (configs: N = 30, 9000
+    symbols at 24 dB, washout 60) for 8 seeds: the JAX package's states
+    (fit split after washout, test split) and the targets, as numpy."""
+    from repro.core import generate_states as jgen
+    from repro.core import make_mask as jmask
+    from repro.core import sample_and_hold as jhold
+
+    tr, ytr, te, yte = _stack([jtasks.channel_equalization(9000, seed=s) for s in range(8)])
+    lo = tr.min(axis=1, keepdims=True)
+    scale = 1.0 / (tr.max(axis=1, keepdims=True) - lo + 1e-12)
+    mask = jmask(30, seed=1)
+    st_tr, fin = jgen(JMR(), jhold(np.float32((tr - lo) * scale)), mask, method="fast",
+                      return_final=True)
+    st_te = jgen(JMR(), jhold(np.float32((te - lo) * scale)), mask, s0=fin, method="fast")
+    return np.asarray(st_tr)[:, 60:], np.float32(ytr[:, 60:]), np.asarray(st_te), yte
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.003], ids=["noise_off", "noise_on"])
+def test_chan_eq_paper_point_readouts_match_reference(chan_paper_states, noise):
+    """At the paper's chan-eq point (N = 30, the λ grid) the Gram/eigh
+    readout misses the SER band (< 0.16 each, mean < 0.13) in the JAX
+    package, and the port's Gram op + eigh solve gives the same SERs; the
+    SVD readout meets the band in both.  So the miss is the reference's
+    f32 eigh-of-G algorithm (cond(X) squared), not the port's Gram or solve.
+
+    Both packages fit the same f32 states; with noise on, the same numpy
+    draw of the digitiser noise is added for both.  Per instance the SERs
+    must agree to 0.005 (15 of the 3000 test symbols).  The reference's own
+    spread is about a third of that: fitting its Gram from an XLA matmul
+    instead of its Pallas kernel (another f32 summation order) moves the
+    SER of these seeds by up to 0.0017 (measured on CPU), because the GCV
+    scores of neighbouring λ nearly tie and the pick flips.
+    """
+    import jax.numpy as jnp
+
+    from repro.pipeline import ridge as jridge
+    from repro_torch.pipeline import fit_ridge_batched
+
+    st_fit, y_fit, st_te, y_te = chan_paper_states
+    if noise:
+        rng = np.random.default_rng(7)
+        sigma = noise * st_fit.std(axis=(1, 2), keepdims=True)
+        st_fit = np.float32(st_fit + sigma * rng.standard_normal(st_fit.shape))
+    symbols = np.array([-3.0, -1.0, 1.0, 3.0])
+
+    def ser(w):
+        y = np.einsum("btn,bn->bt", st_te, w[:, :-1, 0]) + w[:, -1:, 0]
+        near = np.argmin(np.abs(y[..., None] - symbols), axis=-1)
+        return np.mean(symbols[near] != y_te, axis=1)
+
+    sers = {}
+    for use_kernel in (False, True):
+        w_jax, _ = jridge.fit_ridge_batched(jnp.asarray(st_fit), jnp.asarray(y_fit),
+                                            lambdas=LAMS, use_kernel=use_kernel)
+        w_port, _ = fit_ridge_batched(torch.tensor(st_fit), torch.tensor(y_fit),
+                                      lambdas=LAMS, use_kernel=use_kernel, device="cpu")
+        sers[use_kernel] = ser(np.asarray(w_jax)), ser(w_port.numpy())
+    for use_kernel, (s_jax, s_port) in sers.items():
+        assert np.all(np.abs(s_port - s_jax) <= 0.005), (use_kernel, s_jax, s_port)
+    for s in sers[False]:      # SVD readout: the band is met
+        assert np.all(s < 0.16) and s.mean() < 0.13, s
+    for s in sers[True]:       # Gram/eigh readout: missed, in both packages
+        assert s.mean() >= 0.13, s
+
+
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["svd", "gram"])
+def test_record_stages_times_every_stage_of_one_run(narma_small, use_kernel):
+    from repro_torch.pipeline import record_stages
+
+    cfg = ExperimentConfig(model=SiliconMR(), n_nodes=8, washout=40, ridge_l2=LAMS,
+                           state_method="kernel", readout_use_kernel=use_kernel)
+    exp = Experiment(cfg, device="cpu")
+    plain = exp.run(*narma_small)
+    t0 = time.perf_counter()
+    with record_stages() as seconds:
+        timed = exp.run(*narma_small)
+        with pytest.raises(RuntimeError, match="already active"):
+            with record_stages():
+                pass
+    wall = time.perf_counter() - t0
+    expected = {"input_layer", "states_train", "states_test", "noise", "bias", "solve",
+                "evaluation", "pack"} | ({"gram"} if use_kernel else set())
+    assert set(seconds) == expected
+    assert all(s >= 0.0 for s in seconds.values()) and sum(seconds.values()) <= wall
+    np.testing.assert_array_equal(timed.nrmse, plain.nrmse)
+    with record_stages() as after:
+        pass
+    assert after == {}
