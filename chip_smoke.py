@@ -20,9 +20,23 @@ Phases, each printing one JSON line:
    (``repro_torch.pipeline.record_stages``);
 4. small end-to-end parity — kernel path vs the ``ref`` path (≤1e-3) and
    the Gram vs the SVD readout (≤5e-3) at N = 32, noise off;
-5. the ``kernels`` line: launches on the main path, error vs the plain
-   version, kernel / plain / library times and the roofline bound; and
-   the time of one bare ``torch.linalg.eigh`` of the main path's Gram.
+5. the streaming fused path at the same NARMA10 point (chunk 256, the
+   noise as its expected Tikhonov diagonal): K1 once per chunk, K3 once per
+   fit chunk, launches (8, 0, 4); bf16 chunks within 0.06 NRMSE of f32;
+   noise off, the streamed Gram bitwise equal to the materialized K2 Gram
+   and the NRMSE within 1e-5; a stage breakdown of one streamed run;
+6. a long stream (K = 20000 a split): the streamed run's peak device memory
+   under a quarter of one split's [B, K, N] f32 state tensor, beside the
+   materialized run's peak;
+7. WDM ensembles (R = 64 channels, N = 100, K = 10000 a split): K1 in its
+   per-lane mode once per chunk, streamed vs materialized within 1e-5
+   NRMSE per channel; the shared readout (R = 8, F = 801) against the same
+   fit folded with plain matmuls;
+8. the ``kernels`` line: each kernel at the shapes of the path it rides,
+   its launches on that path, error vs the plain version (K1 also on a
+   chunk resumed from a carry and on a whole materialized split), kernel /
+   plain / library times and the roofline bound; and the time of one bare
+   ``torch.linalg.eigh`` of the main path's Gram.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -31,6 +45,8 @@ no CUDA device is available or the port's package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -51,6 +67,20 @@ WASHOUT = 60
 # f32 ops of one SiliconMR node step: u, drive (2), alpha, charge,
 # discharge (2), compare, select
 SCAN_OPS_PER_STEP = 9
+STREAM_CHUNK = 256
+N_WDM = 100
+# the shared readout (F = 801), folded by K3 and by plain matmuls.  The gate
+# on K3 there is each Gram's error against the bound of an f32 sum
+# ("gram_error_vs_bound" ≤ 1).  The NRMSE gap between the two fits is no
+# kernel check: it shows how far the ill-conditioned f32 solve (cond ≈ 8e8,
+# one input drives all 8 channels) spreads two f32 sums taken in another
+# order (≈ 0.012; the float64 fit reads 0.540 and both f32 fits 0.569–0.581,
+# PERF.md).  SHARED_TOL only catches a readout far off either.
+SHARED_TOL = 0.03
+# two λ whose GCV scores differ by less than this (relative) tie: ‖y‖² summed
+# in another order moves a score by ~1e-7 relative, a few times that after
+# the cancellation in ‖y − ŷ‖²
+GCV_TIE_RTOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -105,6 +135,44 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.kernels.ridge_gram import ops as gram_ops
+
+    scan_ops.dfr_scan.launches = 0
+    gram_ops.gram_accumulate_batched.launches = 0
+    gram_ops.gram_accumulate_batched_into.launches = 0
+
+
+def launch_counts() -> tuple[int, int, int]:
+    """(K1 dfr_scan, K2 ridge_gram, K3 ridge_gram_into) launches so far."""
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.kernels.ridge_gram import ops as gram_ops
+
+    return (scan_ops.dfr_scan.launches, gram_ops.gram_accumulate_batched.launches,
+            gram_ops.gram_accumulate_batched_into.launches)
+
+
+@contextlib.contextmanager
+def solved_grams():
+    """Record a copy of every (G, c, ‖y‖², sample count) the pipeline hands
+    its GCV solve."""
+    from repro_torch.pipeline import ridge
+
+    seen = []
+    solve = ridge.solve_gcv
+
+    def spy(g, c, y2, n_samples, lambdas):
+        seen.append((g.clone(), c.clone(), y2.clone(), n_samples))
+        return solve(g, c, y2, n_samples, lambdas)
+
+    ridge.solve_gcv = spy
+    try:
+        yield seen
+    finally:
+        ridge.solve_gcv = solve
 
 
 def phase_build(card: str) -> None:
@@ -218,29 +286,17 @@ def main_inputs(tasks, n_seeds: int):
 def phase_main_path(dev, narma, chan, card: str) -> dict:
     """The paper's claims path at full width, through the kernels."""
     import numpy as np
-    import torch
 
     from repro_torch.core import SiliconMR
-    from repro_torch.kernels.dfr_scan import ops as scan_ops
-    from repro_torch.kernels.ridge_gram import ops as gram_ops
     from repro_torch.pipeline import Experiment, ExperimentConfig
 
     cfg = ExperimentConfig(model=SiliconMR(), n_nodes=N_MAIN, washout=WASHOUT, ridge_l2=LAMS,
                            state_method="kernel", readout_use_kernel=True)
     exp = Experiment(cfg, device=dev)
 
-    def counts():
-        return (scan_ops.dfr_scan.launches, gram_ops.gram_accumulate_batched.launches,
-                gram_ops.gram_accumulate_batched_into.launches)
-
-    def reset():
-        scan_ops.dfr_scan.launches = 0
-        gram_ops.gram_accumulate_batched.launches = 0
-        gram_ops.gram_accumulate_batched_into.launches = 0
-
-    reset()
+    reset_counts()
     res, first_s = wall(lambda: exp.run(*narma))
-    launches = counts()
+    launches = launch_counts()
     check(launches == (2, 1, 0), f"NARMA10 launches (scan, gram, into) = {launches}")
     check(bool(np.all(np.isfinite(res.nrmse))), "NARMA10 NRMSE finite")
     check(res.y_pred.shape == (B_MAIN, 1000), f"y_pred shape {res.y_pred.shape}")
@@ -265,9 +321,9 @@ def phase_main_path(dev, narma, chan, card: str) -> dict:
         ccfg = ExperimentConfig(model=SiliconMR(), n_nodes=30, washout=WASHOUT, ridge_l2=LAMS,
                                 quantize=True, state_method="kernel",
                                 readout_use_kernel=use_kernel)
-        reset()
+        reset_counts()
         cres, cs = wall(lambda: Experiment(ccfg, device=dev).run(*chan))
-        claunch = counts()
+        claunch = launch_counts()
         check(claunch == (2, int(use_kernel), 0), f"chan-eq launches {claunch}")
         check(set(np.unique(cres.y_pred)) <= {-3.0, -1.0, 1.0, 3.0}, "chan-eq symbols")
         if not use_kernel:
@@ -287,36 +343,18 @@ def phase_stages(dev, narma, exp, card: str) -> None:
     synchronise at each mark)."""
     import numpy as np
 
-    from repro_torch.kernels.dfr_scan import ops as scan_ops
-    from repro_torch.kernels.ridge_gram import ops as gram_ops
     from repro_torch.pipeline import record_stages
 
-    scan_ops.dfr_scan.launches = 0
-    gram_ops.gram_accumulate_batched.launches = 0
+    reset_counts()
     with record_stages() as stages:
         res, run_s = wall(lambda: exp.run(*narma))
-    launches = (scan_ops.dfr_scan.launches, gram_ops.gram_accumulate_batched.launches)
+    launches = launch_counts()[:2]
     check(launches == (2, 1), f"timed run launches (scan, gram) = {launches}")
     check(bool(np.all(res.nrmse < 0.72)), f"timed run NRMSE {res.nrmse}")
     emit({"phase": "stages", "task": "narma10", "card": card, "B": B_MAIN, "N": N_MAIN,
           "wall_s": stages, "run_wall_s": run_s,
           "unmarked_s": run_s - sum(stages.values()),
           "nrmse_mean": float(res.nrmse.mean())})
-
-
-def kernel_inputs(dev, narma, cfg, exp) -> dict:
-    """The kernels' inputs at the main path's shapes: the train split's
-    sample series j [B, K] and the features [B, T - washout, N + 1] with
-    their targets [B, T - washout, 1]."""
-    from repro_torch.core import generate_states
-    from repro_torch.pipeline import with_bias
-    from repro_torch.pipeline.experiment import _canon_batch, _input_layer
-
-    tr_in = _canon_batch(narma[0], "inputs_train", dev)
-    j_tr, _ = _input_layer(cfg, tr_in, tr_in)
-    states = generate_states(cfg.model, j_tr, exp.mask, method="kernel", device=dev)
-    y = _canon_batch(narma[1], "targets_train", dev)[:, WASHOUT:, None]
-    return {"j_tr": j_tr, "x": with_bias(states[:, WASHOUT:]), "y": y, "mask": exp.mask}
 
 
 def phase_parity(dev, tasks) -> None:
@@ -355,27 +393,353 @@ def phase_parity(dev, tasks) -> None:
     emit({"phase": "parity", "N": 32, "B": 8, "nrmse_max_abs_diff": diffs})
 
 
-def phase_kernels_line(dev, data: dict, launches) -> None:
-    """Per-kernel times at the main path's shapes, errors, bounds."""
+def streamed_vs_materialized(what: str, grams, res_s, res_m) -> dict:
+    """Noise off, the streamed (G, c) equal the materialized K2's bitwise.
+    ‖y‖² is summed chunk by chunk on one path and in one pass on the other,
+    so the two GCV picks can differ where two λ tie to f32 round-off: where
+    the λ agree, w must be bitwise equal and the NRMSE within 1e-5; where
+    they differ, each run must score the other's λ within GCV_TIE_RTOL of
+    its own pick."""
+    import numpy as np
     import torch
 
+    from repro_torch.pipeline.ridge import gcv_path
+
+    (g_s, c_s, y2_s, n_s), (g_m, c_m, y2_m, n_m) = grams
+    check(torch.equal(g_s, g_m) and torch.equal(c_s, c_m),
+          f"{what}: streamed Gram vs materialized K2 Gram: G {max_err(g_s, g_m)}, "
+          f"c {max_err(c_s, c_m)}")
+    same = res_s.lam == res_m.lam
+    gap = np.abs(res_s.nrmse - res_m.nrmse)
+    gap_same = float(gap[same].max()) if same.any() else 0.0
+    check(gap_same <= 1e-5, f"{what}: streamed vs materialized NRMSE where λ agrees {gap_same}")
+    w_bitwise = bool(np.array_equal(res_s.readout_w[same], res_m.readout_w[same]))
+    check(w_bitwise, f"{what}: w differs where λ agrees")
+    lams = np.asarray(LAMS, dtype=np.float32)
+    ties = []
+    for i in np.flatnonzero(~same):
+        pick = {"streamed": int(np.argmin(np.abs(lams - res_s.lam[i]))),
+                "materialized": int(np.argmin(np.abs(lams - res_m.lam[i])))}
+        rel = {}
+        for name, (g, c, y2, n), other in (("streamed", grams[0], "materialized"),
+                                           ("materialized", grams[1], "streamed")):
+            score = gcv_path(g[i], c[i], y2[i], n, LAMS)[1]
+            rel[name] = float((score[pick[other]] - score[pick[name]]) / score[pick[name]])
+            check(rel[name] <= GCV_TIE_RTOL,
+                  f"{what}: instance {i} λ flip is no GCV tie ({name} {rel[name]})")
+        ties.append({"instance": int(i), "lam": {k: float(LAMS[v]) for k, v in pick.items()},
+                     "gcv_rel_gap": rel, "nrmse_gap": float(gap[i])})
+    return {"gram_bitwise": True, "lam_agrees": int(same.sum()), "instances": int(same.size),
+            "nrmse_max_gap_where_lam_agrees": gap_same, "nrmse_max_gap": float(gap.max()),
+            "w_bitwise_where_lam_agrees": w_bitwise, "y2_max_rel_gap":
+            float(((y2_s - y2_m).abs() / y2_m.abs()).max()), "gcv_ties": ties}
+
+
+def shared_features(cfg, masks, tr, te, dev):
+    """The shared readout's features, materialized: the fit rows of the
+    train split (after the washout) and the test split, [T, R·N + 1] each
+    (channel-major, bias last)."""
+    from repro_torch.pipeline import channel_states, with_bias
+    from repro_torch.pipeline.experiment import _canon_batch, _input_layer
+
+    j_tr, j_te = _input_layer(cfg, _canon_batch(tr, "inputs_train", dev),
+                              _canon_batch(te, "inputs_test", dev))
+    st_tr, fin = channel_states(cfg.model, j_tr, masks, method="kernel", return_final=True,
+                                device=dev)
+    st_te = channel_states(cfg.model, j_te, masks, s0=fin, method="kernel", device=dev)
+
+    def features(st):
+        r, k, n = st.shape
+        return with_bias(st.movedim(0, 1).reshape(k, r * n))
+
+    return features(st_tr)[cfg.washout:], features(st_te)
+
+
+def f64_ridge(x, y, x_te, y_te, lam: float) -> dict:
+    """The ridge fit at one λ in float64 (the port's λ' = λ·tr(G)/F): its
+    test NRMSE and the condition number of the regularised system."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.metrics import nrmse
+
+    x64 = x.double()
+    g = x64.mT @ x64
+    lamp = lam * float(torch.trace(g)) / g.shape[-1]
+    ev = torch.linalg.eigvalsh(g)
+    w = torch.linalg.solve(g + lamp * torch.eye(g.shape[-1], dtype=g.dtype, device=g.device),
+                           x64.mT @ y.double())
+    pred = (x_te.double() @ w)[:, 0].cpu().numpy()
+    return {"nrmse": float(nrmse(np.asarray(y_te, dtype=np.float64), pred)),
+            "cond": float((ev[-1] + lamp) / (ev[0].clamp(min=0) + lamp))}
+
+
+def gram_error_ratio(g, c, x, y) -> float:
+    """The largest error of (G, c) against the float64 XᵀX and Xᵀy (X
+    [..., T, F]), as a share of the classical bound on an f32 sum of T
+    products,
+    γ_T·|X|ᵀ|X| with γ_T = T·u/(1 − T·u), u = 2⁻²⁴.  Above 1, the sums
+    are wrong, not merely rounded."""
+    import torch
+
+    t = x.shape[-2]
+    u = 2.0 ** -24
+    gamma = t * u / (1 - t * u)
+    x64, y64 = x.double(), y.double()
+    tiny = torch.finfo(torch.float64).tiny
+    return max(float(((got.double() - exact).abs() / (gamma * mag + tiny)).max())
+               for got, exact, mag in ((g, x64.mT @ x64, x64.abs().mT @ x64.abs()),
+                                       (c, x64.mT @ y64, x64.abs().mT @ y64.abs())))
+
+
+def stream_config(**kw):
+    """The streaming fused path at the main path's NARMA10 point."""
     from repro_torch.core import SiliconMR
+    from repro_torch.pipeline import ExperimentConfig
+
+    base = dict(model=SiliconMR(), n_nodes=N_MAIN, washout=WASHOUT, ridge_l2=LAMS,
+                state_method="kernel", readout_use_kernel=True, stream_chunk_k=STREAM_CHUNK,
+                state_noise_mode="diagonal", state_noise_rel=0.003)
+    base.update(kw)
+    return ExperimentConfig(**base)
+
+
+def phase_streaming(dev, narma, card: str) -> dict:
+    """NARMA10 at the paper's point on the streaming fused path: 1000/1000
+    periods in chunks of 256 (the train split ends in a ragged chunk of
+    232), through K1 once per chunk and K3 once per fit chunk."""
+    import numpy as np
+
+    from repro_torch.pipeline import Experiment, record_stages
+
+    cfg = stream_config()
+    exp = Experiment(cfg, device=dev)
+    reset_counts()
+    res, first_s = wall(lambda: exp.run(*narma))
+    launches = launch_counts()
+    check(launches == (8, 0, 4), f"streamed launches (scan, gram, into) = {launches}")
+    check(bool(np.all(np.isfinite(res.nrmse))), "streamed NRMSE finite")
+    check(res.y_pred.shape == (B_MAIN, 1000), f"streamed y_pred shape {res.y_pred.shape}")
+    check(bool(np.all(res.nrmse < 0.72)), f"streamed NRMSE per instance {res.nrmse}")
+    check(float(res.nrmse.mean()) < 0.65, f"streamed mean NRMSE {res.nrmse.mean()}")
+    _, steady_s = wall(lambda: exp.run(*narma))
+
+    # bf16 state chunks: within the drift bound of DESIGN.md §9
+    res16 = Experiment(dataclasses.replace(cfg, stream_state_dtype="bfloat16"),
+                       device=dev).run(*narma)
+    drift = float(np.abs(res16.nrmse - res.nrmse).max())
+    check(drift <= 0.06, f"bf16 vs f32 streamed NRMSE drift {drift}")
+
+    # noise off: the streamed Gram IS the materialized K2 Gram, bitwise
+    off = dataclasses.replace(cfg, state_noise_rel=0.0)
+    with solved_grams() as grams:
+        res_s = Experiment(off, device=dev).run(*narma)
+        res_m = Experiment(dataclasses.replace(off, stream_chunk_k=None), device=dev).run(*narma)
+    noise_off = streamed_vs_materialized("NARMA10", grams, res_s, res_m)
+    noise_off["nrmse_mean"] = float(res_s.nrmse.mean())
+
+    reset_counts()
+    with record_stages() as stages:
+        rec, run_s = wall(lambda: exp.run(*narma))
+    check(launch_counts() == (8, 0, 4), f"recorded streamed run launches {launch_counts()}")
+    check(bool(np.array_equal(rec.nrmse, res.nrmse)), "recorded streamed run NRMSE differs")
+    emit({"phase": "streaming", "task": "narma10", "card": card, "B": B_MAIN, "N": N_MAIN,
+          "chunk": STREAM_CHUNK, "noise": "diagonal 0.003",
+          "launches": {"dfr_scan": launches[0], "ridge_gram": launches[1],
+                       "ridge_gram_into": launches[2]},
+          "nrmse_mean": float(res.nrmse.mean()), "nrmse_max": float(res.nrmse.max()),
+          "run_wall_s_first": first_s, "run_wall_s_steady": steady_s,
+          "bf16_nrmse_max_drift": drift, "bf16_nrmse_mean": float(res16.nrmse.mean()),
+          "noise_off": noise_off,
+          "stages_wall_s": stages, "stages_run_wall_s": run_s,
+          "unmarked_s": run_s - sum(v for k, v in stages.items()
+                                    if k not in ("stream_states", "stream_fold"))})
+    return {"launches": launches, "exp": exp}
+
+
+def phase_long_stream(dev, tasks, card: str) -> None:
+    """K = 20000 a split, noise off: the streamed run's peak device memory
+    stays under a quarter of one split's [B, K, N] f32 state tensor."""
+    import numpy as np
+    import torch
+
+    from repro_torch.pipeline import Experiment
+
+    long = stack([tasks.narma10(40000, seed=s) for s in range(B_MAIN)])
+    k_split = long[0].shape[1]
+    state_bytes = B_MAIN * k_split * N_MAIN * 4
+    peaks, walls, nrmse = {}, {}, {}
+    for name, chunk in (("streamed", STREAM_CHUNK), ("materialized", None)):
+        exp = Experiment(stream_config(state_noise_rel=0.0, stream_chunk_k=chunk), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        res, walls[name] = wall(lambda: exp.run(*long))
+        peaks[name] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                       "allocated_before": before}
+        nrmse[name] = res.nrmse
+        check(bool(np.all(np.isfinite(res.nrmse))), f"long {name} NRMSE finite")
+    peak = peaks["streamed"]["peak_bytes"]
+    check(peak < state_bytes / 4, f"streamed peak {peak} B >= a quarter of {state_bytes} B")
+    emit({"phase": "long_stream", "card": card, "B": B_MAIN, "N": N_MAIN, "K_split": k_split,
+          "chunk": STREAM_CHUNK, "state_tensor_bytes_per_split": state_bytes,
+          "memory": peaks, "wall_s": walls,
+          "nrmse_mean": {k: float(v.mean()) for k, v in nrmse.items()},
+          "nrmse_max_gap": float(np.abs(nrmse["streamed"] - nrmse["materialized"]).max())})
+
+
+def phase_wdm(dev, tasks, card: str) -> dict:
+    """WDM ensembles: R = 64 channels of N = 100 on K = 10000 a split, K1
+    in its per-lane mode; then the shared readout at R = 8 (F = 801)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.pipeline import WDMExperiment
+
+    chans = stack([tasks.narma10(20000, seed=r) for r in range(B_MAIN)])
+    cfg = stream_config(n_nodes=N_WDM, state_noise_rel=0.0)
+    n_chunks = -(-chans[0].shape[1] // STREAM_CHUNK)
+    exp_s = WDMExperiment(cfg, B_MAIN, device=dev)
+    with solved_grams() as grams:
+        reset_counts()
+        res_s, stream_s = wall(lambda: exp_s.run(*chans))
+        launches = launch_counts()
+        check(launches == (2 * n_chunks, 0, n_chunks), f"streamed WDM launches {launches}")
+        reset_counts()
+        res_m, mat_s = wall(lambda: WDMExperiment(dataclasses.replace(cfg, stream_chunk_k=None),
+                                                  B_MAIN, device=dev).run(*chans))
+        check(launch_counts() == (2, 1, 0), f"materialized WDM launches {launch_counts()}")
+    check(bool(np.all(np.isfinite(res_s.nrmse))), "WDM NRMSE finite")
+    vs_materialized = streamed_vs_materialized("WDM", grams, res_s, res_m)
+
+    emit({"phase": "wdm", "card": card, "R": B_MAIN, "N": N_WDM,
+          "K_split": chans[0].shape[1], "chunk": STREAM_CHUNK,
+          "launches": {"dfr_scan": launches[0], "ridge_gram": launches[1],
+                       "ridge_gram_into": launches[2]},
+          "nrmse_mean": float(res_s.nrmse.mean()), "nrmse_max": float(res_s.nrmse.max()),
+          "streamed_vs_materialized": vs_materialized,
+          "wall_s": {"streamed": stream_s, "materialized": mat_s}})
+    # shared readout: 8 channels (8 masks) observe one NARMA10 stream, one
+    # readout over their 801 features; the same fit with the Gram folded by
+    # plain matmuls instead of K3.  Both Grams are held to the error bound
+    # of an f32 sum against the float64 Gram of the same features.
+    r = 8
+    tr = np.repeat(chans[0][:1], r, axis=0)
+    te = np.repeat(chans[2][:1], r, axis=0)
+    shared = {}
+    with solved_grams() as grams:
+        for name, use_kernel in (("kernel", True), ("plain", False)):
+            reset_counts()
+            exp = WDMExperiment(dataclasses.replace(cfg, readout_use_kernel=use_kernel), r,
+                                shared_readout=True, device=dev)
+            res = exp.run(tr, chans[1][0], te, chans[3][0])
+            check(launch_counts() == (2 * n_chunks, 0, n_chunks if use_kernel else 0),
+                  f"shared readout ({name}) launches {launch_counts()}")
+            check(res.readout_w.shape == (1, r * N_WDM + 1) and bool(np.isfinite(res.nrmse).all()),
+                  f"shared readout ({name}) {res.readout_w.shape} {res.nrmse}")
+            shared[name] = {"nrmse": float(res.nrmse[0]), "lam": float(res.lam[0])}
+    x, x_te = shared_features(cfg, exp.masks, tr, te, dev)
+    y = torch.as_tensor(chans[1][0][cfg.washout:, None], dtype=torch.float32, device=dev)
+    for (g, c, *_), name in zip(grams, ("kernel", "plain")):
+        shared[name]["gram_error_vs_bound"] = gram_error_ratio(g[0], c[0], x, y)
+    shared["nrmse_gap"] = abs(shared["kernel"]["nrmse"] - shared["plain"]["nrmse"])
+    shared["float64_at_kernel_lam"] = f64_ridge(x, y, x_te, chans[3][0],
+                                                shared["kernel"]["lam"])
+    emit({"phase": "wdm_shared", "card": card, "R": r, "F": r * N_WDM + 1,
+          "K_split": chans[0].shape[1], **shared, "tolerance": SHARED_TOL})
+    for name in ("kernel", "plain"):
+        check(shared[name]["gram_error_vs_bound"] <= 1.0,
+              f"shared Gram ({name}) outside the f32 sum's error bound")
+    check(shared["nrmse_gap"] <= SHARED_TOL,
+          f"shared readout kernel vs plain fold NRMSE {shared['nrmse_gap']}")
+    return {"launches": launches, "chans": chans, "cfg": cfg, "masks": exp_s.masks}
+
+
+def phase_kernels_line(dev, narma, paths: dict) -> None:
+    """Each kernel at the shapes of the path it rides, with that path's
+    launch count: K1 at one streamed chunk (broadcast mask, N = 900) and in
+    its per-lane mode at one WDM chunk (N = 100); K2 at the main path's
+    Gram; K3 at one streamed fold chunk.
+
+    K1 is held to its plain version at ≤ 1e-6 where its paths launch it:
+    on chunk 1 of the stream, resumed from the kernel's carry after chunk
+    0 (f32 states and carry; bf16 states within half a bf16 ulp of the
+    plain f32 state), and on a whole split from a zero state, as the
+    materialized paths launch it (NARMA10 [64, 1000, 900], WDM
+    [64, 10000, 100]).  ``plain_ms`` is the plain version's time on the
+    chunk."""
+    import torch
+
+    from repro_torch.core import generate_states
     from repro_torch.kernels.dfr_scan import ops as scan_ops
     from repro_torch.kernels.ridge_gram import ops as gram_ops
+    from repro_torch.pipeline import with_bias
+    from repro_torch.pipeline.experiment import _canon_batch, _input_layer
 
-    model, j, mask = SiliconMR(), data["j_tr"], data["mask"]
-    b, k = j.shape
-    n = mask.shape[0]
-    s0 = torch.zeros((b, n), dtype=torch.float32, device=dev)
-    out = scan_ops.dfr_scan(model, j, mask, s0)
-    (ref, _), plain_s = wall(lambda: scan_ops.dfr_scan_plain(model, j, mask, s0))
-    scan_err = max_err(out, ref)
-    check(scan_err <= 1e-6, f"scan vs plain at the main shape: {scan_err}")
-    scan_ms = cuda_ms(lambda: scan_ops.dfr_scan(model, j, mask, s0), reps=3)
-    scan_bytes = 4 * (b * k + n + 2 * b * n + b * k * n)
-    scan_bound, scan_by = bound_ms(scan_bytes, SCAN_OPS_PER_STEP * b * k * n)
+    cfg, exp = paths["main"]["cfg"], paths["main"]["exp"]
+    model = cfg.model
+    tr_in = _canon_batch(narma[0], "inputs_train", dev)
+    j_tr, _ = _input_layer(cfg, tr_in, tr_in)
+    y_tr = _canon_batch(narma[1], "targets_train", dev)[..., None]
+    rows = []
 
-    x, y = data["x"], data["y"]
+    def scan_row(name, j, mask, launches, path):
+        b, k = j.shape
+        n = mask.shape[-1]
+        zero = torch.zeros((b, n), dtype=torch.float32, device=dev)
+        checks = []
+        # chunk 1, resumed from the kernel's carry after chunk 0
+        _, carry = scan_ops.dfr_scan(model, j[:, :STREAM_CHUNK], mask, zero, return_final=True)
+        j1 = j[:, STREAM_CHUNK:2 * STREAM_CHUNK].contiguous()
+        out, fin = scan_ops.dfr_scan(model, j1, mask, carry, return_final=True)
+        out16 = scan_ops.dfr_scan(model, j1, mask, carry, out_dtype=torch.bfloat16)
+        (ref, ref_fin), plain_s = wall(lambda: scan_ops.dfr_scan_plain(model, j1, mask, carry))
+        err = max(max_err(out, ref), max_err(fin, ref_fin))
+        # rounding an f32 state to bf16 (8 significant bits) moves it by at most
+        # 2^-8 of itself
+        bf16_excess = float(((out16.float() - ref).abs() - ref.abs() * 2.0 ** -8).max())
+        checks.append({"what": "chunk 1 from the carry of chunk 0",
+                       "shape_bkn": [b, STREAM_CHUNK, n], "max_abs_err": err,
+                       "bf16_err_beyond_half_ulp": bf16_excess, "plain_s": plain_s})
+        check(err <= 1e-6, f"{name} vs plain on a resumed chunk: {err}")
+        check(bf16_excess <= 2e-6, f"{name} bf16 states vs plain: {bf16_excess} beyond half an ulp")
+        del out, out16, ref
+        # the whole split from a zero state
+        out = scan_ops.dfr_scan(model, j, mask, zero)
+        (ref, _), full_s = wall(lambda: scan_ops.dfr_scan_plain(model, j, mask, zero))
+        err_full = max_err(out, ref)
+        checks.append({"what": "whole split from zero", "shape_bkn": [b, k, n],
+                       "max_abs_err": err_full, "plain_s": full_s})
+        check(err_full <= 1e-6, f"{name} vs plain on a whole split: {err_full}")
+        del out, ref
+        ms = cuda_ms(lambda: scan_ops.dfr_scan(model, j1, mask, carry), reps=5)
+        bound, by = bound_ms(4 * (b * STREAM_CHUNK + mask.numel() + 2 * b * n
+                                  + b * STREAM_CHUNK * n),
+                             SCAN_OPS_PER_STEP * b * STREAM_CHUNK * n)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/dfr_scan.cu",
+                     "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97",
+                     "launches": launches, "path": path,
+                     "max_abs_err": max(c["max_abs_err"] for c in checks), "ms": ms,
+                     "plain_ms": plain_s * 1e3, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None, "shape_bkn": [b, STREAM_CHUNK, n], "checks": checks})
+
+    scan_row("dfr_scan", j_tr, exp.mask, paths["streaming"]["launches"][0],
+             "streaming NARMA10, one launch per chunk")
+    wdm = paths["wdm"]
+    chans = wdm["chans"]
+    j_wdm, _ = _input_layer(wdm["cfg"], _canon_batch(chans[0], "inputs_train", dev),
+                            _canon_batch(chans[2], "inputs_test", dev))
+    scan_row("dfr_scan_per_lane", j_wdm, wdm["masks"], wdm["launches"][0],
+             "streaming WDM, one per-lane launch per chunk")
+    del j_wdm
+
+    # K2 at the main path's Gram: features [B, T - washout, N + 1]
+    states = generate_states(model, j_tr, exp.mask, method="kernel", device=dev)
+    x = with_bias(states[:, WASHOUT:])
+    y = y_tr[:, WASHOUT:]
+    del states
     bb, t, f = x.shape
     cols = y.shape[-1]
     g, c = gram_ops.gram_accumulate_batched(x, y)
@@ -389,53 +753,62 @@ def phase_kernels_line(dev, data: dict, launches) -> None:
     gram_lib_ms = cuda_ms(lambda: torch.bmm(x.mT, x), reps=5)
     # G is symmetric: the function needs F(F+1)/2 dot products over T (the
     # kernel computes all F² of them), plus the F·C of c.
-    gram_ops_n = bb * t * f * (f + 1) + 2 * bb * t * f * cols
-    gram_bytes = 4 * (bb * t * f + bb * t * cols + bb * f * f + bb * f * cols)
-    gram_bound, gram_by = bound_ms(gram_bytes, gram_ops_n)
-
-    # accumulate-into: fold the last 640 rows onto the Gram of the first 300
-    split = 300
-    g0, c0 = gram_ops.gram_accumulate_batched(x[:, :split], y[:, :split])
-    gi, ci = gram_ops.gram_accumulate_batched_into(g0.clone(), c0.clone(), x[:, split:],
-                                                   y[:, split:])
-    check(torch.equal(gi, g) and torch.equal(ci, c), "into != one-shot at the main shape")
-    gq, cq = gram_ops.gram_plain_batched(x[:, split:], y[:, split:], g0=g0.clone(),
-                                         c0=c0.clone())
-    into_err = max(max_err(gi, gq), max_err(ci, cq))
-    check(torch.allclose(gi, gq, rtol=1e-5, atol=1e-4), f"into vs plain: {into_err}")
-    xs, ys = x[:, split:].contiguous(), y[:, split:].contiguous()
-    g_run, c_run = g0.clone(), c0.clone()
-    into_ms = cuda_ms(lambda: gram_ops.gram_accumulate_batched_into(g_run, c_run, xs, ys), reps=5)
-    into_plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(
-        xs, ys, g0=g_run, c0=c_run), reps=5)
-    into_lib_ms = cuda_ms(lambda: torch.baddbmm(g0, xs.mT, xs), reps=5)
+    gram_bound, gram_by = bound_ms(4 * (bb * t * f + bb * t * cols + bb * f * f + bb * f * cols),
+                                   bb * t * f * (f + 1) + 2 * bb * t * f * cols)
     eigh_ms = cuda_ms(lambda: torch.linalg.eigh(g), reps=2)
-    tc = t - split
+    rows.append({"name": "ridge_gram", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
+                 "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:118",
+                 "launches": paths["main"]["launches"][1], "path": "materialized NARMA10",
+                 "max_abs_err": gram_err, "ms": gram_ms, "plain_ms": gram_plain_ms,
+                 "bound_ms": gram_bound, "bound_by": gram_by, "library_ms": gram_lib_ms,
+                 "shape_btf": [bb, t, f],
+                 "error_vs_f32_sum_bound": {"kernel": gram_error_ratio(g, c, x, y),
+                                            "plain": gram_error_ratio(gp, cp, x, y)}})
+    del x, g, c, gp, cp
+
+    # K3 at one streamed fold chunk: bias-extended states [B, 256, N + 1]
+    # and f32 targets, onto running f32 stacks
+    j_chunk = j_tr[:, :STREAM_CHUNK].contiguous()
+    xs = with_bias(generate_states(model, j_chunk, exp.mask, method="kernel", device=dev))
+    ys = y_tr[:, :STREAM_CHUNK].contiguous()
+    tc = xs.shape[1]
+    g0 = torch.rand((bb, f, f), dtype=torch.float32, device=dev)
+    c0 = torch.rand((bb, f, cols), dtype=torch.float32, device=dev)
+    zero_g, zero_c = torch.zeros_like(g0), torch.zeros_like(c0)
+    into_vs_bound = {
+        "kernel": gram_error_ratio(*gram_ops.gram_accumulate_batched_into(
+            zero_g.clone(), zero_c.clone(), xs, ys, round_y=False), xs, ys),
+        "plain": gram_error_ratio(*gram_ops.gram_plain_batched(xs, ys, round_y=False), xs, ys)}
+    gi, ci = gram_ops.gram_accumulate_batched_into(g0.clone(), c0.clone(), xs, ys,
+                                                   round_y=False)
+    gq, cq = gram_ops.gram_plain_batched(xs, ys, g0=g0.clone(), c0=c0.clone(), round_y=False)
+    into_err = max(max_err(gi, gq), max_err(ci, cq))
+    check(torch.allclose(gi, gq, rtol=1e-5, atol=1e-4) and torch.allclose(ci, cq, rtol=1e-5,
+                                                                           atol=1e-4),
+          f"into vs plain at the streamed chunk: {into_err}")
+    g_run, c_run = g0.clone(), c0.clone()
+    into_ms = cuda_ms(lambda: gram_ops.gram_accumulate_batched_into(g_run, c_run, xs, ys,
+                                                                    round_y=False), reps=5)
+    into_plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(
+        xs, ys, g0=g_run, c0=c_run, round_y=False), reps=5)
+    into_lib_ms = cuda_ms(lambda: torch.baddbmm(g0, xs.mT, xs), reps=5)
     into_bound, into_by = bound_ms(4 * (bb * tc * (f + cols) + 2 * bb * f * (f + cols)),
                                    bb * tc * f * (f + 1) + 2 * bb * tc * f * cols
                                    + bb * (f * (f + 1) // 2 + f * cols))
-    emit({"kernels": [
-        {"name": "dfr_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/dfr_scan.cu",
-         "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97", "launches": launches[0],
-         "max_abs_err": scan_err, "ms": scan_ms, "plain_ms": plain_s * 1e3,
-         "bound_ms": scan_bound, "bound_by": scan_by, "library_ms": None,
-         "shape_bkn": [b, k, n]},
-        {"name": "ridge_gram", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
-         "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:118", "launches": launches[1],
-         "max_abs_err": gram_err, "ms": gram_ms, "plain_ms": gram_plain_ms,
-         "bound_ms": gram_bound, "bound_by": gram_by, "library_ms": gram_lib_ms,
-         "shape_btf": [bb, t, f]},
-        {"name": "ridge_gram_into", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
-         "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:147", "launches": launches[2],
-         "max_abs_err": into_err, "ms": into_ms, "plain_ms": into_plain_ms,
-         "bound_ms": into_bound, "bound_by": into_by, "library_ms": into_lib_ms,
-         "shape_btf": [bb, tc, f]},
-    ]})
-    emit({"phase": "library", "call": "torch.linalg.eigh", "shape": list(g.shape),
-          "ms": eigh_ms})
-
+    rows.append({"name": "ridge_gram_into", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
+                 "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:147",
+                 "launches": paths["streaming"]["launches"][2],
+                 "path": "streaming NARMA10, one launch per fit chunk",
+                 "max_abs_err": into_err, "ms": into_ms, "plain_ms": into_plain_ms,
+                 "bound_ms": into_bound, "bound_by": into_by, "library_ms": into_lib_ms,
+                 "shape_btf": [bb, tc, f], "error_vs_f32_sum_bound": into_vs_bound})
+    for row in rows[2:]:
+        check(max(row["error_vs_f32_sum_bound"].values()) <= 1.0,
+              f"{row['name']} outside the f32 sum's error bound")
+    emit({"kernels": rows})
+    emit({"phase": "library", "call": "torch.linalg.eigh", "shape": [bb, f, f], "ms": eigh_ms})
 
 def main() -> int:
     import torch
@@ -464,8 +837,10 @@ def main() -> int:
     main = phase_main_path(dev, narma, chan, card)
     phase_stages(dev, narma, main["exp"], card)
     phase_parity(dev, tasks)
-    phase_kernels_line(dev, kernel_inputs(dev, narma, main["cfg"], main["exp"]),
-                       main["launches"])
+    streaming = phase_streaming(dev, narma, card)
+    phase_long_stream(dev, tasks, card)
+    wdm = phase_wdm(dev, tasks, card)
+    phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,5 +47,9 @@ def readout_from_numpy(w, *, device=None) -> torch.Tensor:
 
 
 def mask_from_numpy(m, *, device=None) -> torch.Tensor:
-    """An input mask [N] (or per-lane [B, N]) as a float32 tensor."""
-    return torch.tensor(np.asarray(m, dtype=np.float32), device=device)
+    """An input mask [N], or a stack [R, N] (per-lane masks, e.g. a reference
+    ``WDMExperiment``'s ``masks``), as a float32 tensor."""
+    m = np.asarray(m, dtype=np.float32)
+    if m.ndim not in (1, 2):
+        raise ValueError(f"a mask is [N] or a mask stack [R, N], got shape {m.shape}")
+    return torch.tensor(m, device=device)

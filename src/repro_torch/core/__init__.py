@@ -12,7 +12,7 @@ from .nonlinear import (LINK_NONLINEARITIES, MODEL_REGISTRY, MZISine,
                         MackeyGlass, NLModel, SiliconMR, SiliconMRLiteral,
                         register_model)
 from .readout import Readout, fit_readout
-from .reservoir import generate_states, init_state
+from .reservoir import generate_channel_states, generate_states, init_state
 
 __all__ = [
     "LINK_NONLINEARITIES",
@@ -25,6 +25,7 @@ __all__ = [
     "SiliconMRLiteral",
     "VAR_EPS",
     "fit_readout",
+    "generate_channel_states",
     "generate_states",
     "init_state",
     "make_mask",

@@ -13,11 +13,13 @@ paths:
   fuses masking and the recurrence; on CPU tensors its plain version.
 
 All paths take the *unmasked* sample series ``j`` [..., K] plus the mask
-[N] and return states [..., K, N].  ``generate_states`` runs on ``cuda``
-unless the caller passes ``device="cpu"``.
+[N] and return states [..., K, N].  ``generate_channel_states`` is the WDM
+form: per-channel masks [R, N] over per-channel series [R, K], the channels
+riding the batch axis (on the kernel path, the scan kernel's per-lane mask
+mode: ONE launch for all R channels).  Both run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 
-``generate_channel_states`` (WDM ensembles) is ROADMAP Queue 1 item 6, and
-``dev_params`` (swept device parameters) is item 11.
+``dev_params`` (swept device parameters) is ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -68,6 +70,28 @@ def _canon(j: torch.Tensor) -> tuple[torch.Tensor, bool]:
     raise ValueError(f"j must be [K] or [B, K], got shape {tuple(j.shape)}")
 
 
+def _run_states(model: NLModel, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor,
+                method: str, block_s: int | None, state_dtype):
+    """(states [B, K, N], final state [B, N]) of ``j`` [B, K] under one
+    mask [N] or per-lane masks [B, N], along ``method``."""
+    if method == "kernel":
+        from ..kernels.dfr_scan import ops as dfr_ops
+
+        return dfr_ops.dfr_scan(model, j, mask, s0, block_s=block_s,
+                                return_final=True, out_dtype=state_dtype)
+    u = masked_input(j, mask) if mask.ndim == 1 else j[:, :, None] * mask[:, None, :]
+    if method == "ref":
+        states = _states_ref(model, u, s0)
+    elif method == "fast":
+        states = _states_fast(model, u, s0)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    s_final = states[:, -1, :] if states.shape[1] else s0
+    if state_dtype is not None:
+        states = states.to(resolve_dtype(state_dtype))
+    return states, s_final
+
+
 def generate_states(
     model: NLModel,
     j,
@@ -109,22 +133,42 @@ def generate_states(
         if s0b.ndim == 1:
             s0b = s0b[None].expand(jb.shape[0], n_nodes)
 
-    if method == "kernel":
-        from ..kernels.dfr_scan import ops as dfr_ops
-
-        states, s_final = dfr_ops.dfr_scan(model, jb, mask, s0b, block_s=block_s,
-                                           return_final=True, out_dtype=state_dtype)
-    else:
-        u = masked_input(jb, mask)
-        if method == "ref":
-            states = _states_ref(model, u, s0b)
-        elif method == "fast":
-            states = _states_fast(model, u, s0b)
-        else:
-            raise ValueError(f"unknown method {method!r}")
-        s_final = states[:, -1, :] if states.shape[1] else s0b
-        if state_dtype is not None:
-            states = states.to(resolve_dtype(state_dtype))
+    states, s_final = _run_states(model, jb, mask, s0b, method, block_s, state_dtype)
     if squeeze:
         states, s_final = states[0], s_final[0]
+    return (states, s_final) if return_final else states
+
+
+def generate_channel_states(
+    model: NLModel,
+    j,
+    masks,
+    *,
+    s0=None,
+    method: str = "fast",
+    block_s: int | None = None,
+    return_final: bool = False,
+    state_dtype=None,
+    device=None,
+):
+    """WDM ensemble states: ``j`` [R, K] with per-channel ``masks`` [R, N]
+    -> states [R, K, N] (R wavelength channels sharing one ring and delay
+    loop, each with its own mask and input series).
+
+    Same knobs as ``generate_states``: ``s0`` [R, N] resumes each channel,
+    ``return_final=True`` adds the [R, N] f32 carry, ``state_dtype``
+    narrows only the emitted states.  ``method="kernel"`` is ONE scan-kernel
+    launch in its per-lane mask mode; ``ref``/``fast`` take the channel axis
+    as their batch axis.
+    """
+    dev = resolve_device(device)
+    j = torch.as_tensor(j, device=dev).to(torch.float32)
+    masks = torch.as_tensor(masks, device=dev).to(torch.float32)
+    if j.ndim != 2 or masks.ndim != 2 or j.shape[0] != masks.shape[0]:
+        raise ValueError(f"channels mismatch: j {tuple(j.shape)} vs masks "
+                         f"{tuple(masks.shape)}")
+    s0 = (torch.zeros(masks.shape, dtype=torch.float32, device=dev) if s0 is None
+          else torch.as_tensor(s0, device=dev).to(torch.float32))
+
+    states, s_final = _run_states(model, j, masks, s0, method, block_s, state_dtype)
     return (states, s_final) if return_final else states

@@ -20,7 +20,10 @@ reference's TPU tiling helpers (``effective_block_t``, the padding of F to
 edges itself.
 
 Targets are cast to X's dtype (as the reference wrapper does) and read as
-f32; a bf16 X is widened to f32 on use.  G and c are f32.
+f32; a bf16 X is widened to f32 on use.  G and c are f32.  The streaming
+fold passes ``round_y=False`` to the accumulate-into entry and its plain
+version: its targets stay f32 beside bf16 state chunks, as the reference's
+fold hands f32 targets to the Pallas kernel directly.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def _canon(x: torch.Tensor, y: torch.Tensor, block_t: int):
-    """x [B, T, F] with y [B, T] or [B, T, C] -> (x, y [B, T, C] f32)."""
+def _canon(x: torch.Tensor, y: torch.Tensor, block_t: int, round_y: bool = True):
+    """x [B, T, F] with y [B, T] or [B, T, C] -> (x, y [B, T, C] f32); y
+    is first rounded to X's dtype unless ``round_y`` is False."""
     if isinstance(block_t, bool) or not isinstance(block_t, int) or block_t < 1:
         raise ValueError(f"block_t must be a positive int, got {block_t!r}")
     if y.ndim == 2:
@@ -49,14 +53,15 @@ def _canon(x: torch.Tensor, y: torch.Tensor, block_t: int):
                          f"{tuple(x.shape)} / {tuple(y.shape)}")
     if y.device != x.device:
         raise ValueError("x and y must be on one device")
-    return x, y.to(x.dtype).to(torch.float32)
+    return x, (y.to(x.dtype) if round_y else y).to(torch.float32)
 
 
-def gram_plain_batched(x, y, *, block_t: int = 512, g0=None, c0=None):
+def gram_plain_batched(x, y, *, block_t: int = 512, g0=None, c0=None,
+                       round_y: bool = True):
     """Plain PyTorch version: (g0 + XᵀX, c0 + XᵀY), folding ``block_t`` row
     tiles in ascending order.  With ``g0``/``c0`` given, they are updated
     in place and returned (the aliasing of the kernel)."""
-    x, y = _canon(x, y, block_t)
+    x, y = _canon(x, y, block_t, round_y)
     b, t, f = x.shape
     x32 = x.to(torch.float32)
     g = torch.zeros((b, f, f), dtype=torch.float32, device=x.device) if g0 is None else g0
@@ -114,10 +119,11 @@ def gram_accumulate_batched(x: torch.Tensor, y: torch.Tensor, *, block_t: int = 
 
 def gram_accumulate_batched_into(g0: torch.Tensor, c0: torch.Tensor,
                                  x: torch.Tensor, y: torch.Tensor, *,
-                                 block_t: int = 512):
+                                 block_t: int = 512, round_y: bool = True):
     """(G0 + XᵀX, c0 + XᵀY) per instance, updated in place on ``g0``/``c0``
-    (f32, contiguous) and returned."""
-    x, y = _canon(x, y, block_t)
+    (f32, contiguous) and returned.  ``round_y=False`` reads f32 targets
+    as they are beside a bf16 X (the streaming fold)."""
+    x, y = _canon(x, y, block_t, round_y)
     b, _, f = x.shape
     if tuple(g0.shape) != (b, f, f) or tuple(c0.shape) != (b, f, y.shape[-1]):
         raise ValueError(f"init stacks {tuple(g0.shape)} / {tuple(c0.shape)} do not "
@@ -126,7 +132,7 @@ def gram_accumulate_batched_into(g0: torch.Tensor, c0: torch.Tensor,
         if s.dtype != torch.float32 or not s.is_contiguous() or s.device != x.device:
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
     if not _dispatch(x):
-        return gram_plain_batched(x, y, block_t=block_t, g0=g0, c0=c0)
+        return gram_plain_batched(x, y, block_t=block_t, g0=g0, c0=c0, round_y=False)
     if _launch(x, y, g0, c0, has_init=True):
         gram_accumulate_batched_into.launches += 1
     return g0, c0

@@ -60,6 +60,26 @@ def test_config_from_reference_carries_every_field():
         convert.config_from_reference(JMR())
 
 
+def test_config_from_reference_carries_streaming_configs():
+    """A streaming reference config (chunk, bf16 chunks, diagonal noise)
+    carries across and runs the same in the port: diagonal noise is
+    deterministic, so the NRMSE agrees within the bf16 drift bound (0.06)
+    and the f32 form within 1e-3."""
+    batch = [np.stack([getattr(jtasks.narma10(400, seed=s), f) for s in range(2)])
+             for f in ("inputs_train", "targets_train", "inputs_test", "targets_test")]
+    kw = dict(model=JMR(), n_nodes=16, washout=30, ridge_l2=(1e-4,), stream_chunk_k=48,
+              state_noise_mode="diagonal", state_noise_rel=0.003, state_method="fast")
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", 0.06)):
+        ref = JConfig(stream_state_dtype=dtype, **kw)
+        port = convert.config_from_reference(ref)
+        for f in dataclasses.fields(ref):
+            if f.name != "model":
+                assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        got = Experiment(port, device="cpu").run(*batch)
+        want = JExperiment(ref).run(*batch)
+        assert np.max(np.abs(got.nrmse - want.nrmse)) <= tol, (dtype, got.nrmse, want.nrmse)
+
+
 def test_reference_config_runs_the_same_in_the_port():
     batch = [np.stack([getattr(jtasks.narma10(300, seed=s), f) for s in range(2)])
              for f in ("inputs_train", "targets_train", "inputs_test", "targets_test")]

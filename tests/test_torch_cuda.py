@@ -8,7 +8,12 @@ use); without one they skip.  Run them on the GPU with
 Tolerances: SiliconMR 1e-6 (the kernel evaluates the plain version's
 separately rounded f32 ops); MackeyGlass and MZISine 1e-5 (powf/sinf vs
 torch's pow/sin); bf16 states 4e-2; Gram rtol 1e-5 / atol 1e-4 (f32 sums in
-another order); chunk resume and accumulate-into bitwise.
+another order); chunk resume and accumulate-into bitwise.  The streamed
+Gram equals the materialized one bitwise (K1 resumes bitwise, each Gram
+element is one ascending-t fmaf chain, masked rows are exact zeros); a
+bf16 streamed run's Gram equals the CPU run's to the Gram tolerance (the
+same rounded chunks, f32 sums in another order) and its NRMSE is within
+0.06 of f32 chunks.
 """
 
 import numpy as np
@@ -105,3 +110,112 @@ def test_experiment_kernel_path_matches_ref_path(dev):
                                state_method=method, readout_use_kernel=use_kernel)
         runs[method] = Experiment(cfg, device=dev).run(*batch)
     assert np.max(np.abs(runs["kernel"].nrmse - runs["ref"].nrmse)) <= 1e-3
+
+
+def _narma(n_seeds, length=720):
+    from repro_torch.core import tasks
+
+    ds = [tasks.narma10(length, seed=s) for s in range(n_seeds)]
+    return [np.stack([getattr(d, f) for d in ds])
+            for f in ("inputs_train", "targets_train", "inputs_test", "targets_test")]
+
+
+def test_streamed_gram_equals_materialized_k2_bitwise(dev, monkeypatch):
+    """One K1 and one K3 launch per chunk; the G and c the streamed fit
+    solves equal the materialized K2 Gram bitwise (ragged last chunk)."""
+    from repro_torch.core import generate_states
+    from repro_torch.pipeline import fit_ridge_batched, fit_ridge_streaming, ridge
+
+    rng = np.random.default_rng(8)
+    b, k, n, w0, chunk = 4, 300, 40, 30, 64
+    j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32, device=dev)
+    y = torch.as_tensor(rng.standard_normal((b, k)), dtype=torch.float32, device=dev)
+    mask = make_mask(n, seed=1, device=dev)
+    seen = []
+    solve = ridge.solve_gcv
+
+    def spy(g, c, *args):
+        seen.append((g.clone(), c.clone()))
+        return solve(g, c, *args)
+
+    monkeypatch.setattr(ridge, "solve_gcv", spy)
+    before = (scan_ops.dfr_scan.launches, gram_ops.gram_accumulate_batched_into.launches)
+    w_s, idx_s, s_end = fit_ridge_streaming(SiliconMR(), mask, j, y, washout=w0, chunk_k=chunk,
+                                            lambdas=(1e-6, 1e-4), device=dev)
+    assert (scan_ops.dfr_scan.launches - before[0],
+            gram_ops.gram_accumulate_batched_into.launches - before[1]) == (5, 5)
+    st = generate_states(SiliconMR(), j, mask, method="kernel", device=dev)
+    w_m, idx_m = fit_ridge_batched(st[:, w0:], y[:, w0:], lambdas=(1e-6, 1e-4),
+                                   use_kernel=True, device=dev)
+    (g_s, c_s), (g_m, c_m) = seen
+    assert torch.equal(g_s, g_m) and torch.equal(c_s, c_m)
+    assert torch.equal(s_end, st[:, -1])
+    same = idx_s == idx_m
+    assert torch.equal(w_s[same], w_m[same])
+
+
+def test_bf16_streamed_run_matches_cpu_and_f32(dev, monkeypatch):
+    """bf16 chunks on the card: the kernel's bf16 states are its f32 states
+    rounded (bitwise the plain version's), the streamed Gram equals the CPU
+    run's to f32 round-off, and the NRMSE is within 0.06 of f32 chunks."""
+    from repro_torch.pipeline import ridge
+
+    j, s0 = _scan_inputs(dev)
+    mask = make_mask(s0.shape[1], device=dev)
+    out16 = scan_ops.dfr_scan(SiliconMR(), j, mask, s0, out_dtype=torch.bfloat16)
+    assert torch.equal(out16, scan_ops.dfr_scan_plain(SiliconMR(), j, mask, s0,
+                                                      out_dtype=torch.bfloat16)[0])
+    grams = []
+    solve = ridge.solve_gcv
+
+    def spy(g, c, *args):
+        grams.append((g.cpu(), c.cpu()))
+        return solve(g, c, *args)
+
+    monkeypatch.setattr(ridge, "solve_gcv", spy)
+    batch = _narma(4)
+    kw = dict(n_nodes=32, washout=40, ridge_l2=(1e-6, 1e-4), state_noise_rel=0.0,
+              state_method="kernel", readout_use_kernel=True, stream_chunk_k=64)
+    runs = {}
+    for name, dtype, where in (("card", "bfloat16", dev), ("cpu", "bfloat16", "cpu"),
+                               ("f32", "float32", dev)):
+        cfg = ExperimentConfig(stream_state_dtype=dtype, **kw)
+        runs[name] = Experiment(cfg, device=where).run(*batch)
+    (g_card, c_card), (g_cpu, c_cpu) = grams[:2]
+    torch.testing.assert_close(g_card, g_cpu, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(c_card, c_cpu, rtol=1e-5, atol=1e-4)
+    assert np.max(np.abs(runs["card"].nrmse - runs["f32"].nrmse)) <= 0.06
+    assert np.all(np.isfinite(runs["card"].nrmse))
+
+
+def test_per_lane_wdm_equals_per_channel_single_mask_runs(dev, monkeypatch):
+    """Channel r of a streamed WDM run (K1 per-lane masks) equals a
+    single-mask run with mask_seed + r: the states and the streamed Gram
+    bitwise; the NRMSE to 1e-4 (a batched eigh against a single one)."""
+    from repro_torch.core import generate_states
+    from repro_torch.pipeline import WDMExperiment, channel_states, ridge
+
+    r, n = 4, 32
+    batch = _narma(r)
+    kw = dict(n_nodes=n, washout=40, ridge_l2=(1e-4,), state_noise_rel=0.0,
+              state_method="kernel", readout_use_kernel=True, stream_chunk_k=64)
+    grams = []
+    solve = ridge.solve_gcv
+
+    def spy(g, c, *args):
+        grams.append(g.clone())
+        return solve(g, c, *args)
+
+    monkeypatch.setattr(ridge, "solve_gcv", spy)
+    wdm = WDMExperiment(ExperimentConfig(**kw), r, device=dev)
+    j = torch.rand((r, 200), device=dev)
+    lanes = channel_states(SiliconMR(), j, wdm.masks, method="kernel", device=dev)
+    res = wdm.run(*batch)
+    for ch in range(r):
+        one = generate_states(SiliconMR(), j[ch:ch + 1], make_mask(n, seed=1 + ch, device=dev),
+                              method="kernel", device=dev)
+        assert torch.equal(lanes[ch:ch + 1], one)
+        single = Experiment(ExperimentConfig(mask_seed=1 + ch, **kw), device=dev).run(
+            *[a[ch:ch + 1] for a in batch])
+        assert torch.equal(grams[-1][0], grams[0][ch])
+        assert abs(float(single.nrmse[0]) - float(res.nrmse[ch])) <= 1e-4

@@ -125,10 +125,15 @@ def test_multichannel_targets_and_metrics_only(narma_small):
 
 
 def test_config_raises_for_unported_and_invalid_settings(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ExperimentConfig(stream_chunk_k=64)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # the streaming fields are ported: the reference's validation errors
+    with pytest.raises(ValueError, match="state_noise_mode='diagonal'"):
+        ExperimentConfig(stream_chunk_k=64)            # sampled noise (0.003) + streaming
+    with pytest.raises(ValueError, match="set stream_chunk_k"):
         ExperimentConfig(stream_state_dtype="bfloat16")
+    for ok in (dict(stream_chunk_k=64, state_noise_mode="diagonal"),
+               dict(stream_chunk_k=64, state_noise_rel=0.0, stream_state_dtype="bfloat16")):
+        for cls in (ExperimentConfig, JConfig):
+            cls(**ok)
     with pytest.raises(NotImplementedError, match="item 10"):
         ExperimentConfig(topology=object())
     with pytest.raises(ValueError, match="state_noise_mode"):

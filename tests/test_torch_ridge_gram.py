@@ -88,6 +88,36 @@ def test_gram_into_adds_onto_running_stacks(t, f, c):
     np.testing.assert_allclose(m.numpy(), c0 + np.asarray(mr), **TOL)
 
 
+def test_gram_into_f32_targets_beside_bf16_x_match_pallas_fold():
+    """round_y=False (the streaming fold) reads f32 targets beside a bf16 X
+    as the reference's fold does, calling its Pallas kernel directly
+    (interpret mode, through the reference's ``_fold_chunk``); the default
+    rounds them to bf16 as the reference's public wrapper does."""
+    from repro.kernels.ridge_gram import gram_accumulate_batched_into as jgram_into
+    from repro.pipeline.ridge import _fold_chunk as jfold_chunk
+    from repro.pipeline.ridge import _plan_fold as jplan_fold
+
+    rng = np.random.default_rng(4)
+    b, t, f = 2, 40, 21
+    x = rng.uniform(-1, 1, (b, t, f)).astype(np.float32)
+    y = (1.0 + rng.uniform(0, 1, (b, t, 1)) * 2.0 ** -12).astype(np.float32)
+    xb = torch.as_tensor(x).to(torch.bfloat16)
+    g, c = gram_accumulate_batched_into(torch.zeros((b, f, f)), torch.zeros((b, f, 1)), xb,
+                                        torch.as_tensor(y), round_y=False)
+    plan = jplan_fold(f, t, use_kernel=True, block_t=16, block_f=128, state_dtype="bfloat16")
+    fq = plan.fq
+    gj, cj, _ = jfold_chunk(plan, jnp.zeros((b, fq, fq)), jnp.zeros((b, fq, 1)), jnp.zeros(b),
+                            jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(y))
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj)[:, :f, :f], **TOL)
+    np.testing.assert_allclose(c.numpy(), np.asarray(cj)[:, :f], **TOL)
+    gr, cr = gram_accumulate_batched_into(torch.zeros((b, f, f)), torch.zeros((b, f, 1)), xb,
+                                          torch.as_tensor(y))
+    _, cjr = jgram_into(jnp.zeros((b, f, f)), jnp.zeros((b, f, 1)),
+                        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(y), block_t=16)
+    np.testing.assert_allclose(cr.numpy(), np.asarray(cjr), **TOL)
+    assert float((cr - c).abs().max()) > 1e-3      # bf16 rounding of y ≈ 2⁻⁸ per row
+
+
 def test_gram_rejects_bad_arguments():
     x = torch.zeros((2, 16, 5))
     y = torch.zeros((2, 16, 1))
