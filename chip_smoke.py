@@ -9,8 +9,11 @@ Phases, each printing one JSON line:
    off, both CUDA kernels built with nvcc from ``src/repro_torch/kernels/csrc``;
 2. kernels vs their plain PyTorch versions on the card — the scan kernel
    for the four device models (f32 and bf16 states, per-lane masks,
-   bitwise chunk resume), the Gram kernel on ragged edges and bf16 X, and
-   accumulate-into == one-shot bitwise;
+   bitwise chunk resume); the Gram kernel on the edges of its triangle
+   grid (F at the 64-wide tile's edges and 901, C = 1 and 128, a ragged
+   T, f32 and bf16 X, both thread layouts), G symmetric bitwise, a
+   non-symmetric G0 through accumulate-into, and accumulate-into over an
+   uneven split == one-shot bitwise;
 3. the main path at full width — ``Experiment.run`` on the paper's NARMA10
    Silicon-MR operating point (N = 900, washout 60, the λ grid, sampled
    digitiser noise 0.003) over 64 seeds through the scan kernel (2
@@ -35,8 +38,9 @@ Phases, each printing one JSON line:
 8. the ``kernels`` line: each kernel at the shapes of the path it rides,
    its launches on that path, error vs the plain version (K1 also on a
    chunk resumed from a carry and on a whole materialized split), kernel /
-   plain / library times and the roofline bound; and the time of one bare
-   ``torch.linalg.eigh`` of the main path's Gram.
+   plain / library times and the roofline bound (K3 at the fold chunk of
+   each of its three paths, timed from a symmetric running Gram); and the
+   time of one bare ``torch.linalg.eigh`` of the main path's Gram.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -247,34 +251,58 @@ def phase_scan_checks(dev) -> None:
 
 
 def phase_gram_checks(dev) -> None:
-    """The Gram kernel vs its plain version on ragged edges and bf16 X."""
+    """The Gram kernel vs its plain version on the edges of its triangle
+    grid: F ∈ {1, 63, 64, 65, 901} (the 64-wide tile's edges), C ∈ {1, 128},
+    a ragged T, f32 and bf16 X, each at B = 2 and at a B whose triangle
+    grid gives every SM 4 blocks (the two thread layouts of the kernel).
+    K2's G equals its transpose bitwise; K3 from a non-symmetric G0 gives
+    G0 + XᵀX (rtol 1e-5, atol 1e-4: f32 sums in another order); K3 over
+    the uneven split (0, 100), (100, 101), (101, T) equals one shot
+    bitwise."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.ridge_gram import ops
 
     rng = np.random.default_rng(1)
-    b, t, f, c = 3, 517, 203, 2
-    x = torch.as_tensor(rng.standard_normal((b, t, f)), dtype=torch.float32, device=dev)
-    y = torch.as_tensor(rng.standard_normal((b, t, c)), dtype=torch.float32, device=dev)
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        xd = x.to(dtype)
-        g, m = ops.gram_accumulate_batched(xd, y)
-        gp, mp = ops.gram_plain_batched(xd, y)
-        for name, a, r in (("G", g, gp), ("c", m, mp)):
-            check(torch.allclose(a, r, rtol=1e-5, atol=1e-4),
-                  f"gram {name} {dtype} vs plain: {max_err(a, r)}")
-        errs[str(dtype)] = max(max_err(g, gp), max_err(m, mp))
-    # accumulate-into over an uneven split == one-shot, bitwise
-    g1, c1 = ops.gram_accumulate_batched(x, y)
-    g0 = torch.zeros_like(g1)
-    c0 = torch.zeros_like(c1)
-    for lo, hi in ((0, 100), (100, 101), (101, t)):
-        ops.gram_accumulate_batched_into(g0, c0, x[:, lo:hi], y[:, lo:hi])
-    check(torch.equal(g0, g1) and torch.equal(c0, c1), "accumulate-into != one-shot")
-    emit({"phase": "kernel_checks", "kernel": "ridge_gram", "shape_btfc": [b, t, f, c],
-          "max_abs_err": errs, "into_equals_one_shot_bitwise": True})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t = 517
+    errs, cases = {}, 0
+    for f in (1, 63, 64, 65, 901):
+        tiles = -(-f // 64)
+        for b in (2, 4 * sms // (tiles * (tiles + 1) // 2) + 1):
+            for c in (1, 128):
+                x = torch.as_tensor(rng.standard_normal((b, t, f)), dtype=torch.float32,
+                                    device=dev)
+                y = torch.as_tensor(rng.standard_normal((b, t, c)), dtype=torch.float32,
+                                    device=dev)
+                for dtype in (torch.float32, torch.bfloat16):
+                    xd = x.to(dtype)
+                    what = f"F={f} B={b} C={c} {dtype}"
+                    g, m = ops.gram_accumulate_batched(xd, y)
+                    gp, mp = ops.gram_plain_batched(xd, y)
+                    for name, a, r in (("G", g, gp), ("c", m, mp)):
+                        check(torch.allclose(a, r, rtol=1e-5, atol=1e-4),
+                              f"gram {name} {what} vs plain: {max_err(a, r)}")
+                    check(torch.equal(g, g.mT), f"K2 G not symmetric bitwise ({what})")
+                    g0 = torch.rand((b, f, f), dtype=torch.float32, device=dev)
+                    c0 = torch.rand((b, f, c), dtype=torch.float32, device=dev)
+                    gi, ci = ops.gram_accumulate_batched_into(g0.clone(), c0.clone(), xd, y)
+                    gq, cq = ops.gram_plain_batched(xd, y, g0=g0.clone(), c0=c0.clone())
+                    check(torch.allclose(gi, gq, rtol=1e-5, atol=1e-4)
+                          and torch.allclose(ci, cq, rtol=1e-5, atol=1e-4),
+                          f"K3 from a non-symmetric G0 ({what}): {max_err(gi, gq)}")
+                    gs, cs = torch.zeros_like(g), torch.zeros_like(m)
+                    for lo, hi in ((0, 100), (100, 101), (101, t)):
+                        ops.gram_accumulate_batched_into(gs, cs, xd[:, lo:hi], y[:, lo:hi])
+                    check(torch.equal(gs, g) and torch.equal(cs, m),
+                          f"accumulate-into over an uneven split != one shot ({what})")
+                    errs[what] = max(max_err(g, gp), max_err(m, mp), max_err(gi, gq))
+                    cases += 1
+                del x, y
+    emit({"phase": "kernel_checks", "kernel": "ridge_gram", "T": t, "cases": cases,
+          "max_abs_err_vs_plain": max(errs.values()), "k2_symmetric_bitwise": True,
+          "into_nonsymmetric_g0_ok": True, "into_equals_one_shot_bitwise": True})
 
 
 def main_inputs(tasks, n_seeds: int):
@@ -653,14 +681,20 @@ def phase_wdm(dev, tasks, card: str) -> dict:
               f"shared Gram ({name}) outside the f32 sum's error bound")
     check(shared["nrmse_gap"] <= SHARED_TOL,
           f"shared readout kernel vs plain fold NRMSE {shared['nrmse_gap']}")
-    return {"launches": launches, "chans": chans, "cfg": cfg, "masks": exp_s.masks}
+    return {"launches": launches, "chans": chans, "cfg": cfg, "masks": exp_s.masks,
+            "shared": {"x": x, "y": y, "launches": n_chunks}}
 
 
 def phase_kernels_line(dev, narma, paths: dict) -> None:
     """Each kernel at the shapes of the path it rides, with that path's
     launch count: K1 at one streamed chunk (broadcast mask, N = 900) and in
     its per-lane mode at one WDM chunk (N = 100); K2 at the main path's
-    Gram; K3 at one streamed fold chunk.
+    Gram; K3 at a fold chunk of each path that launches it (streamed
+    NARMA10 [64, 256, 901], WDM [64, 256, 101], the shared readout
+    [1, 256, 801]), onto the symmetric running stacks K2 made of the chunk
+    before, as the fold hands them in.  Each Gram row carries its bound
+    share (bound_ms / ms) and its time against one PyTorch call
+    (vs_library = ms / library_ms).
 
     K1 is held to its plain version at ≤ 1e-6 where its paths launch it:
     on chunk 1 of the stream, resumed from the kernel's carry after chunk
@@ -733,77 +767,112 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                             _canon_batch(chans[2], "inputs_test", dev))
     scan_row("dfr_scan_per_lane", j_wdm, wdm["masks"], wdm["launches"][0],
              "streaming WDM, one per-lane launch per chunk")
-    del j_wdm
 
+    def gram_row(name, replaces, launches, path, chunks, y_chunks):
+        """K2 on ``chunks[0]`` alone, or K3 folding ``chunks[1]`` onto the
+        running stacks K2 made of ``chunks[0]`` (symmetric bitwise, as every
+        G0 the fold hands in), against the plain version and one PyTorch
+        call on the same inputs.  K3 is also held to its plain version from
+        a non-symmetric G0 (its full semantics), outside the timing."""
+        into = len(chunks) == 2
+        x, y = chunks[-1], y_chunks[-1]
+        b, t, f = x.shape
+        cols = y.shape[-1]
+        if into:
+            g0, c0 = gram_ops.gram_accumulate_batched(chunks[0], y_chunks[0])
+            g, c = gram_ops.gram_accumulate_batched_into(g0.clone(), c0.clone(), x, y,
+                                                         round_y=False)
+            gp, cp = gram_ops.gram_plain_batched(x, y, g0=g0.clone(), c0=c0.clone(),
+                                                 round_y=False)
+        else:
+            g, c = gram_ops.gram_accumulate_batched(x, y)
+            gp, cp = gram_ops.gram_plain_batched(x, y)
+        err = max(max_err(g, gp), max_err(c, cp))
+        check(torch.allclose(g, gp, rtol=1e-5, atol=1e-4)
+              and torch.allclose(c, cp, rtol=1e-5, atol=1e-4),
+              f"{name} vs plain at {[b, t, f]}: {err}")
+        check(torch.equal(g, g.mT), f"{name}: G is not symmetric bitwise at {[b, t, f]}")
+        if into:
+            r0 = torch.rand_like(g0)
+            rc = torch.rand_like(c0)
+            gi, ci = gram_ops.gram_accumulate_batched_into(r0.clone(), rc.clone(), x, y,
+                                                           round_y=False)
+            gq, cq = gram_ops.gram_plain_batched(x, y, g0=r0.clone(), c0=rc.clone(),
+                                                 round_y=False)
+            check(torch.allclose(gi, gq, rtol=1e-5, atol=1e-4)
+                  and torch.allclose(ci, cq, rtol=1e-5, atol=1e-4),
+                  f"{name} from a non-symmetric G0: {max_err(gi, gq)}")
+            del r0, rc, gi, ci, gq, cq
+            g_run, c_run = g0.clone(), c0.clone()
+            ms = cuda_ms(lambda: gram_ops.gram_accumulate_batched_into(
+                g_run, c_run, x, y, round_y=False), reps=5)
+            g_pl, c_pl = g0.clone(), c0.clone()
+            plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(
+                x, y, g0=g_pl, c0=c_pl, round_y=False), reps=5)
+            lib_call, lib_ms = "torch.baddbmm", cuda_ms(lambda: torch.baddbmm(g0, x.mT, x),
+                                                        reps=5)
+            zeros = torch.zeros_like(g0), torch.zeros_like(c0)
+            vs_bound = {"kernel": gram_error_ratio(*gram_ops.gram_accumulate_batched_into(
+                            *zeros, x, y, round_y=False), x, y),
+                        "plain": gram_error_ratio(*gram_ops.gram_plain_batched(
+                            x, y, round_y=False), x, y)}
+        else:
+            ms = cuda_ms(lambda: gram_ops.gram_accumulate_batched(x, y), reps=5)
+            plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(x, y), reps=5)
+            lib_call, lib_ms = "torch.bmm", cuda_ms(lambda: torch.bmm(x.mT, x), reps=5)
+            vs_bound = {"kernel": gram_error_ratio(g, c, x, y),
+                        "plain": gram_error_ratio(gp, cp, x, y)}
+        # G is symmetric: the function needs F(F+1)/2 dot products over T,
+        # plus the F·C of c; accumulate-into also reads G0 and c0 and adds them
+        bound, by = bound_ms(4 * (b * t * (f + cols) + (1 + into) * b * f * (f + cols)),
+                             b * t * f * (f + 1) + 2 * b * t * f * cols
+                             + into * b * (f * (f + 1) // 2 + f * cols))
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
+                     "replaces": replaces, "launches": launches, "path": path,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms, "library_call": lib_call,
+                     "bound_share": bound / ms, "vs_library": ms / lib_ms,
+                     "shape_btf": [b, t, f], "g0": "K2 of the chunk before" if into else None,
+                     "symmetric_bitwise": True, "error_vs_f32_sum_bound": vs_bound})
+        return g
+
+    k2, k3 = ("src/repro/kernels/ridge_gram/ridge_gram.py:118",
+              "src/repro/kernels/ridge_gram/ridge_gram.py:147")
     # K2 at the main path's Gram: features [B, T - washout, N + 1]
     states = generate_states(model, j_tr, exp.mask, method="kernel", device=dev)
-    x = with_bias(states[:, WASHOUT:])
-    y = y_tr[:, WASHOUT:]
-    del states
-    bb, t, f = x.shape
-    cols = y.shape[-1]
-    g, c = gram_ops.gram_accumulate_batched(x, y)
-    (gp, cp), _ = wall(lambda: gram_ops.gram_plain_batched(x, y))
-    gram_err = max(max_err(g, gp), max_err(c, cp))
-    check(torch.allclose(g, gp, rtol=1e-5, atol=1e-4) and torch.allclose(c, cp, rtol=1e-5,
-                                                                           atol=1e-4),
-          f"gram vs plain at the main shape: {gram_err}")
-    gram_ms = cuda_ms(lambda: gram_ops.gram_accumulate_batched(x, y), reps=5)
-    gram_plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(x, y), reps=5)
-    gram_lib_ms = cuda_ms(lambda: torch.bmm(x.mT, x), reps=5)
-    # G is symmetric: the function needs F(F+1)/2 dot products over T (the
-    # kernel computes all F² of them), plus the F·C of c.
-    gram_bound, gram_by = bound_ms(4 * (bb * t * f + bb * t * cols + bb * f * f + bb * f * cols),
-                                   bb * t * f * (f + 1) + 2 * bb * t * f * cols)
-    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(g), reps=2)
-    rows.append({"name": "ridge_gram", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
-                 "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:118",
-                 "launches": paths["main"]["launches"][1], "path": "materialized NARMA10",
-                 "max_abs_err": gram_err, "ms": gram_ms, "plain_ms": gram_plain_ms,
-                 "bound_ms": gram_bound, "bound_by": gram_by, "library_ms": gram_lib_ms,
-                 "shape_btf": [bb, t, f],
-                 "error_vs_f32_sum_bound": {"kernel": gram_error_ratio(g, c, x, y),
-                                            "plain": gram_error_ratio(gp, cp, x, y)}})
-    del x, g, c, gp, cp
+    g_main = gram_row("ridge_gram", k2, paths["main"]["launches"][1], "materialized NARMA10",
+                      [with_bias(states[:, WASHOUT:])], [y_tr[:, WASHOUT:]])
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(g_main), reps=2)
+    bb, f = g_main.shape[:2]
+    del g_main
 
-    # K3 at one streamed fold chunk: bias-extended states [B, 256, N + 1]
-    # and f32 targets, onto running f32 stacks
-    j_chunk = j_tr[:, :STREAM_CHUNK].contiguous()
-    xs = with_bias(generate_states(model, j_chunk, exp.mask, method="kernel", device=dev))
-    ys = y_tr[:, :STREAM_CHUNK].contiguous()
-    tc = xs.shape[1]
-    g0 = torch.rand((bb, f, f), dtype=torch.float32, device=dev)
-    c0 = torch.rand((bb, f, cols), dtype=torch.float32, device=dev)
-    zero_g, zero_c = torch.zeros_like(g0), torch.zeros_like(c0)
-    into_vs_bound = {
-        "kernel": gram_error_ratio(*gram_ops.gram_accumulate_batched_into(
-            zero_g.clone(), zero_c.clone(), xs, ys, round_y=False), xs, ys),
-        "plain": gram_error_ratio(*gram_ops.gram_plain_batched(xs, ys, round_y=False), xs, ys)}
-    gi, ci = gram_ops.gram_accumulate_batched_into(g0.clone(), c0.clone(), xs, ys,
-                                                   round_y=False)
-    gq, cq = gram_ops.gram_plain_batched(xs, ys, g0=g0.clone(), c0=c0.clone(), round_y=False)
-    into_err = max(max_err(gi, gq), max_err(ci, cq))
-    check(torch.allclose(gi, gq, rtol=1e-5, atol=1e-4) and torch.allclose(ci, cq, rtol=1e-5,
-                                                                           atol=1e-4),
-          f"into vs plain at the streamed chunk: {into_err}")
-    g_run, c_run = g0.clone(), c0.clone()
-    into_ms = cuda_ms(lambda: gram_ops.gram_accumulate_batched_into(g_run, c_run, xs, ys,
-                                                                    round_y=False), reps=5)
-    into_plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(
-        xs, ys, g0=g_run, c0=c_run, round_y=False), reps=5)
-    into_lib_ms = cuda_ms(lambda: torch.baddbmm(g0, xs.mT, xs), reps=5)
-    into_bound, into_by = bound_ms(4 * (bb * tc * (f + cols) + 2 * bb * f * (f + cols)),
-                                   bb * tc * f * (f + 1) + 2 * bb * tc * f * cols
-                                   + bb * (f * (f + 1) // 2 + f * cols))
-    rows.append({"name": "ridge_gram_into", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
-                 "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:147",
-                 "launches": paths["streaming"]["launches"][2],
-                 "path": "streaming NARMA10, one launch per fit chunk",
-                 "max_abs_err": into_err, "ms": into_ms, "plain_ms": into_plain_ms,
-                 "bound_ms": into_bound, "bound_by": into_by, "library_ms": into_lib_ms,
-                 "shape_btf": [bb, tc, f], "error_vs_f32_sum_bound": into_vs_bound})
+    # K3 at the streamed fold's chunk 1 of 256 rows, onto the running stacks
+    # of chunk 0: bias-extended states [B, 256, N + 1] and f32 targets
+    def two_chunks(st, yy):
+        return ([with_bias(st[:, :STREAM_CHUNK]), with_bias(st[:, STREAM_CHUNK:2 * STREAM_CHUNK])],
+                [yy[:, :STREAM_CHUNK].contiguous(),
+                 yy[:, STREAM_CHUNK:2 * STREAM_CHUNK].contiguous()])
+
+    gram_row("ridge_gram_into", k3, paths["streaming"]["launches"][2],
+             "streaming NARMA10, one launch per fit chunk", *two_chunks(states, y_tr))
+    del states
+    # K3 at the WDM fold's chunk [64, 256, N_WDM + 1] (per-lane states)
+    zero_w = torch.zeros((j_wdm.shape[0], N_WDM), dtype=torch.float32, device=dev)
+    st_w = scan_ops.dfr_scan(wdm["cfg"].model, j_wdm[:, :2 * STREAM_CHUNK].contiguous(),
+                             wdm["masks"], zero_w)
+    y_w = _canon_batch(chans[1], "targets_train", dev)[..., None]
+    gram_row("ridge_gram_into_wdm", k3, wdm["launches"][2],
+             "streaming WDM, one launch per fit chunk", *two_chunks(st_w, y_w))
+    del j_wdm, st_w
+    # K3 at the shared readout's chunk [1, 256, R·N + 1] (one instance)
+    shared = wdm["shared"]
+    xs = shared["x"][None, :2 * STREAM_CHUNK]
+    ys = shared["y"][None, :2 * STREAM_CHUNK]
+    gram_row("ridge_gram_into_shared", k3, shared["launches"],
+             "WDM shared readout, one launch per fit chunk",
+             [xs[:, :STREAM_CHUNK].contiguous(), xs[:, STREAM_CHUNK:].contiguous()],
+             [ys[:, :STREAM_CHUNK].contiguous(), ys[:, STREAM_CHUNK:].contiguous()])
     for row in rows[2:]:
         check(max(row["error_vs_f32_sum_bound"].values()) <= 1.0,
               f"{row['name']} outside the f32 sum's error bound")

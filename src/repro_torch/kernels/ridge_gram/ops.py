@@ -34,7 +34,7 @@ import torch
 
 from .. import _build
 
-C_MAX = 128   # target columns the kernel keeps in shared memory
+C_MAX = 128   # target columns the kernel takes (each moment block walks 64·C chains)
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

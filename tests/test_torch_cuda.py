@@ -8,7 +8,8 @@ use); without one they skip.  Run them on the GPU with
 Tolerances: SiliconMR 1e-6 (the kernel evaluates the plain version's
 separately rounded f32 ops); MackeyGlass and MZISine 1e-5 (powf/sinf vs
 torch's pow/sin); bf16 states 4e-2; Gram rtol 1e-5 / atol 1e-4 (f32 sums in
-another order); chunk resume and accumulate-into bitwise.  The streamed
+another order, also from a non-symmetric G0); chunk resume, accumulate-into
+over any split and the symmetry of G bitwise.  The streamed
 Gram equals the materialized one bitwise (K1 resumes bitwise, each Gram
 element is one ascending-t fmaf chain, masked rows are exact zeros); a
 bf16 streamed run's Gram equals the CPU run's to the Gram tolerance (the
@@ -87,15 +88,52 @@ def test_gram_kernel_matches_plain(dev, dtype):
     torch.testing.assert_close(c, cp, rtol=1e-5, atol=1e-4)
 
 
-def test_gram_into_bitwise_equals_one_shot_for_any_split(dev):
-    rng = np.random.default_rng(6)
-    x = torch.as_tensor(rng.standard_normal((2, 301, 70)), dtype=torch.float32, device=dev)
-    y = torch.as_tensor(rng.standard_normal((2, 301, 1)), dtype=torch.float32, device=dev)
-    g1, c1 = gram_ops.gram_accumulate_batched(x, y)
-    g, c = torch.zeros_like(g1), torch.zeros_like(c1)
-    for lo, hi in ((0, 7), (7, 200), (200, 301)):
-        gram_ops.gram_accumulate_batched_into(g, c, x[:, lo:hi], y[:, lo:hi])
-    assert torch.equal(g, g1) and torch.equal(c, c1)
+def _gram_batches(dev, f):
+    """Two batch sizes for feature width F: B = 2, and one whose triangle
+    grid of 64-wide tile pairs gives every SM 4 blocks, so that both thread
+    layouts of the kernel run."""
+    pairs = -(-f // 64) * (-(-f // 64) + 1) // 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return 2, 4 * sms // pairs + 1
+
+
+@pytest.mark.parametrize("f,cols,dtype", [(70, 1, torch.float32), (901, 1, torch.float32),
+                                          (64, 1, torch.float32), (65, 128, torch.float32),
+                                          (1, 1, torch.float32), (63, 128, torch.bfloat16),
+                                          (901, 1, torch.bfloat16)])
+def test_gram_into_bitwise_equals_one_shot_for_any_split(dev, f, cols, dtype):
+    """Folding an uneven split with K3 from zero stacks equals one K2 pass
+    bitwise (each element one ascending-t fmaf chain, whatever the tile),
+    and K2's G and K3's G from a symmetric running Gram equal their
+    transposes bitwise."""
+    rng = np.random.default_rng(f + cols)
+    for b in _gram_batches(dev, f):
+        x = torch.as_tensor(rng.standard_normal((b, 301, f)), dtype=dtype, device=dev)
+        y = torch.as_tensor(rng.standard_normal((b, 301, cols)), dtype=torch.float32,
+                            device=dev)
+        g1, c1 = gram_ops.gram_accumulate_batched(x, y)
+        assert torch.equal(g1, g1.mT)
+        g, c = torch.zeros_like(g1), torch.zeros_like(c1)
+        for lo, hi in ((0, 7), (7, 200), (200, 301)):
+            gram_ops.gram_accumulate_batched_into(g, c, x[:, lo:hi], y[:, lo:hi])
+            assert torch.equal(g, g.mT)
+        assert torch.equal(g, g1) and torch.equal(c, c1)
+
+
+@pytest.mark.parametrize("f", [1, 65, 901])
+def test_gram_into_non_symmetric_g0_adds_onto_it(dev, f):
+    """K3 from a G0 that is not symmetric still gives G0 + XᵀX (the
+    reference's semantics for any G0): rtol 1e-5 of the plain version."""
+    rng = np.random.default_rng(f)
+    for b in _gram_batches(dev, f):
+        x = torch.as_tensor(rng.standard_normal((b, 133, f)), dtype=torch.float32, device=dev)
+        y = torch.as_tensor(rng.standard_normal((b, 133, 2)), dtype=torch.float32, device=dev)
+        g0 = torch.rand((b, f, f), device=dev)
+        c0 = torch.rand((b, f, 2), device=dev)
+        g, c = gram_ops.gram_accumulate_batched_into(g0.clone(), c0.clone(), x, y)
+        gp, cp = gram_ops.gram_plain_batched(x, y, g0=g0.clone(), c0=c0.clone())
+        torch.testing.assert_close(g, gp, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(c, cp, rtol=1e-5, atol=1e-4)
 
 
 def test_experiment_kernel_path_matches_ref_path(dev):
