@@ -9,7 +9,12 @@ Phases, each printing one JSON line:
    off, both CUDA kernels built with nvcc from ``src/repro_torch/kernels/csrc``;
 2. kernels vs their plain PyTorch versions on the card — the scan kernel
    for the four device models (f32 and bf16 states, per-lane masks,
-   bitwise chunk resume); the Gram kernel on the edges of its triangle
+   bitwise chunk resume), then on the edge grid of its block layout (N ∈
+   {1, 31, 32, 33, 100, 900, the largest N} × B ∈ {1, 33, 64, 65}, K = 1,
+   2, 37 in turn (1, 2 above N = 100), both mask modes, every model: SiliconMR exact, bf16
+   states the f32 states rounded, resume at an uneven split bitwise;
+   MZISine above the chain kernel's node limit, which SiliconMR raises at); the
+   Gram kernel on the edges of its triangle
    grid (F at the 64-wide tile's edges and 901, C = 1 and 128, a ragged
    T, f32 and bf16 X, both thread layouts), G symmetric bitwise, a
    non-symmetric G0 through accumulate-into, and accumulate-into over an
@@ -37,8 +42,10 @@ Phases, each printing one JSON line:
    fit folded with plain matmuls;
 8. the ``kernels`` line: each kernel at the shapes of the path it rides,
    its launches on that path, error vs the plain version (K1 also on a
-   chunk resumed from a carry and on a whole materialized split), kernel /
-   plain / library times and the roofline bound (K3 at the fold chunk of
+   chunk resumed from a carry and on a whole materialized split, exact),
+   kernel / plain / library times and the roofline bound (K1 also its chain
+   bound at the card's maximum SM clock, from a chain-only loop timed on
+   the card in this run, and its lanes a block) (K3 at the fold chunk of
    each of its three paths, timed from a symmetric running Gram); and the
    time of one bare ``torch.linalg.eigh`` of the main path's Gram.
 
@@ -71,8 +78,19 @@ WASHOUT = 60
 # f32 ops of one SiliconMR node step: u, drive (2), alpha, charge,
 # discharge (2), compare, select
 SCAN_OPS_PER_STEP = 9
+# dependent f32 ops of SiliconMR's least node-chain step: mul, add, select
+# (the compare and the charge add run beside them); the chain bound counts
+# each at the latency of one dependent f32 add, measured on the card by
+# chain_cycles()
+CHAIN_OPS = 3
+CHAIN_PROBE_STEPS = 1 << 20
 STREAM_CHUNK = 256
 N_WDM = 100
+# the scan kernel's edge grid (phase_scan_checks): N at the float4 group's
+# and the warp's edges and the path widths, B at the 8-lane block's edges
+SCAN_EDGE_N = (1, 31, 32, 33, 100, 900)
+SCAN_EDGE_B = (1, 33, 64, 65)
+SCAN_EDGE_K = (1, 2, 37)
 # the shared readout (F = 801), folded by K3 and by plain matmuls.  The gate
 # on K3 there is each Gram's error against the bound of an f32 sum
 # ("gram_error_vs_bound" ≤ 1).  The NRMSE gap between the two fits is no
@@ -137,6 +155,53 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sm_clocks_mhz() -> dict:
+    """The SM clock now and its maximum, in MHz (nvidia-smi)."""
+    line = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    now, top = (float(v) for v in line.split(","))
+    return {"now": now, "max": top}
+
+
+def chain_cycles(dev) -> dict:
+    """Cycles a step of two dependent chains on register values, one thread,
+    CHAIN_PROBE_STEPS steps between two clock64() reads (the scan kernel's
+    ``dfr_scan_chain_probe``), the least of three runs: ``kernel_step`` is
+    SiliconMR's chain step as the scan kernel computes it, ``f32_op`` one
+    dependent f32 add; ``least_step`` is CHAIN_OPS of the latter."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("dfr_scan").dfr_scan_chain_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rng = np.random.default_rng(3)
+    # 8 inputs u, 8 chain-free values a, alpha, s0
+    vals = np.concatenate([rng.uniform(0, 1, 8), rng.uniform(0.05, 0.4, 8), [0.632, 0.1]])
+    x = torch.as_tensor(vals, dtype=torch.float32, device=dev)
+    last = torch.empty(1, dtype=torch.float32, device=dev)
+    cyc = torch.empty(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = {}
+    for form, name in ((0, "kernel_step"), (1, "f32_op")):
+        runs = []
+        for _ in range(3):
+            _build.check(fn(form, x.data_ptr(), last.data_ptr(), cyc.data_ptr(),
+                            CHAIN_PROBE_STEPS, stream), "dfr_scan_chain_probe")
+            torch.cuda.synchronize(dev)
+            check(bool(torch.isfinite(last).all()), f"chain probe {name}: state not finite")
+            runs.append(int(cyc.item()) / CHAIN_PROBE_STEPS)
+        res[name] = min(runs)
+    res["least_step"] = CHAIN_OPS * res["f32_op"]
+    return res
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -199,12 +264,86 @@ def phase_build(card: str) -> None:
           "device": torch.cuda.get_device_name(0)})
 
 
-def phase_scan_checks(dev) -> None:
-    """The scan kernel vs its plain version for every model it inlines."""
+def scan_models():
+    """(name, model, mask levels, tolerance vs the plain version, relative?)
+    for every form the scan kernel inlines.  SiliconMR (with and without
+    TPA) runs the plain version's separately rounded IEEE ops (the TPA
+    division is __fdiv_rn in the kernel, an IEEE division in torch): exact.
+    Literal runs the same ops, but its states grow geometrically (the
+    printed Eq. (6-7) is unstable), so its bound is relative to the largest
+    state.  MackeyGlass and MZISine call powf/sinf in the kernel and torch's
+    pow/sin in the plain version: libm ulp differences carried through the
+    recurrence -> 1e-5."""
+    from repro_torch.core import MackeyGlass, MZISine, SiliconMR, SiliconMRLiteral
+
+    return (("SiliconMR", SiliconMR(), (0.0, 1.0), 0.0, False),
+            ("SiliconMR_tpa", SiliconMR(beta_tpa=0.5), (0.0, 1.0), 0.0, False),
+            ("SiliconMRLiteral", SiliconMRLiteral(), (0.0, 1.0), 1e-5, True),
+            ("MackeyGlass", MackeyGlass(), (-1.0, 1.0), 1e-5, False),
+            ("MZISine", MZISine(), (0.0, 1.0), 1e-5, False))
+
+
+def scan_edge_cases(per_lane: bool):
+    """(B, K, N) of the scan kernel's edge grid for one mask mode: every N of
+    SCAN_EDGE_N and the largest N the block layout takes, each with every B
+    of SCAN_EDGE_B; K cycles through SCAN_EDGE_K (only 1 and 2 above N =
+    100, where the plain version's node loop is longest)."""
+    from repro_torch.kernels.dfr_scan import ops
+
+    cases = []
+    for a, n in enumerate((*SCAN_EDGE_N, ops.max_nodes(per_lane))):
+        ks = SCAN_EDGE_K if n <= 100 else SCAN_EDGE_K[:2]
+        for c, b in enumerate(SCAN_EDGE_B):
+            cases.append((b, ks[(a + c) % len(ks)], n))
+    return cases
+
+
+def scan_edge_check(dev, model, levels, tol, relative, b, k, n, per_lane, seed) -> float:
+    """The scan kernel on one edge case: states and carry vs the plain
+    version within ``tol`` (× the largest state if ``relative``); bf16
+    states equal the f32 states rounded, with the same f32 carry, bitwise;
+    the scan resumed from its carry at an uneven split equals one call
+    bitwise; one launch a call.  Returns the error vs the plain version."""
     import numpy as np
     import torch
 
-    from repro_torch.core import MackeyGlass, MZISine, SiliconMR, SiliconMRLiteral, make_mask
+    from repro_torch.kernels.dfr_scan import ops
+
+    rng = np.random.default_rng(seed)
+    j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32, device=dev)
+    s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(rng.choice(levels, (b, n) if per_lane else (n,)),
+                           dtype=torch.float32, device=dev)
+    what = f"{model!r} B={b} K={k} N={n} {'per-lane' if per_lane else 'broadcast'}"
+    before = ops.dfr_scan.launches
+    out, fin = ops.dfr_scan(model, j, mask, s0, return_final=True)
+    check(ops.dfr_scan.launches == before + 1, f"{what}: not one launch")
+    ref, ref_fin = ops.dfr_scan_plain(model, j, mask, s0)
+    err = max(max_err(out, ref), max_err(fin, ref_fin))
+    scale = max(1.0, float(ref.abs().max())) if relative else 1.0
+    check(err <= tol * scale, f"{what}: scan vs plain {err} > {tol} x {scale}")
+    out16, fin16 = ops.dfr_scan(model, j, mask, s0, out_dtype=torch.bfloat16, return_final=True)
+    check(torch.equal(out16, out.to(torch.bfloat16)) and torch.equal(fin16, fin),
+          f"{what}: bf16 states are not the f32 states rounded")
+    if k > 1:
+        cut = k // 3 + 1
+        st1, f1 = ops.dfr_scan(model, j[:, :cut], mask, s0, return_final=True)
+        st2, f2 = ops.dfr_scan(model, j[:, cut:], mask, f1, return_final=True)
+        check(torch.equal(torch.cat([st1, st2], dim=1), out) and torch.equal(f2, fin),
+              f"{what}: chunk resume at {cut} is not bitwise")
+    return err / scale
+
+
+def phase_scan_checks(dev) -> None:
+    """The scan kernel vs its plain version for every form it inlines: at
+    the main width (B = 64, N = 900, K = 32) with per-lane masks and bf16
+    states, then on the edge grid of its block layout (``scan_edge_cases``:
+    N at the float4 group's and the warp's edges, the largest N, B at the
+    8-lane block's edges, K = 1, 2, 37 in turn), in both mask modes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import SiliconMR, make_mask
     from repro_torch.kernels.dfr_scan import ops
 
     rng = np.random.default_rng(0)
@@ -212,17 +351,7 @@ def phase_scan_checks(dev) -> None:
     j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32, device=dev)
     s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32, device=dev)
     results = {}
-    # SiliconMR: the same separately rounded IEEE ops in both -> 1e-6.
-    # Literal: the same ops, but its states grow geometrically (the printed
-    # Eq. (6-7) is unstable), so its bound is relative to the largest state.
-    # MackeyGlass and MZISine call powf/sinf in the kernel and torch's
-    # pow/sin in the plain version: libm ulp differences carried through
-    # the recurrence -> 1e-5.
-    for model, levels, tol, relative in ((SiliconMR(), (0.0, 1.0), 1e-6, False),
-                                         (SiliconMR(beta_tpa=0.5), (0.0, 1.0), 1e-6, False),
-                                         (SiliconMRLiteral(), (0.0, 1.0), 1e-5, True),
-                                         (MackeyGlass(), (-1.0, 1.0), 1e-5, False),
-                                         (MZISine(), (0.0, 1.0), 1e-5, False)):
+    for name, model, levels, tol, relative in scan_models():
         mask = make_mask(n, levels=levels, seed=1, device=dev)
         out, fin = ops.dfr_scan(model, j, mask, s0, return_final=True)
         ref, ref_fin = ops.dfr_scan_plain(model, j, mask, s0)
@@ -235,7 +364,7 @@ def phase_scan_checks(dev) -> None:
         st2, f2 = ops.dfr_scan(model, j[:, 13:], mask, f1, return_final=True)
         check(torch.equal(torch.cat([st1, st2], dim=1), out) and torch.equal(f2, fin),
               f"{model!r} chunk resume is not bitwise")
-        results[repr(model)] = {"max_abs_err": err, "state_scale": scale}
+        results[name] = {"max_abs_err": err, "state_scale": scale}
     mr, mask = SiliconMR(), make_mask(n, seed=1, device=dev)
     out16 = ops.dfr_scan(mr, j, mask, s0, out_dtype=torch.bfloat16)
     ref = ops.dfr_scan_plain(mr, j, mask, s0)[0]
@@ -244,10 +373,42 @@ def phase_scan_checks(dev) -> None:
     masks = torch.stack([make_mask(n, seed=s, device=dev) for s in range(1, b + 1)])
     lane = ops.dfr_scan(mr, j, masks, s0)
     err_lane = max_err(lane, ops.dfr_scan_plain(mr, j, masks, s0)[0])
-    check(err_lane <= 1e-6, f"per-lane mask err {err_lane}")
+    check(err_lane == 0.0, f"per-lane mask err {err_lane}")
     emit({"phase": "kernel_checks", "kernel": "dfr_scan", "shape_bkn": [b, k, n],
           "by_model": results, "bf16_states_err": err16,
           "per_lane_mask_err": err_lane, "chunk_resume_bitwise": True})
+
+    t0 = time.perf_counter()
+    grid, cases = {}, 0
+    for per_lane in (False, True):
+        edges = scan_edge_cases(per_lane)
+        for name, model, levels, tol, relative in scan_models():
+            errs = [scan_edge_check(dev, model, levels, tol, relative, eb, ek, en, per_lane,
+                                    seed=cases + i) for i, (eb, ek, en) in enumerate(edges)]
+            cases += len(edges)
+            grid[f"{name} {'per-lane' if per_lane else 'broadcast'}"] = max(errs)
+    # MZISine's kernel keeps no rows in shared memory: no node limit
+    above = {}
+    for per_lane in (False, True):
+        n_above = ops.max_nodes(per_lane) + 1
+        name, model, levels, tol, relative = scan_models()[-1]
+        above[f"{name} {'per-lane' if per_lane else 'broadcast'}"] = scan_edge_check(
+            dev, model, levels, tol, relative, 33, 2, n_above, per_lane, seed=cases)
+        cases += 1
+        z = torch.zeros((33, n_above), device=dev)
+        try:
+            ops.dfr_scan(scan_models()[0][1], z[:, :2], z if per_lane else z[0], z)
+        except ValueError:
+            pass
+        else:
+            check(False, f"SiliconMR at N = {n_above} did not raise")
+    emit({"phase": "kernel_checks", "kernel": "dfr_scan", "edge_grid": {
+              "N": [*SCAN_EDGE_N, "max"], "max_nodes": {"broadcast": ops.max_nodes(False),
+                                                        "per_lane": ops.max_nodes(True)},
+              "B": SCAN_EDGE_B, "K": SCAN_EDGE_K, "cases": cases,
+              "max_err_vs_plain_by_form": grid, "mzi_above_node_limit": above,
+              "bf16_is_f32_rounded_bitwise": True,
+              "resume_bitwise": True, "seconds": time.perf_counter() - t0}})
 
 
 def phase_gram_checks(dev) -> None:
@@ -696,13 +857,18 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     share (bound_ms / ms) and its time against one PyTorch call
     (vs_library = ms / library_ms).
 
-    K1 is held to its plain version at ≤ 1e-6 where its paths launch it:
-    on chunk 1 of the stream, resumed from the kernel's carry after chunk
-    0 (f32 states and carry; bf16 states within half a bf16 ulp of the
-    plain f32 state), and on a whole split from a zero state, as the
-    materialized paths launch it (NARMA10 [64, 1000, 900], WDM
-    [64, 10000, 100]).  ``plain_ms`` is the plain version's time on the
-    chunk."""
+    K1 (SiliconMR) is held to its plain version exactly where its paths
+    launch it: on chunk 1 of the stream, resumed from the kernel's carry
+    after chunk 0 (f32 states and carry; bf16 states the f32 states
+    rounded, bitwise, and within half a bf16 ulp of the plain f32 state),
+    and on a whole split from a zero state, as the materialized paths
+    launch it (NARMA10 [64, 1000, 900], WDM [64, 10000, 100]).
+    ``plain_ms`` is the plain version's time on the chunk.  Beside its
+    roofline bound, each K1 row has its chain bound (``chain_bound_ms``:
+    K·N dependent chain steps at the card's maximum SM clock, each of
+    CHAIN_OPS f32 ops at the latency ``chain_cycles`` measures in this run,
+    beside the measured cycles of the kernel's own chain step) and the
+    lanes a block of its layout."""
     import torch
 
     from repro_torch.core import generate_states
@@ -717,6 +883,8 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     j_tr, _ = _input_layer(cfg, tr_in, tr_in)
     y_tr = _canon_batch(narma[1], "targets_train", dev)[..., None]
     rows = []
+    cycles = chain_cycles(dev)
+    clocks = sm_clocks_mhz()
 
     def scan_row(name, j, mask, launches, path):
         b, k = j.shape
@@ -736,8 +904,10 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         checks.append({"what": "chunk 1 from the carry of chunk 0",
                        "shape_bkn": [b, STREAM_CHUNK, n], "max_abs_err": err,
                        "bf16_err_beyond_half_ulp": bf16_excess, "plain_s": plain_s})
-        check(err <= 1e-6, f"{name} vs plain on a resumed chunk: {err}")
+        check(err == 0.0, f"{name} vs plain on a resumed chunk: {err}")
         check(bf16_excess <= 2e-6, f"{name} bf16 states vs plain: {bf16_excess} beyond half an ulp")
+        check(torch.equal(out16, out.to(torch.bfloat16)),
+              f"{name}: bf16 states are not the f32 states rounded")
         del out, out16, ref
         # the whole split from a zero state
         out = scan_ops.dfr_scan(model, j, mask, zero)
@@ -745,19 +915,26 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         err_full = max_err(out, ref)
         checks.append({"what": "whole split from zero", "shape_bkn": [b, k, n],
                        "max_abs_err": err_full, "plain_s": full_s})
-        check(err_full <= 1e-6, f"{name} vs plain on a whole split: {err_full}")
+        check(err_full == 0.0, f"{name} vs plain on a whole split: {err_full}")
         del out, ref
         ms = cuda_ms(lambda: scan_ops.dfr_scan(model, j1, mask, carry), reps=5)
         bound, by = bound_ms(4 * (b * STREAM_CHUNK + mask.numel() + 2 * b * n
                                   + b * STREAM_CHUNK * n),
                              SCAN_OPS_PER_STEP * b * STREAM_CHUNK * n)
+        # each lane's K·N steps are one dependent chain, each step at least
+        # CHAIN_OPS dependent f32 ops; lanes run side by side
+        chain_bound = STREAM_CHUNK * n * cycles["least_step"] / (clocks["max"] * 1e3)
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/dfr_scan.cu",
                      "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97",
                      "launches": launches, "path": path,
                      "max_abs_err": max(c["max_abs_err"] for c in checks), "ms": ms,
                      "plain_ms": plain_s * 1e3, "bound_ms": bound, "bound_by": by,
-                     "library_ms": None, "shape_bkn": [b, STREAM_CHUNK, n], "checks": checks})
+                     "library_ms": None, "chain_bound_ms": chain_bound,
+                     "chain_bound_share": chain_bound / ms, "chain_cycles_per_step": cycles,
+                     "sm_clock_mhz": clocks,
+                     "lanes_per_block": scan_ops.scan_layout(b, n, mask.ndim == 2).lanes,
+                     "shape_bkn": [b, STREAM_CHUNK, n], "checks": checks})
 
     scan_row("dfr_scan", j_tr, exp.mask, paths["streaming"]["launches"][0],
              "streaming NARMA10, one launch per chunk")

@@ -3,37 +3,77 @@
 // Replaces the Pallas TPU kernel `dfr_scan_tiled`
 // (src/repro/kernels/dfr_scan/dfr_scan.py:97, body `_kernel` :60).
 // For each batch lane b, period k and virtual node i:
-//     u = j[k] * m[i];   s_i = node_update(u, s_prev[i], s_last)
-// where s_prev[i] is the same node one period earlier and s_last the
+//     u = j[k] * m[i];   s_i = node_update(u, s_prev[i], s_{i-1})
+// where s_prev[i] is the same node one period earlier and s_{i-1} the
 // previous node.  Every state is emitted; the final state is the carry.
 //
-// What bounds it on this card: the node chain.  The branch bit of node
-// i-1 feeds the value of node i (nonlinear.py), so a lane is K*N dependent
-// steps (compare, add, select), and batch lanes are the only parallel axis.
-// At B = 64, K = 1000, N = 900 the states are 230 MB (~70 us of HBM
-// bandwidth) but the chain is 900k dependent steps per lane: milliseconds
-// even at a few cycles per step, and two warps cannot fill the card.
+// What bounds it: the node chain's latency, not bytes.  Node i-1 feeds node
+// i (the branch `u > s_{i-1}` of SiliconMR, the decay of MackeyGlass) and
+// node N-1 of period k feeds node 0 of period k+1, so a lane is K*N
+// dependent steps, and batch lanes are the only parallel axis (64 on the
+// paths).  SiliconMR's least step is three dependent f32 ops (mul, add,
+// select) of about 4.2 cycles each; its step as written here (the select a
+// byte permute) takes about 15 cycles.  At 1980 MHz that puts
+// [64, 1000, 900] at no less than about 5.8 ms, while its 230 MB of states
+// take 0.07 ms of HBM bandwidth; this kernel takes 8.45 ms there, 18.6
+// cycles a node (NVIDIA H100 80GB HBM3, 700 W; PERF.md PR 14).
+// dfr_scan_chain_probe below measures both step latencies on the card, and
+// chip_smoke.py's kernels line reports them with the chain bound.
 //
 // Design:
-//   * one thread per lane, a loop over K and inside it a loop over N;
-//   * lane-contiguous layouts (j [K, B], mask [N] or [N, B], carry [N, B],
-//     out [K, N, B]) so every load and store of a warp is coalesced;
-//   * the carry s_prev lives in the `fin` output buffer in global memory
-//     (N = 900 is 3.6 KB per lane, 460 KB for 128 lanes: more than a
-//     block's shared memory); each thread reads s_prev[i] and writes it
-//     back in place, so no two threads touch one word; it stays L1/L2
-//     resident;
-//   * the carry and mask of CHUNK nodes are loaded before their chain is
-//     evaluated, so the load latency is paid once per chunk and not once
-//     per dependent step;
-//   * 32 threads per block, so a small batch spreads over several SMs
-//     (and their L1s) instead of sharing one.
+//   * each period splits into a chain-free part and the chain.  The
+//     chain-free part of node i needs only u_i, s_prev[i] and the model's
+//     constants (SiliconMR's pre = alpha * drive, with the TPA division;
+//     SiliconMRLiteral's charge and discharge; MackeyGlass's
+//     (1 - c) * drive with powf and the division).  The chain keeps only
+//     what needs s_{i-1}: SiliconMR mul, add, add, compare, select;
+//     SiliconMRLiteral compare, select; MackeyGlass mul, add;
+//   * one thread runs one lane's chain, software-pipelined over groups of
+//     four nodes: the carry and mask of group g+2 are loaded and the
+//     chain-free part of group g+1 is computed while the chain of group g
+//     runs, so loads and chain-free work fill the chain's latency shadow;
+//   * a block is two warps over L = 8 lanes (eight blocks at B = 64).
+//     Warp 0 runs the chains.  Warp 1 writes the states out, coalesced,
+//     from shared memory, so the chain warp issues no global store: the
+//     carry is two buffers of rows [L][stride] in shared memory, period k
+//     written into buffer k % 2 from buffer (k+1) % 2, and warp 1 writes
+//     period k out while warp 0 runs period k+1, handed over by named
+//     barriers.  The carry is loaded from `fin` once and flushed to it
+//     once; the mask sits after the buffers (one row, or one a lane);
+//   * rows are whole float4s, an odd count of them (ops.py `row_stride`),
+//     so eight lanes' float4 loads and stores fall in distinct banks; the
+//     wrapper (kernels/dfr_scan/ops.py `scan_layout`) gives L, the row
+//     pitch and the shared-memory bytes;
+//   * MZISine has no chain (node i of period k needs only node i of period
+//     k-1), so it runs one thread per (node, lane) pair, its carry in a
+//     register, and no shared memory;
+//   * states are written in the [K, N, B] layout, lanes contiguous, which
+//     the wrapper permutes to [B, K, N].
 //
+// Tried and dropped (PERF.md PR 14; ms at [64, 256, 900], where this kernel
+// takes 2.18 and the PR 13 kernel 10.90): one warp a block that also writes
+// the states, 3.04 (its loop issues 13.5 instructions a node, 3 of them for
+// the stores); the `?:` select, which compiles to an add predicated on the
+// compare and reads the predicate at issue (18.3 cycles a chain step), 2.44;
+// the select moved before the add (22.2 cycles a step) or onto the
+// multiplier (18.3); the group loop unrolled 2 or 8 times instead of 4,
+// 2.37 / 2.25 (not unrolled, 1.5x slower); 16 lanes a block (more
+// shared-memory wavefronts a chain step), 3.58; the barrier ids as
+// compile-time constants behind a branch, 24 % slower at the per-lane
+// [64, 10000, 100].  A second kernel whose helper warps computed the
+// chain-free part behind the chain, handed over by segments through
+// acquire/release counters: the TPA form 3.12 and MackeyGlass 2.69, against
+// about 10.9 and 39.1 here, where the chain warp issues the division and
+// powf itself; SiliconMR on it, 2.94 (a segment's handoff costs a release
+// fence and a pipeline fill, more than its cheap chain-free part saves).
+// No path runs the TPA form or MackeyGlass, so that kernel went.
+
 // Numerics: compute is f32 whatever the output type.  Every product and
 // sum is a separately rounded __fmul_rn/__fadd_rn (and the build passes
-// -fmad=false), mirroring the reference's op order, so the kernel equals
-// its plain PyTorch version up to libm differences (sinf/powf).  The
-// branch is the strict `u > s_prev_node` of jnp.where: a NaN takes the
+// -fmad=false), in the reference's op order; each state's own op sequence
+// is the same as in node_update, only the schedule differs, so the kernel
+// equals its plain PyTorch version up to libm differences (sinf/powf).
+// The branch is the strict `u > s_{i-1}` of jnp.where: a NaN takes the
 // discharge branch in both.  Feeding `fin` back as the next call's carry
 // resumes bit-exactly, since `fin` holds exactly the f32 values the
 // uninterrupted scan keeps.
@@ -48,51 +88,91 @@ namespace {
 // Must match the KERNEL_* ids in repro_torch/core/nonlinear.py.
 enum ModelId { SILICON_MR = 0, SILICON_MR_LITERAL = 1, MACKEY_GLASS = 2, MZI_SINE = 3 };
 
+// Kernel forms: SiliconMR with TPA saturation (beta_tpa != 0) is its own.
+enum Form { MR = 0, MR_TPA = 1, LITERAL = 2, MG = 3 };
+
 struct Params {
   float p0, p1, p2, p3;
 };
 
-constexpr int kThreads = 32;
-constexpr int kChunk = 8;
+constexpr int kWarp = 32;
+constexpr int kGroup = 4;                  // nodes a float4 of a carry row holds
+constexpr int kStaticSmem = 48 * 1024;     // above this, dynamic shared memory needs opting in
+constexpr int kParallelThreads = 256;
 
-template <int M>
-__device__ __forceinline__ float node_update(float u, float s_tau, float s_pn, const Params& p);
+// What node i needs besides s_{i-1}: its masked input u and up to two values
+// computed from u, s_prev[i] and the constants alone.
+struct Free {
+  float u, a, b;
+};
+
+template <int F>
+__device__ __forceinline__ Free free_part(float u, float s_tau, const Params& p);
+template <int F>
+__device__ __forceinline__ float chain(const Free& f, float s_pn, const Params& p);
 
 // SiliconMR, theta-corrected Eq. (6-7): p0 = alpha, p1 = gamma, p2 = beta_tpa.
 template <>
-__device__ __forceinline__ float node_update<SILICON_MR>(float u, float s_tau, float s_pn,
-                                                          const Params& p) {
+__device__ __forceinline__ Free free_part<MR>(float u, float s_tau, const Params& p) {
+  const float drive = __fadd_rn(u, __fmul_rn(p.p1, s_tau));
+  return {u, __fmul_rn(p.p0, drive), 0.0f};
+}
+
+template <>
+__device__ __forceinline__ Free free_part<MR_TPA>(float u, float s_tau, const Params& p) {
   float drive = __fadd_rn(u, __fmul_rn(p.p1, s_tau));
-  if (p.p2 != 0.0f) drive = __fdiv_rn(drive, __fadd_rn(1.0f, __fmul_rn(p.p2, drive)));
-  const float pre = __fmul_rn(p.p0, drive);
-  const float charge = __fadd_rn(pre, s_pn);
-  const float discharge = __fadd_rn(pre, __fmul_rn(s_pn, __fsub_rn(1.0f, p.p0)));
-  return (u > s_pn) ? charge : discharge;
+  drive = __fdiv_rn(drive, __fadd_rn(1.0f, __fmul_rn(p.p2, drive)));
+  return {u, __fmul_rn(p.p0, drive), 0.0f};
+}
+
+// The select is a byte permute of the two candidates' bits, its selector
+// picked by the compare: written as `?:` on the floats, it compiles to an add
+// predicated on the compare, whose predicate is read at issue and puts the
+// compare's longer latency on the chain (18.3 cycles a step, against 15.1).
+__device__ __forceinline__ float mr_chain(const Free& f, float s_pn, const Params& p) {
+  const float charge = __fadd_rn(f.a, s_pn);
+  const float discharge = __fadd_rn(f.a, __fmul_rn(s_pn, __fsub_rn(1.0f, p.p0)));
+  const unsigned pick = (f.u > s_pn) ? 0x3210u : 0x7654u;  // charge's bytes : discharge's
+  return __uint_as_float(__byte_perm(__float_as_uint(charge), __float_as_uint(discharge), pick));
+}
+
+template <>
+__device__ __forceinline__ float chain<MR>(const Free& f, float s_pn, const Params& p) {
+  return mr_chain(f, s_pn, p);
+}
+
+template <>
+__device__ __forceinline__ float chain<MR_TPA>(const Free& f, float s_pn, const Params& p) {
+  return mr_chain(f, s_pn, p);
 }
 
 // SiliconMRLiteral, Eq. (6-7) as printed: p0 = alpha, p1 = gamma.
 template <>
-__device__ __forceinline__ float node_update<SILICON_MR_LITERAL>(float u, float s_tau, float s_pn,
-                                                                  const Params& p) {
+__device__ __forceinline__ Free free_part<LITERAL>(float u, float s_tau, const Params& p) {
   const float pre = __fmul_rn(__fadd_rn(u, __fmul_rn(p.p1, s_tau)), p.p0);
-  const float charge = __fadd_rn(pre, s_tau);
-  const float discharge = __fadd_rn(pre, __fmul_rn(s_tau, __fsub_rn(1.0f, p.p0)));
-  return (u > s_pn) ? charge : discharge;
+  return {u, __fadd_rn(pre, s_tau), __fadd_rn(pre, __fmul_rn(s_tau, __fsub_rn(1.0f, p.p0)))};
+}
+
+template <>
+__device__ __forceinline__ float chain<LITERAL>(const Free& f, float s_pn, const Params&) {
+  return (f.u > s_pn) ? f.a : f.b;
 }
 
 // MackeyGlass: p0 = decay c, p1 = eta, p2 = gamma_in, p3 = exponent p.
 template <>
-__device__ __forceinline__ float node_update<MACKEY_GLASS>(float u, float s_tau, float s_pn,
-                                                            const Params& p) {
+__device__ __forceinline__ Free free_part<MG>(float u, float s_tau, const Params& p) {
   const float x = __fadd_rn(s_tau, __fmul_rn(p.p2, u));
   const float drive = __fdiv_rn(__fmul_rn(p.p1, x), __fadd_rn(1.0f, powf(fabsf(x), p.p3)));
-  return __fadd_rn(__fmul_rn(p.p0, s_pn), __fmul_rn(__fsub_rn(1.0f, p.p0), drive));
+  return {u, __fmul_rn(__fsub_rn(1.0f, p.p0), drive), 0.0f};
+}
+
+template <>
+__device__ __forceinline__ float chain<MG>(const Free& f, float s_pn, const Params& p) {
+  return __fadd_rn(__fmul_rn(p.p0, s_pn), f.a);
 }
 
 // MZISine: p0 = phi, p1 = beta_in, p2 = alpha_fb.  No theta coupling.
-template <>
-__device__ __forceinline__ float node_update<MZI_SINE>(float u, float s_tau, float s_pn,
-                                                        const Params& p) {
+__device__ __forceinline__ float mzi_update(float u, float s_tau, const Params& p) {
   const float arg = __fadd_rn(__fadd_rn(p.p0, __fmul_rn(p.p1, u)), __fmul_rn(p.p2, s_tau));
   const float s = sinf(arg);
   return __fmul_rn(s, s);
@@ -101,61 +181,248 @@ __device__ __forceinline__ float node_update<MZI_SINE>(float u, float s_tau, flo
 __device__ __forceinline__ void store(float* dst, float v) { *dst = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) { *dst = __float2bfloat16_rn(v); }
 
-template <int M, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-dfr_scan_kernel(const float* __restrict__ j, const float* __restrict__ mask, int per_lane,
-                float* __restrict__ fin, OutT* __restrict__ out, int B, int K, int N, Params p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t lanes = static_cast<size_t>(B);
-  float s_last = fin[static_cast<size_t>(N - 1) * lanes + b];
-  for (int k = 0; k < K; ++k) {
-    const float jk = j[static_cast<size_t>(k) * lanes + b];
-    OutT* out_k = out + static_cast<size_t>(k) * N * lanes + b;
-    for (int i0 = 0; i0 < N; i0 += kChunk) {
-      float s_tau[kChunk], m[kChunk];
+template <int F>
+__device__ __forceinline__ void free_group(Free (&f)[kGroup], float jk, float4 s, float4 m,
+                                           const Params& p) {
+  f[0] = free_part<F>(__fmul_rn(jk, m.x), s.x, p);
+  f[1] = free_part<F>(__fmul_rn(jk, m.y), s.y, p);
+  f[2] = free_part<F>(__fmul_rn(jk, m.z), s.z, p);
+  f[3] = free_part<F>(__fmul_rn(jk, m.w), s.w, p);
+}
+
+__device__ __forceinline__ float4 ld4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+
+// Named barriers (0 is __syncthreads) between the chain warp and the writer
+// warp: kFull + q "period in carry buffer q is written", kEmpty + q "buffer
+// q is written out and free".  Each is arrived at by one warp and waited on
+// by the other, and alternates between the two, so 64 threads complete it.
+constexpr int kFull = 1;
+constexpr int kEmpty = 3;
+
+// The ids are run-time values (ptxas then reserves all 16 of the block's
+// barriers); compile-time ids behind a branch ran slower (see the top).
+__device__ __forceinline__ void bar_sync(int id) {
+  __syncwarp();
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(2 * kWarp) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  __syncwarp();
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(2 * kWarp) : "memory");
+}
+
+// One period of one lane's chain: reads the previous period's carry row
+// `prev`, writes this period's states to `cur`; `s` is s_{i-1} in and the
+// period's last state out.
+template <int F>
+__device__ __forceinline__ float run_period(const float* prev, float* cur, const float* mrow,
+                                            float jk, float s, int N, const Params& p) {
+  const int n4 = N - N % kGroup;
+  if (n4 > 0) {
+    // in flight: the raw carry and mask of group g+2, the chain-free part of
+    // group g+1, the chain of group g.  Loads past the last group are clamped
+    // onto it (and unused).
+    Free now[kGroup];
+    free_group<F>(now, jk, ld4(prev), ld4(mrow), p);
+    const int g1 = min(kGroup, n4 - kGroup);
+    float4 s_nx = ld4(prev + g1), m_nx = ld4(mrow + g1);
+#pragma unroll 4
+    for (int i0 = 0; i0 < n4; i0 += kGroup) {
+      const int i2 = min(i0 + 2 * kGroup, n4 - kGroup);
+      const float4 s_far = ld4(prev + i2), m_far = ld4(mrow + i2);
+      Free nxt[kGroup];
+      free_group<F>(nxt, jk, s_nx, m_nx, p);
+      float4 st;
+      st.x = s = chain<F>(now[0], s, p);
+      st.y = s = chain<F>(now[1], s, p);
+      st.z = s = chain<F>(now[2], s, p);
+      st.w = s = chain<F>(now[3], s, p);
+      *reinterpret_cast<float4*>(cur + i0) = st;
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int i = i0 + c;
-        if (i < N) {
-          s_tau[c] = fin[static_cast<size_t>(i) * lanes + b];
-          m[c] = per_lane ? mask[static_cast<size_t>(i) * lanes + b] : mask[i];
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int i = i0 + c;
-        if (i < N) {
-          const float s = node_update<M>(__fmul_rn(jk, m[c]), s_tau[c], s_last, p);
-          fin[static_cast<size_t>(i) * lanes + b] = s;
-          store(out_k + static_cast<size_t>(i) * lanes, s);
-          s_last = s;
-        }
-      }
+      for (int c = 0; c < kGroup; ++c) now[c] = nxt[c];
+      s_nx = s_far;
+      m_nx = m_far;
     }
+  }
+  for (int i = n4; i < N; ++i) {  // the N % 4 nodes past the last group
+    s = chain<F>(free_part<F>(__fmul_rn(jk, mrow[i]), prev[i], p), s, p);
+    cur[i] = s;
+  }
+  return s;
+}
+
+// j [K, B]; mask [N] or [N, B]; fin [N, B] (s0 in, final state out);
+// out [K, N, B].  Block x holds lanes [x*L, x*L + L) in two warps.  Warp 0
+// runs the chains, one thread a lane, period k into carry buffer k % 2
+// (rows [L][stride]) from buffer (k+1) % 2; warp 1 writes period k out of
+// its buffer, coalesced, while warp 0 runs period k+1.  The mask rows
+// ([stride] or [L][stride]) sit after the two buffers.
+template <int F, typename OutT>
+__global__ void __launch_bounds__(2 * kWarp)
+dfr_scan_chain_kernel(const float* __restrict__ j, const float* __restrict__ mask, int per_lane,
+                      float* __restrict__ fin, OutT* __restrict__ out, int B, int K, int N,
+                      int L, int stride, Params p) {
+  extern __shared__ float4 smem4[];
+  float* const carry = reinterpret_cast<float*>(smem4);   // buffer q at carry + q * size
+  const int size = L * stride;
+  float* const msk = carry + 2 * size;
+  const int t = threadIdx.x;
+  const int tl = t % kWarp;
+  const int lane0 = blockIdx.x * L;
+  const int live = min(L, B - lane0);
+  const size_t lanes = static_cast<size_t>(B);
+  // stage in: s0 into buffer 1, the "previous period" of period 0
+  for (int e = t; e < N * live; e += 2 * kWarp) {
+    const int i = e / live, l = e - i * live;
+    const size_t g = static_cast<size_t>(i) * lanes + lane0 + l;
+    carry[size + l * stride + i] = fin[g];
+    if (per_lane) msk[l * stride + i] = mask[g];
+  }
+  if (!per_lane) {
+    for (int i = t; i < N; i += 2 * kWarp) msk[i] = mask[i];
+  }
+  __syncthreads();
+  if (t < kWarp) {
+    // the chain warp
+    const bool on = tl < live;
+    const int b = lane0 + tl;
+    const float* mrow = msk + (per_lane ? tl * stride : 0);
+    float s = on ? carry[size + tl * stride + N - 1] : 0.0f;
+    float jk = on ? j[b] : 0.0f;
+    for (int k = 0; k < K; ++k) {
+      // the next period's input, a period ahead of its use
+      const float jn = (on && k + 1 < K) ? j[static_cast<size_t>(k + 1) * lanes + b] : 0.0f;
+      if (k >= 2) bar_sync(kEmpty + k % 2);
+      if (on) {
+        s = run_period<F>(carry + ((k + 1) % 2) * size + tl * stride,
+                          carry + (k % 2) * size + tl * stride, mrow, jk, s, N, p);
+      }
+      bar_arrive(kFull + k % 2);
+      jk = jn;
+    }
+    for (int k = max(0, K - 2); k < K; ++k) bar_sync(kEmpty + k % 2);
+  } else {
+    // the writer warp: thread tl writes lane tl % L of nodes tl / L, + 32 / L, ...
+    const int l = tl % L;
+    for (int k = 0; k < K; ++k) {
+      bar_sync(kFull + k % 2);
+      if (l < live) {
+        const float* row = carry + (k % 2) * size + l * stride;
+        OutT* o = out + static_cast<size_t>(k) * N * lanes + lane0 + l;
+        for (int i = tl / L; i < N; i += kWarp / L) {
+          store(o + static_cast<size_t>(i) * lanes, row[i]);
+        }
+      }
+      bar_arrive(kEmpty + k % 2);
+    }
+  }
+  __syncthreads();
+  const float* last = carry + ((K + 1) % 2) * size;
+  for (int e = t; e < N * live; e += 2 * kWarp) {
+    const int i = e / live, l = e - i * live;
+    fin[static_cast<size_t>(i) * lanes + lane0 + l] = last[l * stride + i];
   }
 }
 
-template <int M, typename OutT>
-void launch(const float* j, const float* mask, int per_lane, float* fin, OutT* out, int B, int K,
-            int N, Params p, cudaStream_t stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  dfr_scan_kernel<M, OutT><<<blocks, kThreads, 0, stream>>>(j, mask, per_lane, fin, out, B, K, N, p);
+// MZISine: one thread per (node, lane) pair, e = i*B + b, over all K periods.
+template <typename OutT>
+__global__ void __launch_bounds__(kParallelThreads)
+dfr_scan_parallel_kernel(const float* __restrict__ j, const float* __restrict__ mask,
+                         int per_lane, float* __restrict__ fin, OutT* __restrict__ out, int B,
+                         int K, int N, Params p) {
+  const size_t lanes = static_cast<size_t>(B);
+  const size_t period = static_cast<size_t>(N) * lanes;
+  const size_t e = static_cast<size_t>(blockIdx.x) * kParallelThreads + threadIdx.x;
+  if (e >= period) return;
+  const int b = static_cast<int>(e % lanes);
+  const float m = per_lane ? mask[e] : mask[e / lanes];
+  float s = fin[e];
+  for (int k = 0; k < K; ++k) {
+    s = mzi_update(__fmul_rn(j[static_cast<size_t>(k) * lanes + b], m), s, p);
+    store(out + static_cast<size_t>(k) * period + e, s);
+  }
+  fin[e] = s;
+}
+
+struct Layout {
+  int lanes, blocks, stride, smem;
+};
+
+// The chain kernel at the layout ops.scan_layout chose: cudaErrorInvalidValue
+// for a layout that does not cover the batch or a row, else the error of the
+// shared-memory attribute call or of the launch.
+template <int F, typename OutT>
+int launch_chain(const float* j, const float* mask, int per_lane, float* fin, OutT* out, int B,
+                 int K, int N, const Layout& lay, Params p, cudaStream_t stream) {
+  const long long rows = per_lane ? 3LL * lay.lanes : 2LL * lay.lanes + 1;
+  if (lay.lanes < 1 || kWarp % lay.lanes != 0 ||
+      static_cast<long long>(lay.lanes) * lay.blocks < B || lay.stride < N || lay.stride % kGroup != 0 || lay.smem < 4LL * rows * lay.stride) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = dfr_scan_chain_kernel<F, OutT>;
+  if (lay.smem > kStaticSmem) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<lay.blocks, 2 * kWarp, lay.smem, stream>>>(j, mask, per_lane, fin, out, B, K, N,
+                                                      lay.lanes, lay.stride, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT>
 int dispatch(int model_id, const float* j, const float* mask, int per_lane, float* fin, OutT* out,
-             int B, int K, int N, Params p, cudaStream_t stream) {
+             int B, int K, int N, const Layout& lay, Params p, cudaStream_t stream) {
   switch (model_id) {
-    case SILICON_MR: launch<SILICON_MR>(j, mask, per_lane, fin, out, B, K, N, p, stream); break;
+    case SILICON_MR:
+      if (p.p2 != 0.0f) {
+        return launch_chain<MR_TPA>(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
+      }
+      return launch_chain<MR>(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
     case SILICON_MR_LITERAL:
-      launch<SILICON_MR_LITERAL>(j, mask, per_lane, fin, out, B, K, N, p, stream);
-      break;
-    case MACKEY_GLASS: launch<MACKEY_GLASS>(j, mask, per_lane, fin, out, B, K, N, p, stream); break;
-    case MZI_SINE: launch<MZI_SINE>(j, mask, per_lane, fin, out, B, K, N, p, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+      return launch_chain<LITERAL>(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
+    case MACKEY_GLASS:
+      return launch_chain<MG>(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
+    case MZI_SINE: {
+      const size_t pairs = static_cast<size_t>(N) * B;
+      const unsigned blocks =
+          static_cast<unsigned>((pairs + kParallelThreads - 1) / kParallelThreads);
+      dfr_scan_parallel_kernel<OutT><<<blocks, kParallelThreads, 0, stream>>>(
+          j, mask, per_lane, fin, out, B, K, N, p);
+      return static_cast<int>(cudaGetLastError());
+    }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- The chain's latency on the card, for the chain bound of the kernels
+// line (chip_smoke.py): one thread runs `steps` dependent steps on register
+// values between two clock64() reads.  Form 0 is SiliconMR's chain step as
+// chain<MR> computes it; form 1 one dependent __fadd_rn, the latency of one
+// f32 op (the least a step can take is three: mul, add, select).
+constexpr int kProbeUnroll = 8;
+
+template <int V>
+__global__ void chain_probe_kernel(const float* in, float* out, long long* cycles, int steps) {
+  Free f[kProbeUnroll];
+#pragma unroll
+  for (int c = 0; c < kProbeUnroll; ++c) f[c] = Free{in[c], in[kProbeUnroll + c], 0.0f};
+  const Params p{in[2 * kProbeUnroll], 0.0f, 0.0f, 0.0f};
+  float s = in[2 * kProbeUnroll + 1];
+  const long long t0 = clock64();
+#pragma unroll 4
+  for (int n = 0; n < steps; n += kProbeUnroll) {
+#pragma unroll
+    for (int c = 0; c < kProbeUnroll; ++c) {
+      s = V == 0 ? chain<MR>(f[c], s, p) : __fadd_rn(s, f[c].a);
+    }
+  }
+  const long long t1 = clock64();
+  out[0] = s;
+  cycles[0] = t1 - t0;
 }
 
 }  // namespace
@@ -163,17 +430,43 @@ int dispatch(int model_id, const float* j, const float* mask, int per_lane, floa
 // j [K, B] f32; mask [N] (per_lane = 0) or [N, B] (per_lane = 1) f32;
 // fin [N, B] f32 holds s0 on entry and the final state on exit;
 // out [K, N, B] f32 (out_bf16 = 0) or bf16 (out_bf16 = 1).
-// Returns the cudaError_t of the launch (0 on success).
+// lanes, blocks, stride, smem_bytes: the block layout of ops.scan_layout
+// (lanes a block, blocks, carry-row pitch in floats, dynamic shared bytes);
+// MZISine, which keeps no rows, ignores it.  Returns the cudaError_t of the
+// attribute call and the launch (0 on success); cudaErrorInvalidValue for a
+// layout that does not cover the batch or a row.
 extern "C" int dfr_scan_launch(const void* j, const void* mask, int per_lane, void* fin, void* out,
-                               int out_bf16, int B, int K, int N, int model_id, float p0, float p1,
+                               int out_bf16, int B, int K, int N, int lanes, int blocks,
+                               int stride, int smem_bytes, int model_id, float p0, float p1,
                                float p2, float p3, void* stream) {
+  const Layout lay{lanes, blocks, stride, smem_bytes};
   const Params p{p0, p1, p2, p3};
   const auto* jf = static_cast<const float*>(j);
   const auto* mf = static_cast<const float*>(mask);
   auto* ff = static_cast<float*>(fin);
   auto s = static_cast<cudaStream_t>(stream);
   if (out_bf16) {
-    return dispatch(model_id, jf, mf, per_lane, ff, static_cast<__nv_bfloat16*>(out), B, K, N, p, s);
+    return dispatch(model_id, jf, mf, per_lane, ff, static_cast<__nv_bfloat16*>(out), B, K, N, lay,
+                    p, s);
   }
-  return dispatch(model_id, jf, mf, per_lane, ff, static_cast<float*>(out), B, K, N, p, s);
+  return dispatch(model_id, jf, mf, per_lane, ff, static_cast<float*>(out), B, K, N, lay, p, s);
+}
+
+// in: 8 inputs u, 8 chain-free values a, alpha, s0 (f32); out[0] the last
+// state; cycles[0] the clock64() cycles of `steps` (a multiple of 8) steps
+// of chain form `form` (0 SiliconMR's step, 1 one f32 add), one thread.
+extern "C" int dfr_scan_chain_probe(int form, const void* in, void* out, void* cycles, int steps,
+                                    void* stream) {
+  const auto* x = static_cast<const float*>(in);
+  auto* o = static_cast<float*>(out);
+  auto* c = static_cast<long long*>(cycles);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (form == 0) {
+    chain_probe_kernel<0><<<1, 1, 0, s>>>(x, o, c, steps);
+  } else if (form == 1) {
+    chain_probe_kernel<1><<<1, 1, 0, s>>>(x, o, c, steps);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -4,16 +4,21 @@ Port of ``repro/kernels/dfr_scan/ops.py:71`` (``dfr_scan``), which tiles
 the batch onto the TPU's (sublane × 128-lane) vregs and calls the Pallas
 kernel ``dfr_scan_tiled`` (``dfr_scan.py:97``).  Here:
 
-* a CUDA tensor launches the hand-written kernel — one thread per batch
-  lane; see the source for what bounds it and why — or raises;
+* a CUDA tensor launches the hand-written kernel or raises.  The kernel
+  runs each lane's node chain in one thread of a block's first warp, with
+  the block's carry rows in shared memory, while the block's second warp
+  writes the states out; ``scan_layout`` gives the blocks of 8 lanes, the
+  row pitch and the shared-memory bytes from (B, N, mask mode), and raises
+  above the N whose rows do not fit (see the source for what bounds the
+  kernel and why).  MZISine, whose kernel keeps no rows, has no such limit;
 * a CPU tensor takes ``dfr_scan_plain``, the plain PyTorch version (the
   sequential oracle of ``ref.py`` plus the output casts).
 
 The wrapper transposes to the kernel's lane-contiguous layout (j [K, B],
 carry [N, B], states [K, N, B]) and back to [B, K, N], as the reference
 wrapper does for its [K, S, L] tiling.  ``block_s`` (the TPU sublane tile)
-is validated for API parity and otherwise unused: a CUDA thread per lane
-needs no batch tile and no padding.
+is validated for API parity and otherwise unused: the CUDA blocks need no
+sublane tile and no padding.
 
 ``mask`` is [N] (one mask broadcast over the batch) or [B, N] (per lane).
 ``return_final=True`` also returns the final state [B, N] in the input
@@ -25,19 +30,72 @@ states; compute is f32 throughout.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
+from ...core.nonlinear import KERNEL_MZI_SINE
 from ...device import resolve_dtype
 from .. import _build
 from .ref import dfr_scan_ref
 
 BLOCK_S_CHOICES = (1, 2, 4, 8, 16, 32)
 
+# Shared memory one block may use on sm_90 (227 KB, dynamic, after opting in).
+SMEM_PER_BLOCK = 232_448
+# Lanes a block: B = 64 spreads over 8 SMs, the fastest a lane of 8, 16 and
+# 32 (PERF.md PR 14).
+LANES_PER_BLOCK = 8
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
              ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+class ScanLayout(NamedTuple):
+    """Block layout of the scan kernel: ``lanes`` a block, ``blocks``,
+    ``stride`` (floats a carry or mask row) and ``smem_bytes`` (dynamic
+    shared memory a block)."""
+
+    lanes: int
+    blocks: int
+    stride: int
+    smem_bytes: int
+
+
+def row_stride(n_nodes: int) -> int:
+    """Floats a row of the carry in shared memory: N rounded up to whole
+    float4s, and to an odd count of them, so that the float4s of eight
+    lanes' rows fall in distinct banks."""
+    s = -(-n_nodes // 4) * 4
+    return s + 4 if s % 8 == 0 else s
+
+
+def _rows(lanes: int, per_lane: bool) -> int:
+    """Rows a block keeps: two carry rows a lane (this period's and the one
+    before), and one mask row (or one a lane)."""
+    return 3 * lanes if per_lane else 2 * lanes + 1
+
+
+def max_nodes(per_lane: bool) -> int:
+    """The largest N whose rows fit in a block's shared memory."""
+    cap = SMEM_PER_BLOCK // (4 * _rows(LANES_PER_BLOCK, per_lane))
+    return cap - (cap - 4) % 8
+
+
+def scan_layout(b: int, n_nodes: int, per_lane: bool) -> ScanLayout:
+    """The chain kernel's block layout for B lanes of N nodes; raises
+    ValueError above ``max_nodes(per_lane)``."""
+    limit = max_nodes(per_lane)
+    if n_nodes > limit:
+        mode = "per-lane" if per_lane else "broadcast"
+        raise ValueError(f"the scan kernel keeps a block's carry in shared memory: N = "
+                         f"{n_nodes} exceeds its limit of {limit} nodes ({mode} mask)")
+    stride = row_stride(n_nodes)
+    return ScanLayout(LANES_PER_BLOCK, -(-b // LANES_PER_BLOCK), stride,
+                      4 * stride * _rows(LANES_PER_BLOCK, per_lane))
 
 
 def dfr_scan_plain(model, j, mask, s0, *, out_dtype=None):
@@ -59,13 +117,16 @@ def _launch(model, j, mask, s0, out_dtype):
         raise ValueError(f"the scan kernel emits float32 or bfloat16, not {out_dtype}")
     b, k_periods = j.shape
     n_nodes = s0.shape[1]
+    per_lane = mask.ndim == 2
+    # MZISine's kernel runs a thread a (node, lane) and keeps no rows
+    layout = (ScanLayout(0, 0, 0, 0) if model_id == KERNEL_MZI_SINE
+              else scan_layout(b, n_nodes, per_lane))
     dev = j.device
     fin = torch.empty((n_nodes, b), dtype=torch.float32, device=dev)
     fin.copy_(s0.t())                   # the kernel updates the carry in place
     out = torch.empty((k_periods, n_nodes, b), dtype=out_dtype, device=dev)
     if b and k_periods:
         jt = j.to(torch.float32).t().contiguous()
-        per_lane = mask.ndim == 2
         mt = (mask.to(torch.float32).t() if per_lane else mask.to(torch.float32)).contiguous()
         fn = _build.load("dfr_scan").dfr_scan_launch
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -73,7 +134,7 @@ def _launch(model, j, mask, s0, out_dtype):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(jt.data_ptr(), mt.data_ptr(), int(per_lane), fin.data_ptr(),
                      out.data_ptr(), int(out_dtype == torch.bfloat16), b,
-                     k_periods, n_nodes, model_id, *params, stream)
+                     k_periods, n_nodes, *layout, model_id, *params, stream)
         _build.check(err, "dfr_scan")
         dfr_scan.launches += 1
     return out.permute(2, 0, 1).contiguous(), fin.t().to(j.dtype).contiguous()

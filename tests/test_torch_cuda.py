@@ -5,9 +5,11 @@ use); without one they skip.  Run them on the GPU with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: SiliconMR 1e-6 (the kernel evaluates the plain version's
-separately rounded f32 ops); MackeyGlass and MZISine 1e-5 (powf/sinf vs
-torch's pow/sin); bf16 states 4e-2; Gram rtol 1e-5 / atol 1e-4 (f32 sums in
+Tolerances: SiliconMR 1e-6, and exact on the scan kernel's edge grid (the
+kernel evaluates the plain version's separately rounded f32 ops);
+SiliconMRLiteral 1e-5 of its largest state; MackeyGlass and MZISine 1e-5
+(powf/sinf vs torch's pow/sin); bf16 states 4e-2, and on the edge grid the
+f32 states rounded, bitwise; Gram rtol 1e-5 / atol 1e-4 (f32 sums in
 another order, also from a non-symmetric G0); chunk resume, accumulate-into
 over any split and the symmetry of G bitwise.  The streamed
 Gram equals the materialized one bitwise (K1 resumes bitwise, each Gram
@@ -21,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import MackeyGlass, MZISine, SiliconMR, make_mask
+from repro_torch.core import MackeyGlass, MZISine, SiliconMR, SiliconMRLiteral, make_mask
 from repro_torch.kernels.dfr_scan import ops as scan_ops
 from repro_torch.kernels.ridge_gram import ops as gram_ops
 from repro_torch.pipeline import Experiment, ExperimentConfig
@@ -59,6 +61,68 @@ def test_scan_kernel_matches_plain(dev, model, levels, tol):
     a, f1 = scan_ops.dfr_scan(model, j[:, :8], mask, s0, return_final=True)
     b, f2 = scan_ops.dfr_scan(model, j[:, 8:], mask, f1, return_final=True)
     assert torch.equal(torch.cat([a, b], dim=1), out) and torch.equal(f2, fin)
+
+
+SCAN_FORMS = [("mr", SiliconMR(), (0.0, 1.0), 0.0, False),
+              ("mr_tpa", SiliconMR(beta_tpa=0.5), (0.0, 1.0), 0.0, False),
+              ("literal", SiliconMRLiteral(), (0.0, 1.0), 1e-5, True),
+              ("mg", MackeyGlass(), (-1.0, 1.0), 1e-5, False),
+              ("mzi", MZISine(), (0.0, 1.0), 1e-5, False)]
+
+
+@pytest.mark.parametrize("per_lane", [False, True], ids=["broadcast", "per_lane"])
+@pytest.mark.parametrize("form", SCAN_FORMS, ids=[f[0] for f in SCAN_FORMS])
+def test_scan_kernel_edge_grid(dev, form, per_lane):
+    """The kernel's block layout at its edges: N at the float4 group's and
+    the warp's edges, the path widths and the largest N the layout takes; B
+    at the 8-lane block's edges; K = 1, 2, 37 in turn (1, 2 above N = 100,
+    where the plain version's node loop is longest).  States and carry vs
+    the plain version (SiliconMR exact; Literal relative to its largest
+    state); bf16 states are the f32 states rounded, bitwise, with the same
+    carry; resuming at an uneven split is bitwise."""
+    _, model, levels, tol, relative = form
+    rng = np.random.default_rng(7)
+    for a, n in enumerate((1, 31, 32, 33, 100, 900, scan_ops.max_nodes(per_lane))):
+        ks = (1, 2, 37) if n <= 100 else (1, 2)
+        for c, b in enumerate((1, 33, 64, 65)):
+            k = ks[(a + c) % len(ks)]
+            j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32, device=dev)
+            s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32, device=dev)
+            mask = torch.as_tensor(rng.choice(levels, (b, n) if per_lane else (n,)),
+                                   dtype=torch.float32, device=dev)
+            what = f"B={b} K={k} N={n}"
+            out, fin = scan_ops.dfr_scan(model, j, mask, s0, return_final=True)
+            ref, ref_fin = scan_ops.dfr_scan_plain(model, j, mask, s0)
+            scale = max(1.0, float(ref.abs().max())) if relative else 1.0
+            err = max(float((out - ref).abs().max()), float((fin - ref_fin).abs().max()))
+            assert err <= tol * scale, (what, err)
+            out16, fin16 = scan_ops.dfr_scan(model, j, mask, s0, out_dtype=torch.bfloat16,
+                                             return_final=True)
+            assert torch.equal(out16, out.to(torch.bfloat16)) and torch.equal(fin16, fin), what
+            if k > 1:
+                cut = k // 3 + 1
+                st1, f1 = scan_ops.dfr_scan(model, j[:, :cut], mask, s0, return_final=True)
+                st2, f2 = scan_ops.dfr_scan(model, j[:, cut:], mask, f1, return_final=True)
+                assert torch.equal(torch.cat([st1, st2], dim=1), out), what
+                assert torch.equal(f2, fin), what
+
+
+@pytest.mark.parametrize("per_lane", [False, True], ids=["broadcast", "per_lane"])
+def test_scan_kernel_mzi_sine_has_no_node_limit(dev, per_lane):
+    """MZISine's kernel keeps no rows in shared memory: above the chain
+    kernel's node limit it runs and matches the plain version (1e-5), where
+    SiliconMR raises."""
+    n = scan_ops.max_nodes(per_lane) + 1
+    rng = np.random.default_rng(11)
+    j = torch.as_tensor(rng.uniform(0, 1, (33, 2)), dtype=torch.float32, device=dev)
+    s0 = torch.as_tensor(rng.uniform(0, 0.3, (33, n)), dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(rng.choice((0.0, 1.0), (33, n) if per_lane else (n,)),
+                           dtype=torch.float32, device=dev)
+    out, fin = scan_ops.dfr_scan(MZISine(), j, mask, s0, return_final=True)
+    ref, ref_fin = scan_ops.dfr_scan_plain(MZISine(), j, mask, s0)
+    assert max(float((out - ref).abs().max()), float((fin - ref_fin).abs().max())) <= 1e-5
+    with pytest.raises(ValueError, match="limit"):
+        scan_ops.dfr_scan(SiliconMR(), j, mask, s0)
 
 
 def test_scan_kernel_bf16_states_and_per_lane_masks(dev):

@@ -5,7 +5,8 @@ against the JAX Pallas kernel run in interpret mode (as the reference's own
 tests run it on CPU) at small shapes: ≤1e-6 for SiliconMR, ≤1e-5 for the
 models that call pow/sin, ≤4e-2 for bf16 states (bf16 has 8 bits of
 mantissa; the carry stays f32).  The CUDA kernel itself is checked against
-the same plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+the same plain version on the card (tests/test_torch_cuda.py, chip_smoke.py);
+its block layout (``ops.scan_layout``), chosen in Python, is tested here.
 """
 
 import jax.numpy as jnp
@@ -113,3 +114,54 @@ def test_dfr_scan_rejects_bad_arguments():
     before = dfr_scan.launches
     dfr_scan(SiliconMR(), jt, mask, s0t)
     assert dfr_scan.launches == before   # the plain version is not a launch
+
+
+# The CUDA kernel's block layout (ops.scan_layout), reached here without a card:
+# the shapes of every path that launches the kernel, and the edges of the grid
+# that tests/test_torch_cuda.py and chip_smoke.py run on the card.
+PATH_SHAPES = [(64, 900, False),   # NARMA10, materialized and streamed
+               (64, 30, False),    # channel equalisation
+               (64, 100, True),    # 64-channel WDM
+               (8, 100, True),     # WDM shared readout
+               (8, 32, False), (4, 40, False), (37, 45, False), (4, 32, True)]
+
+
+@pytest.mark.parametrize("b,n,per_lane", PATH_SHAPES
+                         + [(b, n, pl) for b in (1, 33, 64, 65, 4096) for n in (1, 31, 32, 33)
+                            for pl in (False, True)])
+def test_scan_layout_fits_shared_memory(b, n, per_lane):
+    lay = ops.scan_layout(b, n, per_lane)
+    assert lay.lanes == ops.LANES_PER_BLOCK == 8
+    assert lay.smem_bytes <= 232_448
+    assert (lay.blocks - 1) * lay.lanes < b <= lay.blocks * lay.lanes
+    # two carry rows a lane (this period's, the one before) and the mask rows
+    rows = 3 * lay.lanes if per_lane else 2 * lay.lanes + 1
+    assert lay.smem_bytes == 4 * rows * lay.stride
+    # whole float4s a row, an odd count of them: eight lanes' float4s in distinct banks
+    assert lay.stride >= n and lay.stride % 8 == 4
+    assert len({(lane * lay.stride // 4) % 8 for lane in range(8)}) == 8
+
+
+def test_scan_layout_spreads_b64_over_more_than_two_blocks():
+    for n, per_lane in ((900, False), (100, True), (30, False)):
+        lay = ops.scan_layout(64, n, per_lane)
+        assert lay.blocks > 2 and lay.lanes == 8
+    # every batch gets blocks of 8 lanes
+    assert ops.scan_layout(4096, 100, False) == (8, 512, 100, 4 * 100 * 17)
+    assert ops.scan_layout(65, 900, True) == (8, 9, 900, 4 * 900 * 24)
+
+
+@pytest.mark.parametrize("per_lane", [False, True], ids=["broadcast", "per_lane"])
+def test_scan_layout_raises_above_the_node_limit(per_lane):
+    limit = ops.max_nodes(per_lane)
+    assert limit >= 2400   # far above the N = 900 of the paper's operating point
+    lay = ops.scan_layout(64, limit, per_lane)
+    assert lay.smem_bytes <= ops.SMEM_PER_BLOCK and lay.lanes == 8
+    with pytest.raises(ValueError, match=f"limit of {limit} nodes"):
+        ops.scan_layout(64, limit + 1, per_lane)
+    # the wrapper raises before it allocates or launches anything
+    n = limit + 1
+    j = torch.zeros(2, 3)
+    mask = torch.zeros((2, n) if per_lane else (n,))
+    with pytest.raises(ValueError, match="limit"):
+        ops._launch(SiliconMR(), j, mask, torch.zeros(2, n), torch.float32)
