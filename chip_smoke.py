@@ -46,8 +46,34 @@ Phases, each printing one JSON line:
    kernel / plain / library times and the roofline bound (K1 also its chain
    bound at the card's maximum SM clock, from a chain-only loop timed on
    the card in this run, and its lanes a block) (K3 at the fold chunk of
-   each of its three paths, timed from a symmetric running Gram); and the
-   time of one bare ``torch.linalg.eigh`` of the main path's Gram.
+   each of its three paths, timed from a symmetric running Gram), K1 and
+   K3 also at the serving tick's shapes ([4096, 32, 64], [4096, 32, 65])
+   with their launches a tick; and the time of one bare
+   ``torch.linalg.eigh`` of the main path's Gram and of the serving
+   refresh tick's Gram stacks (B = 4096 and 512, F = 65).
+
+The serving phases run before the kernels line, in the repo's serving
+configuration (benchmarks/dfr_serving.py: N = 64, 32-period ticks, washout
+32, 256-period channel-equalization streams, a re-solve every 4 ticks) on
+K1 and K3:
+
+9. session parity — B = 64 sessions over 8 chunks == ``fit_ridge_streaming``
+   (G, c, ‖y‖², w, λ index, carry) bitwise at λ = 1.0 and 0.99, a 4 + 4
+   chunk resume through the host bitwise, one K1 and one K3 launch a tick;
+10. one tick at B = 65, N ∈ {1, 33, 64}, through the kernels and through
+   their plain versions on the card, from a slab with NaN/+Inf carry rows
+   and NaN drive samples: K1 bitwise (int patterns), the same rows
+   quarantined;
+11. ``DFRServer`` at B = 4096 (λ = 0.99, 8192 streams) and B = 512 (λ = 1.0,
+   1024 streams): throughput, tick latency by kind, online and steady SER
+   (held to a band around the JAX package's), peak memory, the host share
+   of a step, the device's busy share of fold-only ticks;
+12. kill and restore at B = 512 with faults armed: bitwise the
+   uninterrupted run, also after falling back past a corrupt checkpoint;
+13. the chaos soak at B = 64: isolation, containment, re-convergence;
+14. after the kernels line, the host ``DFRCAccelerator`` at the NARMA10
+   point (N = 900) on K1 against ``Experiment`` (within 0.05 NRMSE), with
+   the Fig. 7 timing model and the Table 1 power totals.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -103,9 +129,38 @@ SHARED_TOL = 0.03
 # in another order moves a score by ~1e-7 relative, a few times that after
 # the cancellation in ‖y − ŷ‖²
 GCV_TIE_RTOL = 1e-5
+# The repo's serving configuration (benchmarks/dfr_serving.py:48-56): N = 64,
+# 32-period ticks, washout 32, 256-period channel-equalization streams at
+# 24 dB (255 periods after the task's train split), a re-solve every 4 ticks
+# over the λ grid below; the CLI's seeds (serve_dfr.main).
+SERVE_N = 64
+SERVE_CHUNK = 32
+SERVE_WASHOUT = 32
+SERVE_STREAM = 256
+SERVE_REFRESH = 4
+SERVE_LAMS = (1e-8, 1e-6, 1e-4)
+SERVE_SNR_DB = 24.0
+SERVE_B = 4096
+SERVE_REQUESTS = 2 * SERVE_B
+SERVE_B_SMALL = 512
+# Steady SER (last quarter of each stream) of the JAX package's DFRServer on
+# the CPU, B = 64 over the first 64 of these streams, by forgetting factor;
+# tests/test_torch_serving.py::test_chip_smoke_ser_band_comes_from_the_reference
+# recomputes them.  A drain's steady SER must lie within SERVE_SER_BAND of
+# them: the 64-stream mean has a sampling spread of ≈ 0.0075 (3520 symbols).
+SERVE_REF_STEADY_SER = {0.99: 0.23551136363636366, 1.0: 0.23551136363636363}
+SERVE_SER_BAND = 0.03
+# the re-convergence gates of tests/test_robustness.py (the chaos soak's)
+SOAK_TAIL_SER = 0.5
+SOAK_TAIL_BAND = 0.15
+
+
+_T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -846,6 +901,471 @@ def phase_wdm(dev, tasks, card: str) -> dict:
             "shared": {"x": x, "y": y, "launches": n_chunks}}
 
 
+def serve_config(**kw):
+    """A session config of the repo's serving configuration, on the kernels."""
+    from repro_torch.core import SiliconMR
+    from repro_torch.pipeline.session import SessionConfig
+
+    base = dict(model=SiliconMR(), n_nodes=SERVE_N, washout=SERVE_WASHOUT,
+                chunk_k=SERVE_CHUNK, refresh_every=SERVE_REFRESH, ridge_l2=SERVE_LAMS,
+                state_method="kernel", use_kernel=True)
+    base.update(kw)
+    return SessionConfig(**base)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route K1 and K3 through their plain PyTorch versions (on the card's
+    tensors) for the body of the ``with``."""
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.kernels.ridge_gram import ops as gram_ops
+
+    scan, into = scan_ops.dfr_scan, gram_ops.gram_accumulate_batched_into
+
+    def scan_plain(model, j, mask, s0, *, block_s=None, return_final=False, out_dtype=None):
+        states, fin = scan_ops.dfr_scan_plain(model, j, mask, s0, out_dtype=out_dtype)
+        return (states, fin) if return_final else states
+
+    def into_plain(g0, c0, x, y, *, block_t=512, round_y=True):
+        return gram_ops.gram_plain_batched(x, y, block_t=block_t, g0=g0, c0=c0,
+                                           round_y=round_y)
+
+    scan_ops.dfr_scan, gram_ops.gram_accumulate_batched_into = scan_plain, into_plain
+    try:
+        yield
+    finally:
+        scan_ops.dfr_scan, gram_ops.gram_accumulate_batched_into = scan, into
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equal as int32 patterns (NaN and inf included)."""
+    import torch
+
+    return bool(torch.equal(a.float().contiguous().view(torch.int32),
+                            b.float().contiguous().view(torch.int32)))
+
+
+def phase_session_parity(dev, card: str) -> None:
+    """B = 64 sessions of the serving configuration take 8 chunks of one
+    stream each, re-solving on the last: at λ = 1.0 and 0.99 their G, c,
+    ‖y‖², w, λ index and carry equal ``fit_ridge_streaming`` over the
+    concatenated streams with the same kernels, bitwise; 4 + 4 chunks
+    through a state rebuilt on the host from the first half's leaves equal
+    the 8, bitwise; every tick launches K1 once and K3 once."""
+    import torch
+
+    from repro_torch.core import make_mask
+    from repro_torch.pipeline import fit_ridge_streaming
+    from repro_torch.pipeline.session import SessionState, _session_step, session_init
+    from repro_torch.robustness import make_streams
+
+    b, ticks, ck = 64, 8, SERVE_CHUNK
+    j_np, y_np = make_streams(b, ticks * ck, snr_db=SERVE_SNR_DB)
+    j = torch.as_tensor(j_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    mask = make_mask(SERVE_N, seed=0, device=dev)
+    out = {}
+    for lam in (1.0, 0.99):
+        cfg = serve_config(forgetting=lam)
+
+        def run(state, lo, hi, counts):
+            for t in range(lo, hi):
+                reset_counts()
+                _, state = _session_step(cfg, mask, state, j[:, t * ck:(t + 1) * ck],
+                                         y[:, t * ck:(t + 1) * ck], refresh=t == ticks - 1)
+                counts.append(launch_counts())
+            return state
+
+        counts = []
+        state = run(session_init(cfg, b, device=dev), 0, ticks, counts)
+        check(all(c == (1, 0, 1) for c in counts),
+              f"session tick launches (scan, gram, into) {counts}")
+        with solved_grams() as grams:
+            w, idx, s_end = fit_ridge_streaming(
+                cfg.model, mask, j, y, washout=SERVE_WASHOUT, chunk_k=ck, lambdas=SERVE_LAMS,
+                state_method="kernel", use_kernel=True, forgetting=lam, device=dev)
+        g, c, y2, _ = grams[0]
+        for name, a, ref in (("g", state.g, g), ("c", state.c, c), ("y2", state.y2, y2),
+                             ("w", state.w, w), ("lam_idx", state.lam_idx, idx.to(torch.int32)),
+                             ("s", state.s, s_end)):
+            check(torch.equal(a, ref), f"session vs streaming fit at λ = {lam}: {name} "
+                                       f"differs by {max_err(a, ref)}")
+        half = run(session_init(cfg, b, device=dev), 0, ticks // 2, [])
+        rebuilt = SessionState(*(torch.from_numpy(leaf.cpu().numpy()).to(dev) for leaf in half))
+        resumed = run(rebuilt, ticks // 2, ticks, [])
+        for name, a, ref in zip(SessionState._fields, resumed, state):
+            check(torch.equal(a, ref), f"4 + 4 chunk resume at λ = {lam}: {name} differs")
+        out[str(lam)] = {"bitwise": ["g", "c", "y2", "w", "lam_idx", "s"],
+                         "resume_4_plus_4_bitwise": True,
+                         "launches_per_tick": {"dfr_scan": 1, "ridge_gram": 0,
+                                               "ridge_gram_into": 1},
+                         "lam_counts": torch.bincount(state.lam_idx.long(),
+                                                      minlength=len(SERVE_LAMS)).tolist()}
+    emit({"phase": "session_parity", "card": card, "B": b, "N": SERVE_N, "chunk": ck,
+          "chunks": ticks, "by_forgetting": out})
+
+
+def phase_session_plain(dev, card: str) -> None:
+    """One serving tick at B = 65 (the 8-lane block's edge), N ∈ {1, 33, 64},
+    through the kernels and through their plain versions on the card, from
+    a live slab whose carry has NaN and +Inf rows and whose drive has NaN
+    samples.  K1's states and carry equal the plain version's as int bit
+    patterns (SiliconMR exact, as on the edge grid of phase 2), so the same rows
+    go non-finite; through the tick the carry and predictions are bitwise,
+    the same rows are quarantined, and G and c agree to the Gram tolerance
+    (rtol 1e-5, atol 1e-4: K3 sums in another order than the plain
+    matmuls)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_mask
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.kernels.ridge_gram import ops as gram_ops
+    from repro_torch.pipeline.session import _copy, _session_step, session_init
+
+    b, ck = 65, SERVE_CHUNK
+    res = {}
+    for n in (1, 33, 64):
+        cfg = serve_config(n_nodes=n, forgetting=0.99)
+        rng = np.random.default_rng(n)
+        mask = make_mask(n, seed=0, device=dev)
+        s = rng.uniform(0, 0.3, (b, n)).astype(np.float32)
+        s[3] = np.nan
+        s[7] = np.inf
+        s[11, n // 2] = np.nan
+        j = rng.uniform(0, 1, (b, ck)).astype(np.float32)
+        j[5, 10] = np.nan
+        j[9] = np.nan
+        j[64, ck - 1] = np.nan
+        y = rng.choice([-3.0, -1.0, 1.0, 3.0], (b, ck)).astype(np.float32)
+        x0 = torch.as_tensor(rng.standard_normal((b, ck, n + 1)), dtype=torch.float32,
+                             device=dev)
+        g0, c0 = gram_ops.gram_plain_batched(x0, torch.ones((b, ck, 1), device=dev))
+        base = session_init(cfg, b, device=dev)._replace(
+            s=torch.as_tensor(s, device=dev), g=g0, c=c0,
+            w=torch.as_tensor(rng.normal(0, 0.1, (b, n + 1, 1)), dtype=torch.float32,
+                              device=dev),
+            step=torch.full((b,), 2 * ck, dtype=torch.int32, device=dev))
+        jt, yt = torch.as_tensor(j, device=dev), torch.as_tensor(y, device=dev)
+        out_k, fin_k = scan_ops.dfr_scan(cfg.model, jt, mask, base.s, return_final=True)
+        out_p, fin_p = scan_ops.dfr_scan_plain(cfg.model, jt, mask, base.s)
+        check(same_bits(out_k, out_p) and same_bits(fin_k, fin_p),
+              f"N = {n}: K1 with non-finite rows is not bitwise its plain version")
+        bad_rows = ~torch.isfinite(fin_k).all(dim=1)
+        reset_counts()
+        yk, sk = _session_step(cfg, mask, _copy(base), jt, yt)
+        check(launch_counts() == (1, 0, 1), f"N = {n}: tick launches {launch_counts()}")
+        with plain_kernels():
+            yp, sp = _session_step(cfg, mask, _copy(base), jt, yt)
+        check(launch_counts() == (1, 0, 1), f"N = {n}: the plain tick launched a kernel")
+        check(same_bits(yk, yp) and same_bits(sk.s, sp.s), f"N = {n}: tick carry/prediction")
+        check(torch.equal(sk.quarantined, sp.quarantined)
+              and torch.equal(sk.quarantined, bad_rows),
+              f"N = {n}: quarantined rows {sk.quarantined.nonzero().flatten().tolist()} vs "
+              f"plain {sp.quarantined.nonzero().flatten().tolist()}")
+        for name in ("g", "c"):
+            a, r = getattr(sk, name), getattr(sp, name)
+            check(torch.allclose(a, r, rtol=1e-5, atol=1e-4), f"N = {n}: tick {name} vs plain "
+                                                               f"{max_err(a, r)}")
+        res[str(n)] = {"quarantined_rows": sk.quarantined.nonzero().flatten().tolist(),
+                       "g_max_abs_err": max_err(sk.g, sp.g), "c_max_abs_err": max_err(sk.c, sp.c)}
+    emit({"phase": "session_kernel_vs_plain", "card": card, "B": b, "chunk": ck,
+          "k1_int_bitwise": True, "carry_and_prediction_bitwise": True, "by_N": res})
+
+
+def serve_drain(server, requests) -> dict:
+    """Drain ``requests`` through ``server`` a tick at a time; returns the
+    host seconds of each ``step`` beside the server's in-step seconds."""
+    import torch
+
+    for r in requests:
+        server.submit(r)
+    steps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while server.queue or server.active:
+        t1 = time.perf_counter()
+        server.step()
+        steps.append(time.perf_counter() - t1)
+    server.close()
+    return {"wall_s": time.perf_counter() - t0, "step_s": steps}
+
+
+def serve_report(server, drained: dict, requests) -> dict:
+    """Throughput, tick latency by kind, SER and the host share of a drain."""
+    import numpy as np
+
+    from repro_torch.launch.serve_dfr import online_ser
+
+    wall = drained["wall_s"]
+    ticks = np.asarray(server.tick_seconds)
+    refresh = np.arange(len(ticks)) % SERVE_REFRESH == 0
+    online, steady = online_ser(server, SERVE_WASHOUT)
+
+    def q(x):
+        return {"p50_ms": float(np.percentile(x, 50) * 1e3),
+                "p99_ms": float(np.percentile(x, 99) * 1e3), "n": int(len(x))}
+
+    periods = sum(len(r.j) for r in server.completed)
+    steps = np.asarray(drained["step_s"])
+    step_s = float(steps.sum())
+    return {"ticks": server.tick, "completed": len(server.completed),
+            "requests": len(requests), "wall_s": wall,
+            "streams_per_s": len(server.completed) / wall, "periods_per_s": periods / wall,
+            "tick_fold_only": q(ticks[~refresh]), "tick_fold_solve": q(ticks[refresh]),
+            "online_ser": online, "steady_ser": steady,
+            "host_share_of_step": 1.0 - float(ticks.sum()) / step_s,
+            "host_share_of_fold_only_step": 1.0 - float(ticks[~refresh].sum() /
+                                                        steps[~refresh].sum()),
+            "step_s_sum": step_s, "in_step_s_sum": float(ticks.sum()),
+            "step_ms": (steps * 1e3).tolist(), "in_step_ms": (ticks * 1e3).tolist(),
+            "stats": server.stats()}
+
+
+def phase_serving(dev, card: str) -> dict:
+    """``DFRServer`` at full size: B = 4096 slots at λ = 0.99 drain 8192
+    channel-equalization streams built as the CLI builds them, then B = 512
+    at λ = 1.0 drains 1024; throughput, tick latency (fold-only and
+    fold+solve ticks apart), online and steady SER (held to the band of the
+    JAX package's steady SER), peak device memory, the host share of a
+    step, and K1/K3 launches (one each a tick).  Then, at B = 4096 with a
+    new wave of streams mid-flight, the device's busy time in the three
+    fold-only ticks after a refresh (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve_dfr import DFRServer, channel_eq_requests
+
+    out = {}
+    t_req = time.perf_counter()
+    reqs = channel_eq_requests(SERVE_REQUESTS, SERVE_STREAM, SERVE_CHUNK, snr_db=SERVE_SNR_DB)
+    build_s = time.perf_counter() - t_req
+    keep = {}
+    for b, lam, n_req in ((SERVE_B, 0.99, SERVE_REQUESTS), (SERVE_B_SMALL, 1.0, 2 * SERVE_B_SMALL)):
+        server = DFRServer(serve_config(forgetting=lam), b, device=dev)
+        server.warmup()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        drained = serve_drain(server, [dataclasses.replace(r, y_hat=[]) for r in reqs[:n_req]])
+        launches = launch_counts()
+        rep = serve_report(server, drained, reqs[:n_req])
+        rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rep["launches"] = {"dfr_scan": launches[0], "ridge_gram": launches[1],
+                           "ridge_gram_into": launches[2]}
+        check(launches == (server.tick, 0, server.tick), f"B = {b}: launches {launches} over "
+                                                         f"{server.tick} ticks")
+        check(rep["completed"] == n_req, f"B = {b}: {rep['completed']} of {n_req} completed")
+        check(all(np.isfinite(np.concatenate(r.y_hat)).all() for r in server.completed),
+              f"B = {b}: a prediction is not finite")
+        ref = SERVE_REF_STEADY_SER[lam]
+        rep["steady_ser_band"] = [ref - SERVE_SER_BAND, ref + SERVE_SER_BAND]
+        check(abs(rep["steady_ser"] - ref) <= SERVE_SER_BAND,
+              f"B = {b}: steady SER {rep['steady_ser']} outside {ref} ± {SERVE_SER_BAND}")
+        out[f"B{b}_lam{lam}"] = rep
+        keep[b] = server
+    server = keep[SERVE_B]
+    g = server.state.g.clone()
+    # device busy time of the three fold-only ticks after a refresh,
+    # mid-stream.  A fold+solve tick is not profiled: its eigh launches
+    # ≈ 5·10⁵ small kernels, whose trace takes minutes to read back; the
+    # library line times that eigh alone.
+    for r in reqs[:SERVE_B]:
+        server.submit(dataclasses.replace(r, y_hat=[], pos=0))
+    for _ in range(SERVE_REFRESH + 1):
+        server.step()
+    check(server.tick % SERVE_REFRESH == 1, f"profile starts at tick {server.tick}")
+    out["profile_fold_only_ticks"] = profile_ticks(server, SERVE_REFRESH - 1)
+    emit({"phase": "serving", "card": card, "N": SERVE_N, "chunk": SERVE_CHUNK,
+          "washout": SERVE_WASHOUT, "stream_periods": int(len(reqs[0].j)),
+          "refresh_every": SERVE_REFRESH, "lams": SERVE_LAMS, "snr_db": SERVE_SNR_DB,
+          "requests_build_s": build_s, "runs": out})
+    j = np.stack([r.j[:3 * SERVE_CHUNK] for r in reqs[:SERVE_B]])
+    y = np.stack([r.y[:3 * SERVE_CHUNK] for r in reqs[:SERVE_B]])
+    return {"j": torch.as_tensor(j, device=dev), "y": torch.as_tensor(y, device=dev),
+            "mask": server.mask, "model": server.cfg.model, "g": g,
+            "launches": out[f"B{SERVE_B}_lam0.99"]["launches"],
+            "ticks": out[f"B{SERVE_B}_lam0.99"]["ticks"]}
+
+
+def profile_ticks(server, n_ticks: int) -> dict:
+    """Device busy time of the next ``n_ticks`` server ticks (torch.profiler:
+    the union of the kernel and copy intervals on the card) against their
+    host wall time, and the kernels by device time; the error if the
+    profiler fails here."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_ticks):
+                server.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and "Buffer" not in e.name)
+        busy_us, end = 0.0, float("-inf")
+        by_name = {}
+        for start, stop, name in spans:
+            busy_us += max(0.0, stop - max(start, end))
+            end = max(end, stop)
+            by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        return {"ticks": n_ticks, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+                "device_busy_share": busy_us / 1e3 / wall_ms, "device_events": len(spans),
+                "top_device_ms": top}
+    except Exception as err:  # noqa: BLE001 — the profiler is untried on that machine
+        return {"error": f"{type(err).__name__}: {err}"}
+
+
+def phase_kill_restore(dev, card: str) -> None:
+    """A B = 512 server with faults armed on 4 rows (NaN samples at p = 0.05
+    for the first 10 ticks) and checkpoint_every = 4 under build/ is
+    dropped after tick 10; a new server restores and drains: predictions,
+    completed streams and counters are bitwise those of an uninterrupted
+    run.  Then the newest checkpoint's first leaf is corrupted: the restore
+    falls back one checkpoint and still matches."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.launch.serve_dfr import DFRServer, channel_eq_requests
+    from repro_torch.robustness import no_faults, on_rows
+
+    b, kill = SERVE_B_SMALL, 10
+    root = ROOT / "build" / "serve_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    reqs = channel_eq_requests(2 * b, SERVE_STREAM, SERVE_CHUNK, snr_db=SERVE_SNR_DB, seed=7)
+    spec = on_rows(no_faults(b, device=dev), [0, 1, 2, 3], nan_prob=0.05, until_tick=kill)
+    cfg = serve_config(forgetting=0.99)
+
+    def fresh(name):
+        s = DFRServer(cfg, b, fault_spec=spec, fault_seed=5, checkpoint_dir=str(root / name),
+                      checkpoint_every=4, device=dev)
+        s.warmup()
+        return s
+
+    def outputs(server):
+        return [(r.rid, np.concatenate(r.y_hat)) for r in server.completed]
+
+    ref = fresh("uninterrupted")
+    for r in reqs:
+        ref.submit(dataclasses.replace(r, y_hat=[]))
+    ref.drain()
+    expect = outputs(ref)
+    legs = {}
+    for leg in ("newest", "corrupt_newest"):
+        crash = fresh(leg)
+        for r in reqs:
+            crash.submit(dataclasses.replace(r, y_hat=[]))
+        for _ in range(kill):
+            crash.step()
+        crash.close()
+        steps = crash.store.all_steps()
+        if leg == "corrupt_newest":
+            leaf = sorted((root / leg / f"step_{steps[-1]:010d}").glob("leaf_*.npy"))[0]
+            leaf.write_bytes(leaf.read_bytes()[:-8] + b"deadbeef")
+        resumed = fresh(leg)
+        got_tick = resumed.restore()
+        want_tick = steps[-1] if leg == "newest" else steps[-2]
+        check(got_tick == want_tick, f"{leg}: restored tick {got_tick}, expected {want_tick}")
+        resumed.drain()
+        got = outputs(resumed)
+        same = (len(got) == len(expect) and all(
+            ra == rb and ya.tobytes() == yb.tobytes() for (ra, ya), (rb, yb) in zip(got, expect)))
+        check(same, f"{leg}: resumed predictions are not bitwise the uninterrupted run's")
+        check(resumed.counters == ref.counters,
+              f"{leg}: counters {resumed.counters} vs {ref.counters}")
+        legs[leg] = {"checkpoints": steps, "restored_tick": got_tick, "bitwise": True,
+                     "counters": resumed.counters}
+    emit({"phase": "kill_restore", "card": card, "B": b, "requests": len(reqs),
+          "killed_after_tick": kill, "checkpoint_every": 4, "legs": legs,
+          "uninterrupted_ticks": ref.tick})
+
+
+def phase_soak(dev, card: str) -> None:
+    """``run_soak`` at B = 64 on the card: NaN, +Inf and carry-corruption
+    faults (probability 1) on rows 1-3 and NaN samples at p = 0.5 on row 4,
+    for the first 4 of 24 ticks; a stuck node on row 5 and thermal detuning
+    on row 6.  Healthy rows bitwise the clean run, every prediction finite,
+    the poisoned rows quarantined and re-converged below the gates of
+    tests/test_robustness.py, the drifting rows never quarantined."""
+    from repro_torch.robustness import no_faults, on_rows, run_soak
+
+    spec = no_faults(64, device=dev)
+    for row, fault in ((1, dict(nan_prob=1.0)), (2, dict(inf_prob=1.0)),
+                       (3, dict(corrupt_prob=1.0)), (4, dict(nan_prob=0.5))):
+        spec = on_rows(spec, [row], until_tick=4, **fault)
+    spec = on_rows(spec, [5], stuck_node=3, stuck_value=0.5)
+    spec = on_rows(spec, [6], detune_amp=0.5, detune_period=64.0)
+    t0 = time.perf_counter()
+    rep = run_soak(serve_config(), spec, n_ticks=24, seed=1)
+    seconds = time.perf_counter() - t0
+    check(rep["faulty_rows"] == [1, 2, 3, 4, 5, 6], f"soak faulty rows {rep['faulty_rows']}")
+    check(rep["healthy_bitwise_identical"], "soak: healthy rows differ from the clean run")
+    check(rep["output_all_finite"], "soak: a non-finite prediction reached the host")
+    for row in (1, 2, 3, 4):
+        check(rep["quarantine_events"][row] >= 1, f"soak: row {row} never quarantined")
+        ser = rep["tail_ser_rows"][row]
+        check(ser < SOAK_TAIL_SER and ser <= rep["tail_ser_clean"] + SOAK_TAIL_BAND,
+              f"soak: row {row} tail SER {ser} (clean {rep['tail_ser_clean']})")
+    for row in (1, 2, 3):
+        check(rep["quarantine_ticks"][row] == [0, 1, 2, 3],
+              f"soak: row {row} quarantined at {rep['quarantine_ticks'][row]}")
+    check(rep["quarantine_events"][5] == rep["quarantine_events"][6] == 0,
+          "soak: a drift fault tripped the quarantine")
+    emit({"phase": "soak", "card": card, "seconds": seconds,
+          "gates": {"tail_ser": SOAK_TAIL_SER, "band": SOAK_TAIL_BAND}, **{
+              k: rep[k] for k in ("batch", "n_ticks", "chunk", "faulty_rows",
+                                  "healthy_bitwise_identical", "output_all_finite",
+                                  "quarantine_ticks", "tail_ser_clean", "tail_ser_healthy",
+                                  "tail_ser_faulty")},
+          "quarantine_events": rep["quarantine_events"][:8],
+          "tail_ser_rows": rep["tail_ser_rows"][:8]})
+
+
+def phase_accelerator(dev, tasks, card: str) -> None:
+    """``DFRCAccelerator`` at the paper's NARMA10 point (N = 900, washout
+    60, the five-λ grid; ``dfrc_tasks()["narma10"]["Silicon MR"]``) on the
+    scan kernel, against ``Experiment.run_dataset`` of
+    ``ExperimentConfig.from_dfrc`` of the same config (within 0.05 NRMSE,
+    tests/test_pipeline.py's bound); beside it the Fig. 7 training-time
+    model and the Table 1 power totals."""
+    from repro_torch.core import DFRCAccelerator, DFRCConfig, SiliconMR, power, timing
+    from repro_torch.pipeline import Experiment, ExperimentConfig
+
+    cfg = DFRCConfig(model=SiliconMR(), n_nodes=N_MAIN, washout=WASHOUT, ridge_l2=LAMS,
+                     state_method="kernel")
+    ds = tasks.narma10(2000, seed=0)
+    reset_counts()
+    acc, fit_s = wall(lambda: DFRCAccelerator(cfg, device=dev).fit(ds.inputs_train,
+                                                                  ds.targets_train))
+    err, predict_s = wall(lambda: acc.evaluate_nrmse(ds.inputs_test, ds.targets_test))
+    launches = launch_counts()
+    check(launches == (2, 0, 0), f"accelerator launches (scan, gram, into) {launches}")
+    res = Experiment(ExperimentConfig.from_dfrc(cfg), device=dev).run_dataset(ds)
+    gap = abs(float(res.nrmse[0]) - err)
+    check(gap < 0.05, f"accelerator NRMSE {err} vs Experiment {res.nrmse[0]}")
+    n_train = len(ds.inputs_train)
+    nodes = {"Silicon MR": N_MAIN, "All Optical (MZI)": 400, "Electronic (MG)": N_MAIN}
+    fig7 = {tm.name: {"n_nodes": nodes[tm.name],
+                      "collect_s": tm.collection_time_s(n_train, nodes[tm.name]),
+                      "total_s": tm.training_time_s(n_train, nodes[tm.name])}
+            for tm in (timing.TIMING_SILICON_MR, timing.TIMING_MZI, timing.TIMING_MG)}
+    table1 = {spec.name: {"total_mw_wallplug": spec.total_mw(),
+                          "total_mw_optical_only": spec.total_mw(apply_wall_plug=False),
+                          "paper_mw": power.PAPER_TOTALS_MW[spec.name]}
+              for spec in (power.SILICON_MR, power.ALL_OPTICAL_MZI)}
+    emit({"phase": "accelerator", "card": card, "task": "narma10", "N": N_MAIN,
+          "nrmse": err, "experiment_nrmse": float(res.nrmse[0]), "gap": gap,
+          "launches": {"dfr_scan": launches[0], "ridge_gram": launches[1]},
+          "fit_wall_s": fit_s, "predict_wall_s": predict_s,
+          "fig7_model_n_train": n_train, "fig7_model": fig7, "table1_power": table1})
+
+
 def phase_kernels_line(dev, narma, paths: dict) -> None:
     """Each kernel at the shapes of the path it rides, with that path's
     launch count: K1 at one streamed chunk (broadcast mask, N = 900) and in
@@ -886,14 +1406,14 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     cycles = chain_cycles(dev)
     clocks = sm_clocks_mhz()
 
-    def scan_row(name, j, mask, launches, path):
+    def scan_row(name, j, mask, launches, path, chunk=STREAM_CHUNK):
         b, k = j.shape
         n = mask.shape[-1]
         zero = torch.zeros((b, n), dtype=torch.float32, device=dev)
         checks = []
         # chunk 1, resumed from the kernel's carry after chunk 0
-        _, carry = scan_ops.dfr_scan(model, j[:, :STREAM_CHUNK], mask, zero, return_final=True)
-        j1 = j[:, STREAM_CHUNK:2 * STREAM_CHUNK].contiguous()
+        _, carry = scan_ops.dfr_scan(model, j[:, :chunk], mask, zero, return_final=True)
+        j1 = j[:, chunk:2 * chunk].contiguous()
         out, fin = scan_ops.dfr_scan(model, j1, mask, carry, return_final=True)
         out16 = scan_ops.dfr_scan(model, j1, mask, carry, out_dtype=torch.bfloat16)
         (ref, ref_fin), plain_s = wall(lambda: scan_ops.dfr_scan_plain(model, j1, mask, carry))
@@ -902,7 +1422,7 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         # 2^-8 of itself
         bf16_excess = float(((out16.float() - ref).abs() - ref.abs() * 2.0 ** -8).max())
         checks.append({"what": "chunk 1 from the carry of chunk 0",
-                       "shape_bkn": [b, STREAM_CHUNK, n], "max_abs_err": err,
+                       "shape_bkn": [b, chunk, n], "max_abs_err": err,
                        "bf16_err_beyond_half_ulp": bf16_excess, "plain_s": plain_s})
         check(err == 0.0, f"{name} vs plain on a resumed chunk: {err}")
         check(bf16_excess <= 2e-6, f"{name} bf16 states vs plain: {bf16_excess} beyond half an ulp")
@@ -918,12 +1438,11 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         check(err_full == 0.0, f"{name} vs plain on a whole split: {err_full}")
         del out, ref
         ms = cuda_ms(lambda: scan_ops.dfr_scan(model, j1, mask, carry), reps=5)
-        bound, by = bound_ms(4 * (b * STREAM_CHUNK + mask.numel() + 2 * b * n
-                                  + b * STREAM_CHUNK * n),
-                             SCAN_OPS_PER_STEP * b * STREAM_CHUNK * n)
+        bound, by = bound_ms(4 * (b * chunk + mask.numel() + 2 * b * n + b * chunk * n),
+                             SCAN_OPS_PER_STEP * b * chunk * n)
         # each lane's K·N steps are one dependent chain, each step at least
         # CHAIN_OPS dependent f32 ops; lanes run side by side
-        chain_bound = STREAM_CHUNK * n * cycles["least_step"] / (clocks["max"] * 1e3)
+        chain_bound = chunk * n * cycles["least_step"] / (clocks["max"] * 1e3)
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/dfr_scan.cu",
                      "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97",
@@ -934,7 +1453,7 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                      "chain_bound_share": chain_bound / ms, "chain_cycles_per_step": cycles,
                      "sm_clock_mhz": clocks,
                      "lanes_per_block": scan_ops.scan_layout(b, n, mask.ndim == 2).lanes,
-                     "shape_bkn": [b, STREAM_CHUNK, n], "checks": checks})
+                     "shape_bkn": [b, chunk, n], "checks": checks})
 
     scan_row("dfr_scan", j_tr, exp.mask, paths["streaming"]["launches"][0],
              "streaming NARMA10, one launch per chunk")
@@ -1050,11 +1569,39 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
              "WDM shared readout, one launch per fit chunk",
              [xs[:, :STREAM_CHUNK].contiguous(), xs[:, STREAM_CHUNK:].contiguous()],
              [ys[:, :STREAM_CHUNK].contiguous(), ys[:, STREAM_CHUNK:].contiguous()])
-    for row in rows[2:]:
-        check(max(row["error_vs_f32_sum_bound"].values()) <= 1.0,
-              f"{row['name']} outside the f32 sum's error bound")
+    # the serving tick at B = 4096: K1 on chunk 1 of 32 periods from the carry
+    # of chunk 0, K3 folding chunk 2 (all rows past the washout) onto the
+    # stacks K2 made of chunk 1
+    serve = paths["serving"]
+    ticks = serve["ticks"]
+    scan_row("dfr_scan_serving", serve["j"][:, :2 * SERVE_CHUNK].contiguous(), serve["mask"],
+             serve["launches"]["dfr_scan"], f"serving, B = {SERVE_B}: one launch a tick "
+             f"({ticks} ticks)", chunk=SERVE_CHUNK)
+    st_s = scan_ops.dfr_scan(serve["model"], serve["j"], serve["mask"],
+                             torch.zeros((SERVE_B, SERVE_N), device=dev))
+    y_s = serve["y"][..., None]
+    ck = SERVE_CHUNK
+    gram_row("ridge_gram_into_serving", k3, serve["launches"]["ridge_gram_into"],
+             f"serving, B = {SERVE_B}: one launch a tick ({ticks} ticks)",
+             [with_bias(st_s[:, ck:2 * ck]), with_bias(st_s[:, 2 * ck:])],
+             [y_s[:, ck:2 * ck].contiguous(), y_s[:, 2 * ck:].contiguous()])
+    for row in rows:
+        if row["name"].endswith("_serving"):
+            row["launches_per_tick"] = row["launches"] / ticks
+    del st_s
+    for row in rows:
+        if row["name"].startswith("ridge_gram"):
+            check(max(row["error_vs_f32_sum_bound"].values()) <= 1.0,
+                  f"{row['name']} outside the f32 sum's error bound")
     emit({"kernels": rows})
-    emit({"phase": "library", "call": "torch.linalg.eigh", "shape": [bb, f, f], "ms": eigh_ms})
+    g_serve = serve["g"]
+    eighs = [{"shape": [bb, f, f], "path": "NARMA10 readout", "ms": eigh_ms}]
+    for b_e in (SERVE_B, SERVE_B_SMALL):
+        g_e = g_serve[:b_e].contiguous()
+        # warm: the serving drains ran this shape's eigh on every refresh
+        eighs.append({"shape": list(g_e.shape), "path": f"serving refresh tick, B = {b_e}",
+                      "ms": cuda_ms(lambda: torch.linalg.eigh(g_e), reps=1, warmup=0)})
+    emit({"phase": "library", "call": "torch.linalg.eigh", "timings": eighs})
 
 def main() -> int:
     import torch
@@ -1086,7 +1633,14 @@ def main() -> int:
     streaming = phase_streaming(dev, narma, card)
     phase_long_stream(dev, tasks, card)
     wdm = phase_wdm(dev, tasks, card)
-    phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm})
+    phase_session_parity(dev, card)
+    phase_session_plain(dev, card)
+    serving = phase_serving(dev, card)
+    phase_kill_restore(dev, card)
+    phase_soak(dev, card)
+    phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm,
+                                    "serving": serving})
+    phase_accelerator(dev, tasks, card)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,7 @@ import torch
 from .. import _build
 
 C_MAX = 128   # target columns the kernel takes (each moment block walks 64·C chains)
+MAX_INSTANCES = 65535   # instances the kernel takes (its grid's y dimension)
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -82,8 +83,8 @@ def _launch(x, y, g, c, *, has_init: bool) -> bool:
         raise ValueError(f"the Gram kernel reads float32 or bfloat16 X, not {x.dtype}")
     if not 1 <= cols <= C_MAX:
         raise ValueError(f"the Gram kernel takes 1..{C_MAX} target columns, got {cols}")
-    if b > 65535:
-        raise ValueError(f"the Gram kernel takes at most 65535 instances, got {b}")
+    if b > MAX_INSTANCES:
+        raise ValueError(f"the Gram kernel takes at most {MAX_INSTANCES} instances, got {b}")
     if b == 0 or f == 0:
         return False
     xk = x.contiguous()

@@ -132,6 +132,28 @@ class ExperimentConfig:
         """stream_state_dtype as the state functions' ``state_dtype``."""
         return None if self.stream_state_dtype == "float32" else self.stream_state_dtype
 
+    @classmethod
+    def from_dfrc(cls, cfg) -> "ExperimentConfig":
+        """Lift the port's ``DFRCConfig`` onto the batched pipeline.
+
+        The pipeline's readout is always the ridge/GCV path (the paper's
+        pinv is the λ→0 limit; ``core/readout.py`` keeps the exact pinv).
+        """
+        return cls(
+            model=cfg.model,
+            n_nodes=cfg.n_nodes,
+            mask_levels=tuple(cfg.mask_levels),
+            mask_seed=cfg.mask_seed,
+            input_gain=cfg.input_gain,
+            normalize_input=cfg.normalize_input,
+            washout=cfg.washout,
+            ridge_l2=_as_tuple(cfg.ridge_l2),
+            state_noise_rel=cfg.state_noise_rel,
+            noise_seed=cfg.noise_seed,
+            state_method=cfg.state_method,
+            quantize=cfg.quantize,
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentResult:

@@ -247,13 +247,15 @@ def _canon_stream(j, targets, device):
 
 @dataclasses.dataclass(frozen=True)
 class _FoldPlan:
-    """Layout of one chunk -> Gram fold, decided in one place for the
-    streaming fits (and, later, the online sessions).
+    """Layout and op of one chunk -> Gram fold, decided once, before the
+    first chunk, for the streaming fits and the online sessions.
 
     The carried stacks are exactly [B, F, F] and [B, F, C]: the CUDA Gram
     kernel masks ragged edges itself, so neither F nor the chunk is padded
-    (the reference pads both to its TPU tiles).  ``block_t`` is the fold
-    tile of the Gram's plain version (CPU tensors).
+    (the reference pads both to its TPU tiles).  ``use_kernel`` selects the
+    fold op: the accumulate-into Gram op (K3 on CUDA tensors) or a plain
+    matmul.  ``block_t`` is the fold tile of the Gram's plain version (CPU
+    tensors).
     """
 
     f: int            # features = N + 1 (bias folded)
@@ -262,8 +264,28 @@ class _FoldPlan:
     block_t: int
 
 
-def _plan_fold(f: int, chunk_k: int, *, use_kernel: bool, block_t: int) -> _FoldPlan:
-    """The fold layout for (F, chunk) under the chosen path."""
+def _plan_fold(f: int, chunk_k: int, *, use_kernel: bool, block_t: int,
+               n_cols: int = 1, batch: int | None = None) -> _FoldPlan:
+    """The fold layout for (F, chunk) under the chosen op.
+
+    With ``use_kernel`` the fold is K3's, so a stack it cannot take raises
+    ValueError here, before any chunk runs: more than ``C_MAX`` target
+    columns (``n_cols``) or more than ``MAX_INSTANCES`` instances
+    (``batch``; None when not known yet).
+    """
+    if chunk_k < 1:
+        raise ValueError(f"chunk_k must be >= 1, got {chunk_k}")
+    if isinstance(block_t, bool) or not isinstance(block_t, int) or block_t < 1:
+        raise ValueError(f"block_t must be a positive int, got {block_t!r}")
+    if use_kernel:
+        from ..kernels.ridge_gram.ops import C_MAX, MAX_INSTANCES
+
+        if not 1 <= n_cols <= C_MAX:
+            raise ValueError(f"the accumulate-into Gram fold takes 1..{C_MAX} target "
+                             f"columns, got {n_cols}")
+        if batch is not None and batch > MAX_INSTANCES:
+            raise ValueError(f"the accumulate-into Gram fold takes at most "
+                             f"{MAX_INSTANCES} instances, got {batch}")
     return _FoldPlan(f=f, chunk_k=chunk_k, use_kernel=use_kernel, block_t=block_t)
 
 
@@ -352,7 +374,8 @@ def _fit_streaming_core(
             "noise_rel as an expected Tikhonov diagonal assumes un-decayed "
             "Gram statistics; forgetting < 1 is not supported with it")
     t_fit = k_total - washout
-    plan = _plan_fold(f, chunk_k, use_kernel=use_kernel, block_t=block_t)
+    plan = _plan_fold(f, chunk_k, use_kernel=use_kernel, block_t=block_t,
+                      n_cols=c_cols, batch=b)
 
     def f32(t):
         return torch.as_tensor(t, device=dev).to(torch.float32)

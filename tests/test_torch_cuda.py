@@ -16,8 +16,13 @@ Gram equals the materialized one bitwise (K1 resumes bitwise, each Gram
 element is one ascending-t fmaf chain, masked rows are exact zeros); a
 bf16 streamed run's Gram equals the CPU run's to the Gram tolerance (the
 same rounded chunks, f32 sums in another order) and its NRMSE is within
-0.06 of f32 chunks.
+0.06 of f32 chunks.  Sessions: one K1 and one K3 launch a tick, no
+synchronising call in a fold-only tick, session == streaming fit bitwise
+(λ = 1.0 and 0.99), K1 with non-finite carry and drive rows bitwise its
+plain version as int patterns, and a server's restore bitwise.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -321,3 +326,138 @@ def test_per_lane_wdm_equals_per_channel_single_mask_runs(dev, monkeypatch):
             *[a[ch:ch + 1] for a in batch])
         assert torch.equal(grams[-1][0], grams[0][ch])
         assert abs(float(single.nrmse[0]) - float(res.nrmse[ch])) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# online sessions and the server on the card (K1 and K3 a tick)
+# ---------------------------------------------------------------------------
+
+
+def _serve_cfg(**kw):
+    from repro_torch.pipeline.session import SessionConfig
+
+    base = dict(model=SiliconMR(), n_nodes=64, washout=32, chunk_k=32, refresh_every=4,
+                ridge_l2=(1e-8, 1e-6, 1e-4), state_method="kernel", use_kernel=True)
+    base.update(kw)
+    return SessionConfig(**base)
+
+
+def _serve_streams(dev, b, k, seed=0):
+    from repro_torch.robustness import make_streams
+
+    j, y = make_streams(b, k, seed=seed)
+    return torch.as_tensor(j, device=dev), torch.as_tensor(y, device=dev)
+
+
+@pytest.mark.parametrize("refresh", [False, True], ids=["fold", "fold_solve"])
+def test_session_tick_launches_one_scan_and_one_gram_into(dev, refresh):
+    from repro_torch.pipeline.session import _session_step, session_init
+
+    cfg = _serve_cfg()
+    j, y = _serve_streams(dev, 64, 64)
+    state = session_init(cfg, 64, device=dev)
+    _, state = _session_step(cfg, make_mask(64, seed=0, device=dev), state, j[:, :32],
+                             y[:, :32])
+    counts = (scan_ops.dfr_scan.launches, gram_ops.gram_accumulate_batched.launches,
+              gram_ops.gram_accumulate_batched_into.launches)
+    _session_step(cfg, make_mask(64, seed=0, device=dev), state, j[:, 32:], y[:, 32:],
+                  refresh=refresh)
+    assert (scan_ops.dfr_scan.launches - counts[0],
+            gram_ops.gram_accumulate_batched.launches - counts[1],
+            gram_ops.gram_accumulate_batched_into.launches - counts[2]) == (1, 0, 1)
+
+
+def test_fold_only_tick_does_not_synchronize(dev):
+    """The fold-only tick reads nothing back from the device: under CUDA's
+    sync debug mode "error" any synchronising call inside it raises."""
+    from repro_torch.pipeline.session import _session_step, session_init
+
+    cfg = _serve_cfg()
+    mask = make_mask(64, seed=0, device=dev)
+    j, y = _serve_streams(dev, 64, 64)
+    nv = torch.full((64,), 32, dtype=torch.int32, device=dev)
+    reset = torch.zeros((64,), dtype=torch.bool, device=dev)
+    state = session_init(cfg, 64, device=dev)
+    _, state = _session_step(cfg, mask, state, j[:, :32], y[:, :32], n_valid=nv, reset=reset)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, state = _session_step(cfg, mask, state, j[:, 32:], y[:, 32:], n_valid=nv,
+                                 reset=reset)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(state.g).all())
+
+
+@pytest.mark.parametrize("lam", [1.0, 0.99])
+def test_session_equals_streaming_fit_bitwise_through_the_kernels(dev, lam):
+    from repro_torch.pipeline import fit_ridge_streaming
+    from repro_torch.pipeline.session import session_init, session_solve, session_update
+
+    cfg = _serve_cfg(forgetting=lam)
+    mask = make_mask(64, seed=0, device=dev)
+    j, y = _serve_streams(dev, 65, 256)
+    w, idx, s_end = fit_ridge_streaming(cfg.model, mask, j, y, washout=32, chunk_k=32,
+                                        lambdas=cfg.ridge_l2, use_kernel=True,
+                                        forgetting=lam, device=dev)
+    state = session_init(cfg, 65, device=dev)
+    for lo in range(0, 256, 32):
+        state = session_update(cfg, mask, state, j[:, lo:lo + 32], y[:, lo:lo + 32])
+    state = session_solve(cfg, state)
+    assert torch.equal(state.w, w) and torch.equal(state.s, s_end)
+    assert torch.equal(state.lam_idx, idx.to(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 33, 64])
+def test_scan_kernel_non_finite_rows_equal_plain_as_int_bits(dev, n):
+    rng = np.random.default_rng(n)
+    b, k = 65, 32
+    s0 = rng.uniform(0, 0.3, (b, n)).astype(np.float32)
+    s0[3] = np.nan
+    s0[7] = np.inf
+    s0[11, n // 2] = np.nan
+    j = rng.uniform(0, 1, (b, k)).astype(np.float32)
+    j[5, 10] = np.nan
+    j[9] = np.nan
+    j[64, k - 1] = np.nan
+    jt, st = torch.as_tensor(j, device=dev), torch.as_tensor(s0, device=dev)
+    mask = make_mask(n, device=dev)
+    out, fin = scan_ops.dfr_scan(SiliconMR(), jt, mask, st, return_final=True)
+    ref, ref_fin = scan_ops.dfr_scan_plain(SiliconMR(), jt, mask, st)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(fin.view(torch.int32), ref_fin.view(torch.int32))
+    assert (~torch.isfinite(fin).all(dim=1)).nonzero().flatten().tolist() == [3, 5, 7, 9, 11,
+                                                                               64]
+
+
+def test_server_restore_is_bitwise_on_the_card(tmp_path, dev):
+    from repro_torch.launch.serve_dfr import DFRServer, channel_eq_requests
+    from repro_torch.robustness import no_faults, on_rows
+
+    spec = on_rows(no_faults(16, device=dev), [1], nan_prob=0.05, until_tick=6)
+    reqs = channel_eq_requests(40, 256, 32, seed=4)
+
+    def fresh(ckpt, every=4):
+        s = DFRServer(_serve_cfg(forgetting=0.99), 16, fault_spec=spec, fault_seed=2,
+                      checkpoint_dir=str(ckpt), checkpoint_every=every, device=dev)
+        s.warmup()
+        return s
+
+    ref = fresh(tmp_path / "ref")
+    for r in reqs:
+        ref.submit(dataclasses.replace(r, y_hat=[]))
+    ref.drain()
+    crash = fresh(tmp_path / "ck")
+    for r in reqs:
+        crash.submit(dataclasses.replace(r, y_hat=[]))
+    for _ in range(10):
+        crash.step()
+    crash.close()
+    resumed = fresh(tmp_path / "ck")
+    assert resumed.restore() == 8
+    assert resumed.state.g.device.type == "cuda"
+    resumed.drain()
+    assert resumed.counters == ref.counters
+    assert [r.rid for r in resumed.completed] == [r.rid for r in ref.completed]
+    for a, b in zip(resumed.completed, ref.completed):
+        assert np.concatenate(a.y_hat).tobytes() == np.concatenate(b.y_hat).tobytes()
