@@ -8,11 +8,14 @@ Phases, each printing one JSON line:
 1. device and build — the card's name and power limit (nvidia-smi), TF32
    off, both CUDA kernels built with nvcc from ``src/repro_torch/kernels/csrc``;
 2. kernels vs their plain PyTorch versions on the card — the scan kernel
-   for the four device models (f32 and bf16 states, per-lane masks,
-   bitwise chunk resume), then on the edge grid of its block layout (N ∈
+   for the five device models (f32 and bf16 states, per-lane masks,
+   bitwise chunk resume; the CMT cavity at K = 8), then on the edge grid of
+   its block layout (N ∈
    {1, 31, 32, 33, 100, 900, the largest N} × B ∈ {1, 33, 64, 65}, K = 1,
-   2, 37 in turn (1, 2 above N = 100), both mask modes, every model: SiliconMR exact, bf16
-   states the f32 states rounded, resume at an uneven split bitwise;
+   2, 37 in turn (1, 2 above N = 100), both mask modes, every model (the
+   CMT cavity up to N = 100, then N = 900 and the largest N at K = 1):
+   SiliconMR exact, bf16 states the f32 states rounded, resume at an uneven
+   split bitwise;
    MZISine above the chain kernel's node limit, which SiliconMR raises at); the
    Gram kernel on the edges of its triangle
    grid (F at the 64-wide tile's edges and 901, C = 1 and 128, a ragged
@@ -40,7 +43,8 @@ Phases, each printing one JSON line:
    per-lane mode once per chunk, streamed vs materialized within 1e-5
    NRMSE per channel; the shared readout (R = 8, F = 801) against the same
    fit folded with plain matmuls;
-8. the ``kernels`` line: each kernel at the shapes of the path it rides,
+8. the ``kernels`` line, after every other phase: each kernel at the
+   shapes of the path it rides,
    its launches on that path, error vs the plain version (K1 also on a
    chunk resumed from a carry and on a whole materialized split, exact),
    kernel / plain / library times and the roofline bound (K1 also its chain
@@ -48,7 +52,9 @@ Phases, each printing one JSON line:
    the card in this run, and its lanes a block) (K3 at the fold chunk of
    each of its three paths, timed from a symmetric running Gram), K1 and
    K3 also at the serving tick's shapes ([4096, 32, 64], [4096, 32, 65])
-   with their launches a tick; and the time of one bare
+   with their launches a tick, K1's CMT form at [64, 1000, 900] and K1 at
+   the host accelerator's [1, 1000, 900] (each checked on its first
+   periods, with its chain bound); and the time of one bare
    ``torch.linalg.eigh`` of the main path's Gram and of the serving
    refresh tick's Gram stacks (B = 4096 and 512, F = 65).
 
@@ -71,9 +77,28 @@ K1 and K3:
 12. kill and restore at B = 512 with faults armed: bitwise the
    uninterrupted run, also after falling back past a corrupt checkpoint;
 13. the chaos soak at B = 64: isolation, containment, re-convergence;
-14. after the kernels line, the host ``DFRCAccelerator`` at the NARMA10
-   point (N = 900) on K1 against ``Experiment`` (within 0.05 NRMSE), with
-   the Fig. 7 timing model and the Table 1 power totals.
+14. the host ``DFRCAccelerator`` at the NARMA10 point (N = 900) on K1
+   against ``Experiment`` (within 0.05 NRMSE), with the Fig. 7 timing model
+   and the Table 1 power totals.
+
+Then the device subsystem (``repro_torch.devices``):
+
+15. ``cmt_main`` — the CMT cavity (calibrated_twin(SiliconMR(),
+   power_mw=1.0)) at the NARMA10 point, noise off, B = 64, through K1's CMT
+   form ×2 and K2; the first 4 seeds held to the JAX package's through a
+   float64 ridge on the card's states (2e-3 NRMSE), the pipeline's f32
+   NRMSE within 2e-2; a stage breakdown;
+16. ``cmt_calibration`` — the zero-power twin's tick map within 1e-4 of
+   SiliconMR's, the two through K1 on the same seeds within 2e-2 mean
+   |ΔNRMSE|, the twin streamed (K1 CMT ×8, K3 ×4) with its Gram bitwise
+   the materialized K2 Gram;
+17. ``device_sweep`` — the 60-lane (detuning × loss × power) map of
+   benchmarks/device_sweep.py on the ``fast`` path with per-lane device
+   parameters: finite, the JAX package's stable map, the stable cells'
+   states held through a float64 ridge (1e-3 NRMSE) and the map's NRMSE
+   within 2e-2 there; wall time and peak memory;
+18. ``fast_path`` — ``method="fast"`` for SiliconMR, MackeyGlass and
+   SiliconMRLiteral against K1 on the same inputs, timed.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -110,6 +135,9 @@ SCAN_OPS_PER_STEP = 9
 # chain_cycles()
 CHAIN_OPS = 3
 CHAIN_PROBE_STEPS = 1 << 20
+# the scan kernel's check of a whole split on the kernels line, where its
+# plain version would take minutes: the first periods only
+SPLIT_CHECK_K = 32
 STREAM_CHUNK = 256
 N_WDM = 100
 # the scan kernel's edge grid (phase_scan_checks): N at the float4 group's
@@ -153,6 +181,68 @@ SERVE_SER_BAND = 0.03
 # the re-convergence gates of tests/test_robustness.py (the chaos soak's)
 SOAK_TAIL_SER = 0.5
 SOAK_TAIL_BAND = 0.15
+# The CMT cavity at the main path's NARMA10 point (phase 15): the reference's
+# CMT pipeline model (src/repro/analysis/registry.py:176 `_cmt_model`,
+# calibrated_twin(SiliconMR(), power_mw=1.0)), noise off, K1 and K2.  Its
+# scan-kernel check at the main width runs K = CMT_CHECK_K periods: its plain
+# version issues ≈ 170 eager ops a node.
+CMT_POWER_MW = 1.0
+CMT_SAMPLES = 2000
+CMT_CHECK_K = 8
+# The first seeds in the JAX package on the CPU (`fast` path, noise off):
+# the pipeline's NRMSE (the Gram readout; GCV picks λ = 1e-4 for each) and
+# the NRMSE of a float64 ridge at that λ on its states;
+# tests/test_torch_devices.py::test_chip_smoke_cmt_nrmse_comes_from_the_reference
+# recomputes both.  The card's float64-ridge NRMSE must lie within
+# CMT_NRMSE_TOL of the latter (phase_cmt_main says why not the former).
+CMT_REF_NRMSE = (0.8996966481208801, 0.8505415320396423, 0.8305402994155884,
+                 0.8732490539550781)
+CMT_REF_NRMSE_F64 = (0.87196471149203, 0.8282991127913726, 0.8117860445161381,
+                     0.8523894193792741)
+CMT_REF_LAM = 1e-4
+CMT_NRMSE_TOL = 2e-3
+# benchmarks/device_sweep.py:47-48: the calibration gates
+PARITY_NRMSE = 2e-2
+PARITY_TICK = 1e-4
+# The robustness map at the benchmark's full size (benchmarks/device_sweep.py:
+# 53-57 and grids(smoke=False), :70): 60 lanes on the calibrated twin, NARMA10
+# of 1200 samples at seed 0, streamed; NARMA_STABLE (:49) bounds a stable cell.
+SWEEP_GRID = {"detune": (-1.5, -0.75, 0.0, 0.75, 1.5), "loss_scale": (1.0, 1.25, 1.5),
+              "power": (0.0, 0.5, 1.0, 2.0)}
+SWEEP_N = 64
+SWEEP_WASHOUT = 50
+SWEEP_CHUNK = 128
+SWEEP_LAMS = (1e-8, 1e-6, 1e-4)
+SWEEP_SAMPLES = 1200
+SWEEP_STABLE = 0.8
+SWEEP_TOL = 1e-3
+# The JAX package's map on the CPU, lanes raveled (detune slowest, power
+# fastest), and for each of its stable cells (lane, NRMSE of a float64 ridge
+# at λ = SWEEP_LAMS[-1] on its states at the cell's point);
+# tests/test_torch_devices.py::
+# test_chip_smoke_sweep_map_comes_from_the_reference recomputes both.
+SWEEP_REF_NRMSE = (
+    0.8450366854667664, 0.869547426700592, 0.8760874271392822, 0.8708988428115845,
+    0.8773038983345032, 0.8663710951805115, 0.9385777711868286, 0.8683626055717468,
+    0.8555883169174194, 0.8652852773666382, 0.901858389377594, 0.8955351710319519,
+    0.8349586725234985, 0.8562496304512024, 0.8867444396018982, 0.9099999666213989,
+    0.8383848667144775, 0.8521167635917664, 0.8960800170898438, 0.9210359454154968,
+    0.8637803792953491, 0.849626898765564, 0.9042402505874634, 0.9138334393501282,
+    0.6497445702552795, 0.842348575592041, 0.8892285227775574, 0.8603212833404541,
+    0.7436235547065735, 0.9007450938224792, 0.9063539505004883, 0.883876621723175,
+    0.912720263004303, 0.8655397295951843, 0.8814934492111206, 1.0062737464904785,
+    0.8349586725234985, 0.859123706817627, 0.900079071521759, 0.8826367855072021,
+    0.8383848667144775, 0.857671856880188, 0.8842637538909912, 0.8730575442314148,
+    0.8637803792953491, 0.8533728122711182, 0.8884021043777466, 0.8730389475822449,
+    0.8450366854667664, 0.8714228868484497, 0.8661399483680725, 0.8716993927955627,
+    0.8773038983345032, 0.8928217887878418, 0.9326395392417908, 0.8898537158966064,
+    0.8555883169174194, 0.8676750063896179, 0.9023471474647522, 0.9235250949859619)
+SWEEP_REF_STABLE_F64 = ((24, 0.6394804100450985), (28, 0.7353381701431898))
+# `fast` on the card (phase 19): SiliconMR at the main width, K = 32; the
+# log-depth models at the channel-equalisation width of dfrc_tasks()
+# (src/repro/configs/__init__.py:182, N = 400), K = 256
+FAST_SHAPES = {"SiliconMR": (64, 32, 900), "MackeyGlass": (64, 256, 400),
+               "SiliconMRLiteral": (64, 256, 400)}
 
 
 _T_START = time.perf_counter()
@@ -220,31 +310,41 @@ def sm_clocks_mhz() -> dict:
 
 
 def chain_cycles(dev) -> dict:
-    """Cycles a step of two dependent chains on register values, one thread,
+    """Cycles a step of dependent chains on register values, one thread,
     CHAIN_PROBE_STEPS steps between two clock64() reads (the scan kernel's
     ``dfr_scan_chain_probe``), the least of three runs: ``kernel_step`` is
     SiliconMR's chain step as the scan kernel computes it, ``f32_op`` one
-    dependent f32 add; ``least_step`` is CHAIN_OPS of the latter."""
+    dependent f32 add, ``cmt_step`` the CMT cavity's chain step (the
+    ``cmt_model()`` constants, n_substeps substeps); ``least_step`` is
+    CHAIN_OPS of ``f32_op``."""
     import ctypes
 
     import numpy as np
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
 
     fn = _build.load("dfr_scan").dfr_scan_chain_probe
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rng = np.random.default_rng(3)
-    # 8 inputs u, 8 chain-free values a, alpha, s0
-    vals = np.concatenate([rng.uniform(0, 1, 8), rng.uniform(0.05, 0.4, 8), [0.632, 0.1]])
-    x = torch.as_tensor(vals, dtype=torch.float32, device=dev)
+    # 8 inputs u, 8 chain-free values, s0, then the 16 constants
+    u = rng.uniform(0, 1, 8)
+    heads = {0: np.concatenate([u, rng.uniform(0.05, 0.4, 8), [0.1]])}
+    heads[1] = heads[0]
+    # the CMT form: u = j·m with a {0, 1} mask, its drive u + γ·s(t−τ)
+    u_cmt = u * (np.arange(8) % 2)
+    heads[2] = np.concatenate([u_cmt, u_cmt + 0.9 * rng.uniform(0, 0.5, 8), [0.1]])
+    consts = {0: [0.632], 1: [0.632], 2: list(cmt_model().kernel_spec()[1])}
     last = torch.empty(1, dtype=torch.float32, device=dev)
     cyc = torch.empty(1, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     res = {}
-    for form, name in ((0, "kernel_step"), (1, "f32_op")):
+    for form, name in ((0, "kernel_step"), (1, "f32_op"), (2, "cmt_step")):
+        p = consts[form] + [0.0] * (scan_ops.MAX_PARAMS - len(consts[form]))
+        x = torch.as_tensor(np.concatenate([heads[form], p]), dtype=torch.float32, device=dev)
         runs = []
         for _ in range(3):
             _build.check(fn(form, x.data_ptr(), last.data_ptr(), cyc.data_ptr(),
@@ -255,6 +355,17 @@ def chain_cycles(dev) -> dict:
         res[name] = min(runs)
     res["least_step"] = CHAIN_OPS * res["f32_op"]
     return res
+
+
+def cmt_ops_per_step(m: int) -> int:
+    """f32 ops of one CMT node step at ``m`` substeps, as free_part<CMT> and
+    chain<CMT> compute it (expf, expm1f and a division one op each): the
+    masked input and the drive (4); the branch's compare, two selects and
+    the clamp of E (4); the closure of N and T (4); each substep 29 — δ (4),
+    the Lorentzian (3), r (4), x (1), φ₁ (9: compare, two selects, two
+    negations, expm1f, division, the guard's mul and sub), e^-x (2), the
+    pump and E (6) — and after all but the last, pw·E, N and T (10)."""
+    return 12 + 29 * m + 10 * (m - 1)
 
 
 def max_err(a, b) -> float:
@@ -319,30 +430,47 @@ def phase_build(card: str) -> None:
           "device": torch.cuda.get_device_name(0)})
 
 
+def cmt_model(**kw):
+    """The reference's CMT pipeline model, calibrated_twin(SiliconMR(),
+    power_mw=CMT_POWER_MW); ``kw`` overrides fields (``power_mw=0.0`` is the
+    calibrated twin itself)."""
+    from repro_torch.core import SiliconMR
+    from repro_torch.devices import calibrated_twin
+
+    return calibrated_twin(SiliconMR(), **{"power_mw": CMT_POWER_MW, **kw})
+
+
 def scan_models():
     """(name, model, mask levels, tolerance vs the plain version, relative?)
-    for every form the scan kernel inlines.  SiliconMR (with and without
-    TPA) runs the plain version's separately rounded IEEE ops (the TPA
-    division is __fdiv_rn in the kernel, an IEEE division in torch): exact.
-    Literal runs the same ops, but its states grow geometrically (the
-    printed Eq. (6-7) is unstable), so its bound is relative to the largest
-    state.  MackeyGlass and MZISine call powf/sinf in the kernel and torch's
-    pow/sin in the plain version: libm ulp differences carried through the
-    recurrence -> 1e-5."""
+    for every form the scan kernel inlines, MZISine last.  SiliconMR (with
+    and without TPA) runs the plain version's separately rounded IEEE ops
+    (the TPA division is __fdiv_rn in the kernel, an IEEE division in
+    torch): exact.  Literal runs the same ops, but its states grow
+    geometrically (the printed Eq. (6-7) is unstable), so its bound is
+    relative to the largest state.  MackeyGlass and MZISine call powf/sinf
+    in the kernel and torch's pow/sin in the plain version: libm ulp
+    differences carried through the recurrence -> 1e-5.  The CMT cavity
+    calls expf/expm1f in the kernel and torch's exp/expm1 in the plain
+    version: 1e-5, the bound of the reference's own kernel == ref test
+    (tests/test_devices.py:124); the kernels line reports whether it is
+    exact."""
     from repro_torch.core import MackeyGlass, MZISine, SiliconMR, SiliconMRLiteral
 
     return (("SiliconMR", SiliconMR(), (0.0, 1.0), 0.0, False),
             ("SiliconMR_tpa", SiliconMR(beta_tpa=0.5), (0.0, 1.0), 0.0, False),
             ("SiliconMRLiteral", SiliconMRLiteral(), (0.0, 1.0), 1e-5, True),
             ("MackeyGlass", MackeyGlass(), (-1.0, 1.0), 1e-5, False),
+            ("MRCavityCMT", cmt_model(), (0.0, 1.0), 1e-5, False),
             ("MZISine", MZISine(), (0.0, 1.0), 1e-5, False))
 
 
-def scan_edge_cases(per_lane: bool):
+def scan_edge_cases(per_lane: bool, cmt: bool = False):
     """(B, K, N) of the scan kernel's edge grid for one mask mode: every N of
     SCAN_EDGE_N and the largest N the block layout takes, each with every B
     of SCAN_EDGE_B; K cycles through SCAN_EDGE_K (only 1 and 2 above N =
-    100, where the plain version's node loop is longest)."""
+    100, where the plain version's node loop is longest).  For the CMT form
+    (``cmt``), whose plain version issues ≈ 170 ops a node: the cases up to
+    N = 100, then N = 900 and the largest N at K = 1 and B = 65."""
     from repro_torch.kernels.dfr_scan import ops
 
     cases = []
@@ -350,6 +478,9 @@ def scan_edge_cases(per_lane: bool):
         ks = SCAN_EDGE_K if n <= 100 else SCAN_EDGE_K[:2]
         for c, b in enumerate(SCAN_EDGE_B):
             cases.append((b, ks[(a + c) % len(ks)], n))
+    if cmt:
+        cases = [c for c in cases if c[2] <= 100]
+        cases += [(SCAN_EDGE_B[-1], 1, n) for n in (900, ops.max_nodes(per_lane))]
     return cases
 
 
@@ -391,10 +522,11 @@ def scan_edge_check(dev, model, levels, tol, relative, b, k, n, per_lane, seed) 
 
 def phase_scan_checks(dev) -> None:
     """The scan kernel vs its plain version for every form it inlines: at
-    the main width (B = 64, N = 900, K = 32) with per-lane masks and bf16
-    states, then on the edge grid of its block layout (``scan_edge_cases``:
-    N at the float4 group's and the warp's edges, the largest N, B at the
-    8-lane block's edges, K = 1, 2, 37 in turn), in both mask modes."""
+    the main width (B = 64, N = 900, K = 32; the CMT form K = CMT_CHECK_K)
+    with per-lane masks and bf16 states, then on the edge grid of its block
+    layout (``scan_edge_cases``: N at the float4 group's and the warp's
+    edges, the largest N, B at the 8-lane block's edges, K = 1, 2, 37 in
+    turn; fewer for the CMT form), in both mask modes."""
     import numpy as np
     import torch
 
@@ -407,19 +539,21 @@ def phase_scan_checks(dev) -> None:
     s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32, device=dev)
     results = {}
     for name, model, levels, tol, relative in scan_models():
+        km = CMT_CHECK_K if name == "MRCavityCMT" else k
+        jm, cut = j[:, :km], min(13, km // 2)
         mask = make_mask(n, levels=levels, seed=1, device=dev)
-        out, fin = ops.dfr_scan(model, j, mask, s0, return_final=True)
-        ref, ref_fin = ops.dfr_scan_plain(model, j, mask, s0)
+        out, fin = ops.dfr_scan(model, jm, mask, s0, return_final=True)
+        ref, ref_fin = ops.dfr_scan_plain(model, jm, mask, s0)
         err = max(max_err(out, ref), max_err(fin, ref_fin))
         scale = max(1.0, float(ref.abs().max())) if relative else 1.0
         check(bool(torch.isfinite(out).all()), f"{model!r} states finite")
         check(err <= tol * scale, f"{model!r} scan vs plain {err} > {tol} x {scale}")
         # bitwise chunk resume: fin of one call as s0 of the next
-        st1, f1 = ops.dfr_scan(model, j[:, :13], mask, s0, return_final=True)
-        st2, f2 = ops.dfr_scan(model, j[:, 13:], mask, f1, return_final=True)
+        st1, f1 = ops.dfr_scan(model, jm[:, :cut], mask, s0, return_final=True)
+        st2, f2 = ops.dfr_scan(model, jm[:, cut:], mask, f1, return_final=True)
         check(torch.equal(torch.cat([st1, st2], dim=1), out) and torch.equal(f2, fin),
               f"{model!r} chunk resume is not bitwise")
-        results[name] = {"max_abs_err": err, "state_scale": scale}
+        results[name] = {"K": km, "max_abs_err": err, "state_scale": scale}
     mr, mask = SiliconMR(), make_mask(n, seed=1, device=dev)
     out16 = ops.dfr_scan(mr, j, mask, s0, out_dtype=torch.bfloat16)
     ref = ops.dfr_scan_plain(mr, j, mask, s0)[0]
@@ -436,8 +570,8 @@ def phase_scan_checks(dev) -> None:
     t0 = time.perf_counter()
     grid, cases = {}, 0
     for per_lane in (False, True):
-        edges = scan_edge_cases(per_lane)
         for name, model, levels, tol, relative in scan_models():
+            edges = scan_edge_cases(per_lane, cmt=name == "MRCavityCMT")
             errs = [scan_edge_check(dev, model, levels, tol, relative, eb, ek, en, per_lane,
                                     seed=cases + i) for i, (eb, ek, en) in enumerate(edges)]
             cases += len(edges)
@@ -1327,7 +1461,7 @@ def phase_soak(dev, card: str) -> None:
           "tail_ser_rows": rep["tail_ser_rows"][:8]})
 
 
-def phase_accelerator(dev, tasks, card: str) -> None:
+def phase_accelerator(dev, tasks, card: str) -> dict:
     """``DFRCAccelerator`` at the paper's NARMA10 point (N = 900, washout
     60, the five-λ grid; ``dfrc_tasks()["narma10"]["Silicon MR"]``) on the
     scan kernel, against ``Experiment.run_dataset`` of
@@ -1346,6 +1480,7 @@ def phase_accelerator(dev, tasks, card: str) -> None:
     err, predict_s = wall(lambda: acc.evaluate_nrmse(ds.inputs_test, ds.targets_test))
     launches = launch_counts()
     check(launches == (2, 0, 0), f"accelerator launches (scan, gram, into) {launches}")
+    accelerator = {"launches": launches}
     res = Experiment(ExperimentConfig.from_dfrc(cfg), device=dev).run_dataset(ds)
     gap = abs(float(res.nrmse[0]) - err)
     check(gap < 0.05, f"accelerator NRMSE {err} vs Experiment {res.nrmse[0]}")
@@ -1364,6 +1499,297 @@ def phase_accelerator(dev, tasks, card: str) -> None:
           "launches": {"dfr_scan": launches[0], "ridge_gram": launches[1]},
           "fit_wall_s": fit_s, "predict_wall_s": predict_s,
           "fig7_model_n_train": n_train, "fig7_model": fig7, "table1_power": table1})
+    return accelerator
+
+
+def cmt_config(**kw):
+    """The CMT cavity at the main path's NARMA10 point, noise off, on K1 and
+    K2 (the reference's ``experiment_cmt_kernel`` entry point)."""
+    from repro_torch.pipeline import ExperimentConfig
+
+    base = dict(model=cmt_model(), n_nodes=N_MAIN, washout=WASHOUT, ridge_l2=LAMS,
+                state_noise_rel=0.0, state_method="kernel", readout_use_kernel=True)
+    base.update(kw)
+    return ExperimentConfig(**base)
+
+
+def gcv_tie(grams, i: int, own: float, other: float) -> float:
+    """Relative GCV gap between λ ``other`` and ``own`` on instance ``i`` of
+    a solved (G, c, ‖y‖², n) record: ≤ GCV_TIE_RTOL is a tie."""
+    import numpy as np
+
+    from repro_torch.pipeline.ridge import gcv_path
+
+    g, c, y2, n = grams
+    lams = np.asarray(LAMS, dtype=np.float32)
+    pick = {name: int(np.argmin(np.abs(lams - v))) for name, v in (("own", own),
+                                                                    ("other", other))}
+    score = gcv_path(g[i], c[i], y2[i], n, LAMS)[1]
+    return float((score[pick["other"]] - score[pick["own"]]) / score[pick["own"]])
+
+
+def ridge64_nrmse(st_tr, y_tr, st_te, y_te, *, lam: float, washout: int) -> list[float]:
+    """Test NRMSE of a float64 ridge at ``lam`` on each instance's states
+    (train [B, T, N], its first ``washout`` periods cut; test [B, T', N]):
+    the fit in which the states alone decide the score."""
+    import torch
+
+    from repro_torch.pipeline import with_bias
+
+    out = []
+    for i in range(st_tr.shape[0]):
+        x = with_bias(torch.as_tensor(st_tr[i, washout:]))
+        y = torch.as_tensor(y_tr[i, washout:, None], dtype=torch.float64, device=x.device)
+        out.append(f64_ridge(x, y, with_bias(torch.as_tensor(st_te[i])), y_te[i], lam)["nrmse"])
+    return out
+
+
+def sweep_cell_model(twin, grid, flat: int):
+    """The dataclass point of sweep lane ``flat``, κ pinned to ``twin``'s
+    anchor as the sweep pins it (K1 takes a dataclass point, not lanes)."""
+    import numpy as np
+
+    p = grid.point(np.unravel_index(flat, grid.shape))
+    return dataclasses.replace(twin, detune=p["detune"], loss_scale=p["loss_scale"],
+                               power_mw=p["power"], kappa_charge=twin.kappa_c,
+                               kappa_discharge=twin.kappa_d)
+
+
+def phase_cmt_main(dev, narma, card: str) -> dict:
+    """The CMT cavity's pipeline at full width: NARMA10 at the main path's
+    point (N = 900, 2000 samples, washout 60, the λ grid, B = 64 seeds, noise
+    off) on K1's CMT form ×2 and K2 ×1, then one more run inside
+    ``record_stages``.
+
+    Each of the first seeds is held to the JAX package where the fit is well
+    posed: a float64 ridge at the reference's λ on the card's K1 states
+    scores within CMT_NRMSE_TOL of the same fit on the reference's states
+    (CMT_REF_NRMSE_F64).  The pipeline's own f32 Gram/eigh readout is not:
+    its regularised system has cond ≈ 9e6 here, squared in the Gram, and
+    the reference's NRMSE itself moves by 4e-3 when its inputs move by an
+    ulp (tests/test_torch_devices.py::
+    test_f32_readout_spread_is_the_references_own); it is held to
+    PARITY_NRMSE of CMT_REF_NRMSE where it picks the reference's λ, and
+    reported."""
+    import numpy as np
+
+    from repro_torch.core import generate_states
+    from repro_torch.pipeline import Experiment, record_stages
+    from repro_torch.pipeline.experiment import _canon_batch, _input_layer
+
+    exp = Experiment(cmt_config(), device=dev)
+    reset_counts()
+    with solved_grams() as grams:
+        res, first_s = wall(lambda: exp.run(*narma))
+    launches = launch_counts()
+    check(launches == (2, 1, 0), f"CMT launches (scan, gram, into) = {launches}")
+    check(bool(np.all(np.isfinite(res.nrmse))), "CMT NRMSE finite")
+    n = len(CMT_REF_NRMSE_F64)
+    j_tr, j_te = _input_layer(exp.config, _canon_batch(narma[0][:n], "inputs_train", dev),
+                              _canon_batch(narma[2][:n], "inputs_test", dev))
+    st_tr, fin = generate_states(exp.config.model, j_tr, exp.mask, method="kernel",
+                                 return_final=True, device=dev)
+    st_te = generate_states(exp.config.model, j_te, exp.mask, s0=fin, method="kernel",
+                            device=dev)
+    f64 = ridge64_nrmse(st_tr, narma[1][:n], st_te, narma[3][:n], lam=CMT_REF_LAM,
+                        washout=WASHOUT)
+    seeds = []
+    for i in range(n):
+        got, lam = float(res.nrmse[i]), float(res.lam[i])
+        row = {"seed": i, "f64_ridge_nrmse": f64[i], "f64_reference": CMT_REF_NRMSE_F64[i],
+               "f64_gap": abs(f64[i] - CMT_REF_NRMSE_F64[i]), "pipeline_nrmse": got,
+               "pipeline_reference": CMT_REF_NRMSE[i],
+               "pipeline_gap": abs(got - CMT_REF_NRMSE[i]), "lam": lam}
+        check(row["f64_gap"] <= CMT_NRMSE_TOL,
+              f"CMT seed {i}: float64-ridge NRMSE {f64[i]} vs reference {CMT_REF_NRMSE_F64[i]}")
+        if np.isclose(lam, CMT_REF_LAM, rtol=1e-6):
+            check(row["pipeline_gap"] <= PARITY_NRMSE,
+                  f"CMT seed {i}: NRMSE {got} vs reference {CMT_REF_NRMSE[i]}")
+        else:
+            row["gcv_rel_gap_to_reference_lam"] = gcv_tie(grams[0], i, lam, CMT_REF_LAM)
+        seeds.append(row)
+    del st_tr, st_te
+    reset_counts()
+    with record_stages() as stages:
+        rec, run_s = wall(lambda: exp.run(*narma))
+    check(launch_counts() == (2, 1, 0) and bool(np.array_equal(rec.nrmse, res.nrmse)),
+          f"recorded CMT run: launches {launch_counts()}, NRMSE differs")
+    emit({"phase": "cmt_main", "task": "narma10", "card": card, "B": B_MAIN, "N": N_MAIN,
+          "model": repr(exp.config.model), "noise": "off",
+          "launches": {"dfr_scan": launches[0], "ridge_gram": launches[1],
+                       "ridge_gram_into": launches[2]},
+          "nrmse_mean": float(res.nrmse.mean()), "nrmse_max": float(res.nrmse.max()),
+          "lam_counts": {str(v): int(c) for v, c in zip(*np.unique(res.lam, return_counts=True))},
+          "first_seeds_vs_reference": seeds,
+          "tolerance": {"f64_ridge": CMT_NRMSE_TOL, "pipeline": PARITY_NRMSE},
+          "k1_wall_s_per_launch": (stages["states_train"] + stages["states_test"]) / 2,
+          "run_wall_s_first": first_s, "run_wall_s": run_s, "stages_wall_s": stages})
+    return {"launches": launches, "exp": exp}
+
+
+def phase_cmt_calibration(dev, narma, card: str) -> None:
+    """Calibration on the card: the zero-power twin's tick map against
+    SiliconMR's over the [0, 1]³ box (≤ PARITY_TICK) with the small-signal
+    gains; the twin and SiliconMR through K1 on the same 64 seeds (mean
+    |ΔNRMSE| ≤ PARITY_NRMSE); the twin streamed at chunk 256 through K1's CMT
+    form and K3, its Gram bitwise the materialized K2 Gram."""
+    import numpy as np
+
+    from repro_torch.core import SiliconMR
+    from repro_torch.devices import calibration_report, node_parity
+    from repro_torch.pipeline import Experiment
+
+    twin = cmt_model(power_mw=0.0)
+    tick = node_parity(SiliconMR(), twin, device=dev)
+    check(tick <= PARITY_TICK, f"per-tick parity {tick} > {PARITY_TICK}")
+    runs, launches = {}, {}
+    with solved_grams() as grams:
+        for name, model, chunk in (("twin_streamed", twin, STREAM_CHUNK),
+                                   ("twin", twin, None), ("silicon_mr", SiliconMR(), None)):
+            reset_counts()
+            runs[name] = Experiment(cmt_config(model=model, stream_chunk_k=chunk),
+                                    device=dev).run(*narma)
+            launches[name] = launch_counts()
+    check(launches == {"twin_streamed": (8, 0, 4), "twin": (2, 1, 0), "silicon_mr": (2, 1, 0)},
+          f"calibration launches {launches}")
+    delta = np.abs(runs["twin"].nrmse - runs["silicon_mr"].nrmse)
+    check(float(delta.mean()) <= PARITY_NRMSE, f"twin vs SiliconMR mean |ΔNRMSE| {delta.mean()}")
+    streamed = streamed_vs_materialized("CMT twin", grams[:2], runs["twin_streamed"],
+                                        runs["twin"])
+    emit({"phase": "cmt_calibration", "card": card, "B": B_MAIN, "N": N_MAIN,
+          "tick_parity_max_abs": tick, "tick_bound": PARITY_TICK,
+          "small_signal": calibration_report(SiliconMR(), twin, device=dev),
+          "nrmse_mean": {k: float(v.nrmse.mean()) for k, v in runs.items()},
+          "abs_delta_nrmse": {"mean": float(delta.mean()), "max": float(delta.max()),
+                              "bound_on_mean": PARITY_NRMSE},
+          "launches": {k: {"dfr_scan": v[0], "ridge_gram": v[1], "ridge_gram_into": v[2]}
+                       for k, v in launches.items()},
+          "streamed_twin_vs_materialized": streamed})
+
+
+def phase_device_sweep(dev, tasks, card: str) -> None:
+    """The (detuning × loss × power) robustness map at the benchmark's full
+    size: 60 lanes on the calibrated twin, N = 64, NARMA10 of 1200 samples,
+    streamed (chunk 128) on the ``fast`` path with per-lane device
+    parameters, the fold in plain matmuls.  Every cell finite, some cell
+    stable (NRMSE ≤ 0.8), the stable map the JAX package's (a cell within
+    SWEEP_TOL of the bound may flip: reported); wall time and peak device
+    memory.
+
+    The stable cells' states are held where the fit is well posed, as in
+    ``phase_cmt_main``: K1 at each cell's point, a float64 ridge at λ =
+    SWEEP_LAMS[-1] within SWEEP_TOL of the same fit on the reference's
+    states.  The map's own f32 Gram/eigh NRMSE moves by up to 5e-3 on these
+    cells in the reference itself when its inputs move by an ulp
+    (tests/test_torch_devices.py::test_f32_readout_spread_is_the_references_own):
+    held to PARITY_NRMSE there, and reported."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import generate_states, make_mask
+    from repro_torch.devices import SweepGrid, run_device_sweep
+    from repro_torch.pipeline import ExperimentConfig
+    from repro_torch.pipeline.experiment import _canon_batch, _input_layer
+
+    grid = SweepGrid(**SWEEP_GRID)
+    ds = tasks.narma10(SWEEP_SAMPLES, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    res, sweep_s = wall(lambda: run_device_sweep(
+        cmt_model(power_mw=0.0), grid, ds, n_nodes=SWEEP_N, washout=SWEEP_WASHOUT,
+        stream_chunk_k=SWEEP_CHUNK, ridge_l2=SWEEP_LAMS, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    check(launches == (0, 0, 0), f"the sweep's fast path launched kernels {launches}")
+    check(bool(np.all(np.isfinite(res.nrmse))), "sweep NRMSE finite")
+    ref = grid.fold(np.asarray(SWEEP_REF_NRMSE))
+    got_map = res.stable_region(nrmse_max=SWEEP_STABLE)["map"]
+    ref_map = np.isfinite(ref) & (ref <= SWEEP_STABLE)
+    flips = [{"cell": grid.point(tuple(int(v) for v in idx)), "nrmse": float(res.nrmse[idx]),
+              "reference": float(ref[idx])} for idx in zip(*np.nonzero(got_map != ref_map))]
+    for f in flips:
+        check(abs(f["reference"] - SWEEP_STABLE) <= SWEEP_TOL,
+              f"sweep cell {f['cell']} flips stability ({f['nrmse']} vs {f['reference']})")
+    both = got_map & ref_map
+    check(bool(both.any()), "no stable cell on the sweep map")
+    gap = float(np.abs(res.nrmse[both] - ref[both]).max())
+    check(gap <= PARITY_NRMSE, f"sweep NRMSE vs reference on stable cells {gap}")
+    check([c for c, _ in SWEEP_REF_STABLE_F64] == np.flatnonzero(ref_map.ravel()).tolist(),
+          "SWEEP_REF_STABLE_F64 does not list the reference's stable cells")
+    twin = cmt_model(power_mw=0.0)
+    j_tr, j_te = _input_layer(ExperimentConfig(), _canon_batch(ds.inputs_train, "tr", dev),
+                              _canon_batch(ds.inputs_test, "te", dev))
+    mask = make_mask(SWEEP_N, seed=1, device=dev)
+    cells = []
+    for flat, want in SWEEP_REF_STABLE_F64:
+        model = sweep_cell_model(twin, grid, flat)
+        st_tr, fin = generate_states(model, j_tr, mask, method="kernel", return_final=True,
+                                     device=dev)
+        st_te = generate_states(model, j_te, mask, s0=fin, method="kernel", device=dev)
+        got = ridge64_nrmse(st_tr, ds.targets_train[None], st_te, ds.targets_test[None],
+                            lam=SWEEP_LAMS[-1], washout=SWEEP_WASHOUT)[0]
+        cells.append({"cell": grid.point(np.unravel_index(flat, grid.shape)),
+                      "f64_ridge_nrmse": got, "f64_reference": want, "f64_gap": abs(got - want),
+                      "map_nrmse": float(res.nrmse.ravel()[flat]),
+                      "map_reference": float(ref.ravel()[flat])})
+        check(cells[-1]["f64_gap"] <= SWEEP_TOL,
+              f"sweep cell {cells[-1]['cell']}: float64-ridge NRMSE {got} vs reference {want}")
+    t_split = SWEEP_SAMPLES // 2
+    state_bytes = grid.size * t_split * SWEEP_N * 4
+    emit({"phase": "device_sweep", "card": card, "lanes": grid.size, "grid": SWEEP_GRID,
+          "N": SWEEP_N, "samples": SWEEP_SAMPLES, "chunk": SWEEP_CHUNK, "method": "fast",
+          "launches": {"dfr_scan": launches[0], "ridge_gram": launches[1],
+                       "ridge_gram_into": launches[2]},
+          "wall_s": sweep_s, "node_ticks": SWEEP_SAMPLES * SWEEP_N,
+          "wall_us_per_node_tick": sweep_s / (SWEEP_SAMPLES * SWEEP_N) * 1e6,
+          "peak_bytes": peak, "allocated_before": before,
+          "state_tensor_bytes_per_split": state_bytes,
+          "peak_over_quarter_state": (peak - before) / (state_bytes / 4),
+          "stable_map_equals_reference": not flips, "flips_near_bound": flips,
+          "stable_map_nrmse_max_gap": gap, "stable_cells_f64": cells,
+          "tolerance": {"f64_ridge": SWEEP_TOL, "map": PARITY_NRMSE},
+          "summary": res.stable_region(nrmse_max=SWEEP_STABLE)["summary"],
+          "nrmse_map": np.round(res.nrmse, 5).tolist()})
+
+
+def phase_fast_path(dev, card: str) -> None:
+    """``generate_states(method="fast")`` on the card, each shape of
+    FAST_SHAPES once, against K1 at the same inputs: SiliconMR's sequential
+    chain bitwise (the kernel runs its ops exactly); MackeyGlass's log-depth
+    affine scan within 1e-5 (another rounding, and powf); Literal's boolean
+    scan within 1e-5 of its largest finite state, with the same non-finite
+    states (its states overflow)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (MackeyGlass, SiliconMR, SiliconMRLiteral, generate_states,
+                                  make_mask)
+
+    models = {"SiliconMR": (SiliconMR(), (0.0, 1.0)), "MackeyGlass": (MackeyGlass(), (-1.0, 1.0)),
+              "SiliconMRLiteral": (SiliconMRLiteral(), (0.0, 1.0))}
+    rng = np.random.default_rng(7)
+    out = {}
+    for name, (b, k, n) in FAST_SHAPES.items():
+        model, levels = models[name]
+        j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32, device=dev)
+        mask = make_mask(n, levels=levels, seed=1, device=dev)
+        fast, fast_s = wall(lambda: generate_states(model, j, mask, method="fast", device=dev))
+        kern = generate_states(model, j, mask, method="kernel", device=dev)
+        kernel_ms = cuda_ms(lambda: generate_states(model, j, mask, method="kernel", device=dev))
+        finite = torch.isfinite(kern)
+        check(torch.equal(finite, torch.isfinite(fast)), f"{name}: fast vs K1 non-finite states")
+        err = max_err(fast[finite], kern[finite])
+        scale = max(1.0, float(kern[finite].abs().max())) if name == "SiliconMRLiteral" else 1.0
+        tol = 0.0 if name == "SiliconMR" else 1e-5
+        check(err <= tol * scale, f"{name}: fast vs K1 {err} > {tol} x {scale}")
+        out[name] = {"shape_bkn": [b, k, n], "fast_wall_s": fast_s, "kernel_ms": kernel_ms,
+                     "fast_over_kernel": fast_s * 1e3 / kernel_ms, "max_abs_err_vs_kernel": err,
+                     "state_scale": scale, "bitwise": bool(torch.equal(fast, kern)),
+                     "nonfinite_states": int((~finite).sum())}
+    emit({"phase": "fast_path", "card": card, "by_model": out})
 
 
 def phase_kernels_line(dev, narma, paths: dict) -> None:
@@ -1388,7 +1814,13 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     K·N dependent chain steps at the card's maximum SM clock, each of
     CHAIN_OPS f32 ops at the latency ``chain_cycles`` measures in this run,
     beside the measured cycles of the kernel's own chain step) and the
-    lanes a block of its layout."""
+    lanes a block of its layout.
+
+    Two K1 rows time a whole split from zero as its path launches it, held
+    to the plain version on its first periods (``split_row``): the CMT
+    form at the cmt_main split [64, 1000, 900] (its chain bound from the
+    CMT chain step that ``chain_cycles`` measures) and the host
+    accelerator's [1, 1000, 900]."""
     import torch
 
     from repro_torch.core import generate_states
@@ -1589,6 +2021,46 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         if row["name"].endswith("_serving"):
             row["launches_per_tick"] = row["launches"] / ticks
     del st_s
+
+    def split_row(name, model, j, mask, launches, path, check_k, tol, step_cycles, ops):
+        """K1 on a whole split from a zero state, as a materialized path
+        launches it: timed at its full shape, held to its plain version on
+        the first ``check_k`` periods (whose time is ``plain_ms``)."""
+        b, k = j.shape
+        n = mask.shape[-1]
+        zero = torch.zeros((b, n), dtype=torch.float32, device=dev)
+        jk = j[:, :check_k].contiguous()
+        out = scan_ops.dfr_scan(model, jk, mask, zero)
+        (ref, _), plain_s = wall(lambda: scan_ops.dfr_scan_plain(model, jk, mask, zero))
+        err = max_err(out, ref)
+        check(err <= tol, f"{name} vs plain on the first {check_k} periods: {err} > {tol}")
+        ms = cuda_ms(lambda: scan_ops.dfr_scan(model, j, mask, zero), reps=3)
+        bound, by = bound_ms(4 * (b * k + mask.numel() + 2 * b * n + b * k * n), ops * b * k * n)
+        chain_bound = k * n * step_cycles / (clocks["max"] * 1e3)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/dfr_scan.cu",
+                     "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97",
+                     "launches": launches, "path": path, "max_abs_err": err,
+                     "exact_vs_plain": err == 0.0, "ms": ms, "plain_ms": plain_s * 1e3,
+                     "plain_shape_bkn": [b, check_k, n], "bound_ms": bound, "bound_by": by,
+                     "library_ms": None, "chain_bound_ms": chain_bound,
+                     "chain_bound_share": chain_bound / ms, "chain_cycles_per_step": cycles,
+                     "cycles_per_node_at_max_clock": ms * clocks["max"] * 1e3 / (k * n),
+                     "sm_clock_mhz": clocks,
+                     "lanes_per_block": scan_ops.scan_layout(b, n, mask.ndim == 2).lanes,
+                     "shape_bkn": [b, k, n]})
+
+    # the CMT form at the cmt_main path's split; its chain bound counts the
+    # CMT chain step as measured (chain_cycles "cmt_step")
+    cmt_exp = paths["cmt"]["exp"]
+    cmt = cmt_exp.config.model
+    split_row("dfr_scan_cmt", cmt, j_tr, cmt_exp.mask, paths["cmt"]["launches"][0],
+              "cmt_main: materialized NARMA10 on the CMT cavity", CMT_CHECK_K, 1e-5,
+              cycles["cmt_step"], cmt_ops_per_step(cmt.n_substeps))
+    # the host accelerator's split, one lane (seed 0's train split)
+    split_row("dfr_scan_accelerator", model, j_tr[:1].contiguous(), exp.mask,
+              paths["accelerator"]["launches"][0], "DFRCAccelerator fit + predict, B = 1",
+              SPLIT_CHECK_K, 0.0, cycles["least_step"], SCAN_OPS_PER_STEP)
     for row in rows:
         if row["name"].startswith("ridge_gram"):
             check(max(row["error_vs_f32_sum_bound"].values()) <= 1.0,
@@ -1638,9 +2110,14 @@ def main() -> int:
     serving = phase_serving(dev, card)
     phase_kill_restore(dev, card)
     phase_soak(dev, card)
+    accelerator = phase_accelerator(dev, tasks, card)
+    cmt = phase_cmt_main(dev, narma, card)
+    phase_cmt_calibration(dev, narma, card)
+    phase_device_sweep(dev, tasks, card)
+    phase_fast_path(dev, card)
     phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm,
-                                    "serving": serving})
-    phase_accelerator(dev, tasks, card)
+                                    "serving": serving, "cmt": cmt,
+                                    "accelerator": accelerator})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import devices
 from .core.accelerator import DFRCConfig
 from .core.nonlinear import MODEL_REGISTRY
 from .device import resolve_device
@@ -21,19 +22,19 @@ from .pipeline.experiment import ExperimentConfig
 from .pipeline.session import SessionConfig, SessionState
 from .robustness.faults import FaultSpec
 
-_MODELS_BY_NAME = {cls.__name__: cls for cls in MODEL_REGISTRY.values()}
-
 
 def _init_fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj) if f.init}
 
 
 def model_from_reference(obj):
-    """The port's device model with the same class name and field values."""
-    cls = _MODELS_BY_NAME.get(type(obj).__name__)
+    """The port's device model with the same class name and field values,
+    looked up in ``MODEL_REGISTRY`` as it stands at the call."""
+    by_name = {cls.__name__: cls for cls in MODEL_REGISTRY.values()}
+    cls = by_name.get(type(obj).__name__)
     if cls is None or not dataclasses.is_dataclass(obj):
         raise TypeError(f"no port of device model {type(obj).__name__!r} "
-                        f"(ported: {sorted(_MODELS_BY_NAME)})")
+                        f"(ported: {sorted(by_name)})")
     return cls(**_init_fields(obj))
 
 
@@ -66,6 +67,15 @@ def _leaves(obj, names) -> list[np.ndarray]:
     if missing:
         raise TypeError(f"{type(obj).__name__} lacks the fields {missing}")
     return [np.asarray(getattr(obj, n)) for n in names]
+
+
+def dev_params_from_reference(params, *, device=None) -> devices.CMTSweepParams:
+    """The port's CMTSweepParams from a reference one (leaves floats or
+    numpy/JAX arrays), each leaf an f32 tensor on ``device`` (default
+    ``cuda``)."""
+    dev = resolve_device(device)
+    return devices.CMTSweepParams(*(torch.tensor(a, dtype=torch.float32, device=dev)
+                                    for a in _leaves(params, devices.CMTSweepParams._fields)))
 
 
 def fault_spec_from_reference(spec, *, device=None) -> FaultSpec:

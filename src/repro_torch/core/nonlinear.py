@@ -9,14 +9,17 @@ reference's interface over virtual nodes:
     earlier, ``s_prev_node`` the preceding node (θ earlier).  The sequential
     oracle.
 ``period_update(u_k, s_prev, s_last)``
-    A whole period [..., N], exactly equal to chaining ``node_update`` over
-    the node axis.  The reference evaluates MackeyGlass and SiliconMRLiteral
-    with ``lax.associative_scan``; here the node chain is a plain sequential
-    loop (the per-node drive is still computed for the whole period at once).
+    A whole period [..., N], equal to chaining ``node_update`` over the node
+    axis.  As in the reference, SiliconMRLiteral and MackeyGlass run it in
+    ⌈log₂ N⌉ steps: a Hillis–Steele doubling over the node axis of boolean
+    transition functions (Literal; its states are selections of the same
+    candidates, so bitwise the chain) and of affine maps (MackeyGlass; it
+    rounds differently from the chain).  SiliconMR keeps a sequential node
+    chain, as the reference's ``lax.scan`` does; MZISine has no chain.
 ``kernel_spec()``
     ``(model_id, params)`` for the CUDA scan kernel
-    (``kernels/csrc/dfr_scan.cu``): four float32 values, each rounded to f32
-    here exactly as the reference rounds its constants.
+    (``kernels/csrc/dfr_scan.cu``): float32 values, each rounded to f32 here
+    exactly as the reference rounds its constants.
 
 Rounding follows the reference op by op: device constants are rounded to
 f32 once (``alpha``, ``decay``), derived constants such as ``1 - alpha`` are
@@ -28,6 +31,7 @@ oracle over K·N dependent steps.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -38,6 +42,7 @@ KERNEL_SILICON_MR = 0
 KERNEL_SILICON_MR_LITERAL = 1
 KERNEL_MACKEY_GLASS = 2
 KERNEL_MZI_SINE = 3
+KERNEL_MR_CAVITY_CMT = 4
 
 
 def _f32(x: float) -> float:
@@ -48,6 +53,27 @@ def _f32(x: float) -> float:
 def _one_minus_f32(x: float) -> float:
     """1 − f32(x), evaluated in f32 (the reference's ``1.0 - a``)."""
     return float(np.float32(1.0) - np.float32(x))
+
+
+def _doubling_strides(n: int) -> list[int]:
+    """1, 2, 4, … below ``n``: the ⌈log₂ n⌉ steps of a Hillis–Steele scan."""
+    return [1 << k for k in range(max(n - 1, 0).bit_length())]
+
+
+@functools.lru_cache(maxsize=16)
+def _affine_scan_factors(c: float, n: int, dtype: torch.dtype,
+                         device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The multipliers of a doubling scan of x_i = a_i + c·x_{i-1} over n
+    nodes: for each step of stride d, the [n] factor it applies (the prefix
+    products m before it, zero below d) and, last, the prefix products
+    m_i ≈ c^(i+1).  They depend on c and n alone, so one evaluation serves
+    every period; callers only read them."""
+    m = torch.full((n,), c, dtype=dtype, device=device)
+    out = []
+    for d in _doubling_strides(n):
+        out.append(torch.cat([torch.zeros(d, dtype=dtype, device=device), m[d:]]))
+        m = torch.cat([m[:d], m[:-d] * m[d:]])
+    return (*out, m)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,12 +150,20 @@ class SiliconMRLiteral:
 
     def period_update(self, u_k, s_prev, s_last):
         charge, discharge = self._candidates(u_k, s_prev)
-        s_pn = s_last
-        out = []
-        for i in range(u_k.shape[-1]):
-            s_pn = torch.where(u_k[..., i] > s_pn, charge[..., i], discharge[..., i])
-            out.append(s_pn)
-        return torch.stack(out, dim=-1)
+        # Node i's branch bit as a function of node i-1's: (bit if it
+        # discharged, bit if it charged).  Node 0 sees s_last in both slots, a
+        # constant function, so every prefix composition is one too.
+        head = s_last[..., None]
+        bit_if_0 = u_k > torch.cat([head, discharge[..., :-1]], dim=-1)
+        bit_if_1 = u_k > torch.cat([head, charge[..., :-1]], dim=-1)
+        for d in _doubling_strides(u_k.shape[-1]):
+            # compose node i's function after the prefix ending at node i-d
+            bit_if_0, bit_if_1 = (
+                torch.cat([bit_if_0[..., :d], torch.where(bit_if_0[..., :-d], bit_if_1[..., d:],
+                                                          bit_if_0[..., d:])], dim=-1),
+                torch.cat([bit_if_1[..., :d], torch.where(bit_if_1[..., :-d], bit_if_1[..., d:],
+                                                          bit_if_0[..., d:])], dim=-1))
+        return torch.where(bit_if_0, charge, discharge)
 
     def kernel_spec(self) -> tuple[int, tuple[float, float, float, float]]:
         return KERNEL_SILICON_MR_LITERAL, (_f32(self.alpha), _f32(self.gamma),
@@ -162,14 +196,15 @@ class MackeyGlass:
         return c * s_prev_node + _one_minus_f32(self.decay) * self._drive(u, s_tau)
 
     def period_update(self, u_k, s_prev, s_last):
-        c = _f32(self.decay)
+        # x_i = a_i + c·x_{i-1}: prefix compositions of the affine maps
+        # (c, a_i), the later map after the earlier, (m₁·m₂, a₂ + m₂·a₁).
         a = _one_minus_f32(self.decay) * self._drive(u_k, s_prev)
-        x = s_last
-        out = []
-        for i in range(u_k.shape[-1]):
-            x = c * x + a[..., i]
-            out.append(x)
-        return torch.stack(out, dim=-1)
+        n = u_k.shape[-1]
+        *steps, m = _affine_scan_factors(_f32(self.decay), n, a.dtype, a.device)
+        for d, m_d in zip(_doubling_strides(n), steps):
+            # a_i += m_i·a_{i-d} for i ≥ d; m_d is 0 below d, where a_{i-d} is a pad
+            a = a + m_d * torch.nn.functional.pad(a[..., :-d], (d, 0))
+        return a + m * s_last[..., None]
 
     def kernel_spec(self) -> tuple[int, tuple[float, float, float, float]]:
         return KERNEL_MACKEY_GLASS, (_f32(self.decay), _f32(self.eta),
@@ -203,9 +238,9 @@ class MZISine:
 NLModel = SiliconMR | SiliconMRLiteral | MackeyGlass | MZISine
 
 
-# Every reservoir device model, by stable string id.  The reference's
-# devices subsystem registers "mr_cavity_cmt" here; its port is ROADMAP
-# Queue 1 item 11.
+# Every reservoir device model, by stable string id.  ``repro_torch.devices``
+# registers its CMT cavity here under "mr_cavity_cmt" on import, as the
+# reference's devices subsystem does.
 MODEL_REGISTRY: dict[str, type] = {
     "silicon_mr": SiliconMR,
     "silicon_mr_literal": SiliconMRLiteral,

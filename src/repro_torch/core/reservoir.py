@@ -8,7 +8,8 @@ paths:
   (``node_update``): the oracle every other path is tested against;
 * ``method="fast"``   — a loop over periods, each a whole-period
   ``period_update`` (the per-node drive for all N at once, then the node
-  chain);
+  chain: log-depth for SiliconMRLiteral and MackeyGlass, sequential for
+  SiliconMR and the CMT cavity);
 * ``method="kernel"`` — the CUDA scan kernel (``kernels/dfr_scan``), which
   fuses masking and the recurrence; on CPU tensors its plain version.
 
@@ -19,10 +20,15 @@ riding the batch axis (on the kernel path, the scan kernel's per-lane mask
 mode: ONE launch for all R channels).  Both run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 
-``dev_params`` (swept device parameters) is ROADMAP Queue 1 item 11.
+``dev_params`` sweeps a device's operating point over the batch lanes (a
+``devices.cmt.CMTSweepParams``, leaves scalar or [B]) through the model's
+``node_update_p``/``period_update_p``, on the ``ref`` and ``fast`` paths
+only, as in the reference.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -38,27 +44,51 @@ def init_state(model: NLModel, batch_shape: tuple[int, ...], n_nodes: int,
     return torch.zeros((*batch_shape, n_nodes), dtype=dtype, device=device)
 
 
-def _states_ref(model: NLModel, u: torch.Tensor, s0: torch.Tensor) -> torch.Tensor:
-    """u: [B, K, N], s0: [B, N] -> [B, K, N].  Sequential oracle."""
+def _states_ref(model: NLModel, u: torch.Tensor, s0: torch.Tensor, node=None) -> torch.Tensor:
+    """u: [B, K, N], s0: [B, N] -> [B, K, N].  Sequential oracle over
+    ``node`` (default ``model.node_update``)."""
+    node = node or model.node_update
     b, k_periods, n_nodes = u.shape
     states = torch.empty((b, k_periods, n_nodes), dtype=u.dtype, device=u.device)
     s_prev, s_last = s0, s0[:, -1]
     for k in range(k_periods):
         for i in range(n_nodes):
-            s_last = model.node_update(u[:, k, i], s_prev[:, i], s_last)
+            s_last = node(u[:, k, i], s_prev[:, i], s_last)
             states[:, k, i] = s_last
         s_prev = states[:, k]
     return states
 
 
-def _states_fast(model: NLModel, u: torch.Tensor, s0: torch.Tensor) -> torch.Tensor:
-    """u: [B, K, N], s0: [B, N] -> [B, K, N].  Whole-period updates."""
+def _states_fast(model: NLModel, u: torch.Tensor, s0: torch.Tensor, period=None) -> torch.Tensor:
+    """u: [B, K, N], s0: [B, N] -> [B, K, N].  Whole-period updates with
+    ``period`` (default ``model.period_update``)."""
+    period = period or model.period_update
     out = []
     s_prev = s0
     for k in range(u.shape[1]):
-        s_prev = model.period_update(u[:, k], s_prev, s_prev[:, -1])
+        s_prev = period(u[:, k], s_prev, s_prev[:, -1])
         out.append(s_prev)
     return torch.stack(out, dim=1) if out else u.new_empty(u.shape)
+
+
+def _states_ref_p(model, p, u: torch.Tensor, s0: torch.Tensor) -> torch.Tensor:
+    """Sequential oracle at per-lane device parameters ``p``."""
+    return _states_ref(model, u, s0, functools.partial(model.node_update_p, p))
+
+
+def _states_fast_p(model, p, u: torch.Tensor, s0: torch.Tensor) -> torch.Tensor:
+    """Whole-period path at per-lane device parameters ``p``."""
+    return _states_fast(model, u, s0, functools.partial(model.period_update_p, p))
+
+
+def _params_on(model, dev_params, dev: torch.device):
+    """``dev_params`` with each leaf an f32 tensor on ``dev``; TypeError for
+    a model without the swept-parameter contract."""
+    if not hasattr(model, "period_update_p"):
+        raise TypeError(f"{type(model).__name__} takes no swept device parameters "
+                        "(dev_params needs node_update_p/period_update_p)")
+    return type(dev_params)(*(torch.as_tensor(leaf, dtype=torch.float32, device=dev)
+                              for leaf in dev_params))
 
 
 def _canon(j: torch.Tensor) -> tuple[torch.Tensor, bool]:
@@ -71,7 +101,7 @@ def _canon(j: torch.Tensor) -> tuple[torch.Tensor, bool]:
 
 
 def _run_states(model: NLModel, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor,
-                method: str, block_s: int | None, state_dtype):
+                method: str, block_s: int | None, state_dtype, dev_params=None):
     """(states [B, K, N], final state [B, N]) of ``j`` [B, K] under one
     mask [N] or per-lane masks [B, N], along ``method``."""
     if method == "kernel":
@@ -81,9 +111,11 @@ def _run_states(model: NLModel, j: torch.Tensor, mask: torch.Tensor, s0: torch.T
                                 return_final=True, out_dtype=state_dtype)
     u = masked_input(j, mask) if mask.ndim == 1 else j[:, :, None] * mask[:, None, :]
     if method == "ref":
-        states = _states_ref(model, u, s0)
+        states = (_states_ref(model, u, s0) if dev_params is None
+                  else _states_ref_p(model, dev_params, u, s0))
     elif method == "fast":
-        states = _states_fast(model, u, s0)
+        states = (_states_fast(model, u, s0) if dev_params is None
+                  else _states_fast_p(model, dev_params, u, s0))
     else:
         raise ValueError(f"unknown method {method!r}")
     s_final = states[:, -1, :] if states.shape[1] else s0
@@ -113,13 +145,11 @@ def generate_states(
     (kernels/dfr_scan/ops.py).  ``return_final=True`` also returns the
     final state [..., N]; feed it back as ``s0`` to resume.
     ``state_dtype`` narrows only the emitted states; the carry and all
-    compute stay in the input dtype.  Inputs are moved to ``device``
+    compute stay in the input dtype.  ``dev_params`` (leaves scalar or [B])
+    sweeps the model's operating point over the lanes; the kernel path
+    raises NotImplementedError for it.  Inputs are moved to ``device``
     (default ``cuda``).
     """
-    if dev_params is not None:
-        raise NotImplementedError(
-            "dev_params (swept per-lane device parameters) are ROADMAP "
-            "Queue 1 item 11 (the device subsystem)")
     dev = resolve_device(device)
     jb, squeeze = _canon(torch.as_tensor(j, device=dev))
     if not jb.is_floating_point():
@@ -133,7 +163,14 @@ def generate_states(
         if s0b.ndim == 1:
             s0b = s0b[None].expand(jb.shape[0], n_nodes)
 
-    states, s_final = _run_states(model, jb, mask, s0b, method, block_s, state_dtype)
+    if dev_params is not None:
+        if method == "kernel":
+            raise NotImplementedError(
+                "dev_params (per-lane device parameters) are not supported on the "
+                "kernel path; sweep with method='fast' or 'ref'")
+        dev_params = _params_on(model, dev_params, dev)
+    states, s_final = _run_states(model, jb, mask, s0b, method, block_s, state_dtype,
+                                  dev_params)
     if squeeze:
         states, s_final = states[0], s_final[0]
     return (states, s_final) if return_final else states

@@ -25,9 +25,13 @@
 //     chain-free part of node i needs only u_i, s_prev[i] and the model's
 //     constants (SiliconMR's pre = alpha * drive, with the TPA division;
 //     SiliconMRLiteral's charge and discharge; MackeyGlass's
-//     (1 - c) * drive with powf and the division).  The chain keeps only
-//     what needs s_{i-1}: SiliconMR mul, add, add, compare, select;
-//     SiliconMRLiteral compare, select; MackeyGlass mul, add;
+//     (1 - c) * drive with powf and the division; the CMT cavity's drive
+//     max(u + gamma * s_prev[i], 0)).  The chain keeps only what needs
+//     s_{i-1}: SiliconMR mul, add, add, compare, select; SiliconMRLiteral
+//     compare, select; MackeyGlass mul, add; the CMT cavity everything from
+//     its branch on, n_substeps exponential-integrator steps of about 30
+//     dependent f32 ops each, with a division, expf and expm1f (its chain
+//     step is timed by dfr_scan_chain_probe, form 2);
 //   * one thread runs one lane's chain, software-pipelined over groups of
 //     four nodes: the carry and mask of group g+2 are loaded and the
 //     chain-free part of group g+1 is computed while the chain of group g
@@ -72,7 +76,8 @@
 // sum is a separately rounded __fmul_rn/__fadd_rn (and the build passes
 // -fmad=false), in the reference's op order; each state's own op sequence
 // is the same as in node_update, only the schedule differs, so the kernel
-// equals its plain PyTorch version up to libm differences (sinf/powf).
+// equals its plain PyTorch version up to libm differences (sinf/powf, and
+// the CMT form's expf/expm1f against torch's exp/expm1 on the card).
 // The branch is the strict `u > s_{i-1}` of jnp.where: a NaN takes the
 // discharge branch in both.  Feeding `fin` back as the next call's carry
 // resumes bit-exactly, since `fin` holds exactly the f32 values the
@@ -86,13 +91,22 @@
 namespace {
 
 // Must match the KERNEL_* ids in repro_torch/core/nonlinear.py.
-enum ModelId { SILICON_MR = 0, SILICON_MR_LITERAL = 1, MACKEY_GLASS = 2, MZI_SINE = 3 };
+enum ModelId {
+  SILICON_MR = 0,
+  SILICON_MR_LITERAL = 1,
+  MACKEY_GLASS = 2,
+  MZI_SINE = 3,
+  MR_CAVITY_CMT = 4
+};
 
 // Kernel forms: SiliconMR with TPA saturation (beta_tpa != 0) is its own.
-enum Form { MR = 0, MR_TPA = 1, LITERAL = 2, MG = 3 };
+enum Form { MR = 0, MR_TPA = 1, LITERAL = 2, MG = 3, CMT = 4 };
 
+// The model's f32 constants (its kernel_spec()), by value: the launch copies
+// the caller's array into it, zero past its length.
+constexpr int kMaxParams = 16;
 struct Params {
-  float p0, p1, p2, p3;
+  float v[kMaxParams];
 };
 
 constexpr int kWarp = 32;
@@ -111,18 +125,18 @@ __device__ __forceinline__ Free free_part(float u, float s_tau, const Params& p)
 template <int F>
 __device__ __forceinline__ float chain(const Free& f, float s_pn, const Params& p);
 
-// SiliconMR, theta-corrected Eq. (6-7): p0 = alpha, p1 = gamma, p2 = beta_tpa.
+// SiliconMR, theta-corrected Eq. (6-7): v0 = alpha, v1 = gamma, v2 = beta_tpa.
 template <>
 __device__ __forceinline__ Free free_part<MR>(float u, float s_tau, const Params& p) {
-  const float drive = __fadd_rn(u, __fmul_rn(p.p1, s_tau));
-  return {u, __fmul_rn(p.p0, drive), 0.0f};
+  const float drive = __fadd_rn(u, __fmul_rn(p.v[1], s_tau));
+  return {u, __fmul_rn(p.v[0], drive), 0.0f};
 }
 
 template <>
 __device__ __forceinline__ Free free_part<MR_TPA>(float u, float s_tau, const Params& p) {
-  float drive = __fadd_rn(u, __fmul_rn(p.p1, s_tau));
-  drive = __fdiv_rn(drive, __fadd_rn(1.0f, __fmul_rn(p.p2, drive)));
-  return {u, __fmul_rn(p.p0, drive), 0.0f};
+  float drive = __fadd_rn(u, __fmul_rn(p.v[1], s_tau));
+  drive = __fdiv_rn(drive, __fadd_rn(1.0f, __fmul_rn(p.v[2], drive)));
+  return {u, __fmul_rn(p.v[0], drive), 0.0f};
 }
 
 // The select is a byte permute of the two candidates' bits, its selector
@@ -131,7 +145,7 @@ __device__ __forceinline__ Free free_part<MR_TPA>(float u, float s_tau, const Pa
 // compare's longer latency on the chain (18.3 cycles a step, against 15.1).
 __device__ __forceinline__ float mr_chain(const Free& f, float s_pn, const Params& p) {
   const float charge = __fadd_rn(f.a, s_pn);
-  const float discharge = __fadd_rn(f.a, __fmul_rn(s_pn, __fsub_rn(1.0f, p.p0)));
+  const float discharge = __fadd_rn(f.a, __fmul_rn(s_pn, __fsub_rn(1.0f, p.v[0])));
   const unsigned pick = (f.u > s_pn) ? 0x3210u : 0x7654u;  // charge's bytes : discharge's
   return __uint_as_float(__byte_perm(__float_as_uint(charge), __float_as_uint(discharge), pick));
 }
@@ -146,11 +160,11 @@ __device__ __forceinline__ float chain<MR_TPA>(const Free& f, float s_pn, const 
   return mr_chain(f, s_pn, p);
 }
 
-// SiliconMRLiteral, Eq. (6-7) as printed: p0 = alpha, p1 = gamma.
+// SiliconMRLiteral, Eq. (6-7) as printed: v0 = alpha, v1 = gamma.
 template <>
 __device__ __forceinline__ Free free_part<LITERAL>(float u, float s_tau, const Params& p) {
-  const float pre = __fmul_rn(__fadd_rn(u, __fmul_rn(p.p1, s_tau)), p.p0);
-  return {u, __fadd_rn(pre, s_tau), __fadd_rn(pre, __fmul_rn(s_tau, __fsub_rn(1.0f, p.p0)))};
+  const float pre = __fmul_rn(__fadd_rn(u, __fmul_rn(p.v[1], s_tau)), p.v[0]);
+  return {u, __fadd_rn(pre, s_tau), __fadd_rn(pre, __fmul_rn(s_tau, __fsub_rn(1.0f, p.v[0])))};
 }
 
 template <>
@@ -158,22 +172,83 @@ __device__ __forceinline__ float chain<LITERAL>(const Free& f, float s_pn, const
   return (f.u > s_pn) ? f.a : f.b;
 }
 
-// MackeyGlass: p0 = decay c, p1 = eta, p2 = gamma_in, p3 = exponent p.
+// MackeyGlass: v0 = decay c, v1 = eta, v2 = gamma_in, v3 = exponent p.
 template <>
 __device__ __forceinline__ Free free_part<MG>(float u, float s_tau, const Params& p) {
-  const float x = __fadd_rn(s_tau, __fmul_rn(p.p2, u));
-  const float drive = __fdiv_rn(__fmul_rn(p.p1, x), __fadd_rn(1.0f, powf(fabsf(x), p.p3)));
-  return {u, __fmul_rn(__fsub_rn(1.0f, p.p0), drive), 0.0f};
+  const float x = __fadd_rn(s_tau, __fmul_rn(p.v[2], u));
+  const float drive = __fdiv_rn(__fmul_rn(p.v[1], x), __fadd_rn(1.0f, powf(fabsf(x), p.v[3])));
+  return {u, __fmul_rn(__fsub_rn(1.0f, p.v[0]), drive), 0.0f};
 }
 
 template <>
 __device__ __forceinline__ float chain<MG>(const Free& f, float s_pn, const Params& p) {
-  return __fadd_rn(__fmul_rn(p.p0, s_pn), f.a);
+  return __fadd_rn(__fmul_rn(p.v[0], s_pn), f.a);
 }
 
-// MZISine: p0 = phi, p1 = beta_in, p2 = alpha_fb.  No theta coupling.
+// MRCavityCMT (repro_torch/devices/cmt.py), its constants in this order
+// (MRCavityCMT.kernel_spec).  Per tick, `n_substeps` exponential-integrator
+// steps of the intracavity energy e, with the free-carrier density n_fc and
+// the temperature t_th closed at tick start from the carried energy.
+enum CmtParam {
+  kGamma, kKappaC, kKappaD, kDetune, kLin, kPower, kFcGain, kThGain,
+  kGFc, kGTh, kFcd, kThShift, kTpa, kFca, kDt, kSubsteps
+};
+
+// jnp.maximum(x, 0.0) / torch.clamp_min(x, 0.0): a NaN stays NaN.
+__device__ __forceinline__ float clamp_min0(float x) { return x < 0.0f ? 0.0f : x; }
+
+// (1 - e^-x) / x with the reference's guard (1 - x/2 at x <= 1e-6), as
+// selects so that a warp does not diverge.
+__device__ __forceinline__ float phi1(float x) {
+  const bool small = x <= 1e-6f;
+  const float safe = small ? 1.0f : x;
+  const float big = __fdiv_rn(-expm1f(-safe), safe);
+  return small ? __fsub_rn(1.0f, __fmul_rn(0.5f, x)) : big;
+}
+
+// The chain-free part is the drive P = max(u + gamma s_tau, 0) (and u).
+template <>
+__device__ __forceinline__ Free free_part<CMT>(float u, float s_tau, const Params& p) {
+  return {u, clamp_min0(__fadd_rn(u, __fmul_rn(p.v[kGamma], s_tau))), 0.0f};
+}
+
+// Everything from the branch on: kappa and the loss select, the closure of
+// n_fc and t_th, and each substep, in the reference's op order.  The last
+// substep's n_fc and t_th updates feed nothing and are not computed, as in
+// the plain version.
+template <>
+__device__ __forceinline__ float chain<CMT>(const Free& f, float s_pn, const Params& p) {
+  const bool charging = f.u > s_pn;
+  const float kap = charging ? p.v[kKappaC] : p.v[kKappaD];
+  const float lin_eff = charging ? 0.0f : p.v[kLin];
+  const float pw = p.v[kPower], dt = p.v[kDt];
+  float e = clamp_min0(s_pn);
+  float pe = __fmul_rn(pw, e);
+  float n_fc = __fmul_rn(p.v[kFcGain], __fmul_rn(pe, pe));
+  float t_th = __fmul_rn(p.v[kThGain], pe);
+  const int n_sub = static_cast<int>(p.v[kSubsteps]);
+  for (int m = 0; m < n_sub; ++m) {
+    const float delta = __fadd_rn(__fsub_rn(p.v[kDetune], __fmul_rn(p.v[kFcd], n_fc)),
+                                  __fmul_rn(p.v[kThShift], t_th));
+    const float lor = __fdiv_rn(1.0f, __fadd_rn(__fmul_rn(delta, delta), 1.0f));
+    const float r = __fadd_rn(__fadd_rn(lin_eff, __fmul_rn(p.v[kTpa], pe)),
+                              __fmul_rn(p.v[kFca], n_fc));
+    const float x = __fmul_rn(r, dt);
+    e = __fadd_rn(__fmul_rn(e, expf(-x)),
+                  __fmul_rn(__fmul_rn(__fmul_rn(kap, lor), f.a), __fmul_rn(dt, phi1(x))));
+    if (m + 1 < n_sub) {
+      pe = __fmul_rn(pw, e);
+      n_fc = __fadd_rn(n_fc, __fmul_rn(p.v[kGFc],
+                                       __fsub_rn(__fmul_rn(p.v[kFcGain], __fmul_rn(pe, pe)), n_fc)));
+      t_th = __fadd_rn(t_th, __fmul_rn(p.v[kGTh], __fsub_rn(__fmul_rn(p.v[kThGain], pe), t_th)));
+    }
+  }
+  return e;
+}
+
+// MZISine: v0 = phi, v1 = beta_in, v2 = alpha_fb.  No theta coupling.
 __device__ __forceinline__ float mzi_update(float u, float s_tau, const Params& p) {
-  const float arg = __fadd_rn(__fadd_rn(p.p0, __fmul_rn(p.p1, u)), __fmul_rn(p.p2, s_tau));
+  const float arg = __fadd_rn(__fadd_rn(p.v[0], __fmul_rn(p.v[1], u)), __fmul_rn(p.v[2], s_tau));
   const float s = sinf(arg);
   return __fmul_rn(s, s);
 }
@@ -377,7 +452,7 @@ int dispatch(int model_id, const float* j, const float* mask, int per_lane, floa
              int B, int K, int N, const Layout& lay, Params p, cudaStream_t stream) {
   switch (model_id) {
     case SILICON_MR:
-      if (p.p2 != 0.0f) {
+      if (p.v[2] != 0.0f) {
         return launch_chain<MR_TPA>(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
       }
       return launch_chain<MR>(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
@@ -385,6 +460,8 @@ int dispatch(int model_id, const float* j, const float* mask, int per_lane, floa
       return launch_chain<LITERAL>(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
     case MACKEY_GLASS:
       return launch_chain<MG>(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
+    case MR_CAVITY_CMT:
+      return launch_chain<CMT>(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
     case MZI_SINE: {
       const size_t pairs = static_cast<size_t>(N) * B;
       const unsigned blocks =
@@ -402,7 +479,8 @@ int dispatch(int model_id, const float* j, const float* mask, int per_lane, floa
 // line (chip_smoke.py): one thread runs `steps` dependent steps on register
 // values between two clock64() reads.  Form 0 is SiliconMR's chain step as
 // chain<MR> computes it; form 1 one dependent __fadd_rn, the latency of one
-// f32 op (the least a step can take is three: mul, add, select).
+// f32 op (the least a SiliconMR step can take is three: mul, add, select);
+// form 2 the CMT cavity's chain step as chain<CMT> computes it.
 constexpr int kProbeUnroll = 8;
 
 template <int V>
@@ -410,14 +488,26 @@ __global__ void chain_probe_kernel(const float* in, float* out, long long* cycle
   Free f[kProbeUnroll];
 #pragma unroll
   for (int c = 0; c < kProbeUnroll; ++c) f[c] = Free{in[c], in[kProbeUnroll + c], 0.0f};
-  const Params p{in[2 * kProbeUnroll], 0.0f, 0.0f, 0.0f};
-  float s = in[2 * kProbeUnroll + 1];
-  const long long t0 = clock64();
-#pragma unroll 4
-  for (int n = 0; n < steps; n += kProbeUnroll) {
+  Params p;
 #pragma unroll
-    for (int c = 0; c < kProbeUnroll; ++c) {
-      s = V == 0 ? chain<MR>(f[c], s, p) : __fadd_rn(s, f[c].a);
+  for (int c = 0; c < kMaxParams; ++c) p.v[c] = in[2 * kProbeUnroll + 1 + c];
+  float s = in[2 * kProbeUnroll];
+  const long long t0 = clock64();
+  if constexpr (V == 2) {
+    // 8 inlined copies of the long CMT step, not 32: those would overflow
+    // the instruction cache and time its misses, not the chain
+#pragma unroll 1
+    for (int n = 0; n < steps; n += kProbeUnroll) {
+#pragma unroll
+      for (int c = 0; c < kProbeUnroll; ++c) s = chain<CMT>(f[c], s, p);
+    }
+  } else {
+#pragma unroll 4
+    for (int n = 0; n < steps; n += kProbeUnroll) {
+#pragma unroll
+      for (int c = 0; c < kProbeUnroll; ++c) {
+        s = V == 0 ? chain<MR>(f[c], s, p) : __fadd_rn(s, f[c].a);
+      }
     }
   }
   const long long t1 = clock64();
@@ -432,15 +522,19 @@ __global__ void chain_probe_kernel(const float* in, float* out, long long* cycle
 // out [K, N, B] f32 (out_bf16 = 0) or bf16 (out_bf16 = 1).
 // lanes, blocks, stride, smem_bytes: the block layout of ops.scan_layout
 // (lanes a block, blocks, carry-row pitch in floats, dynamic shared bytes);
-// MZISine, which keeps no rows, ignores it.  Returns the cudaError_t of the
-// attribute call and the launch (0 on success); cudaErrorInvalidValue for a
-// layout that does not cover the batch or a row.
+// MZISine, which keeps no rows, ignores it.  params: the model's n_params
+// (at most 16) f32 constants, its kernel_spec(), copied into the launch.
+// Returns the cudaError_t of the attribute call and the launch (0 on
+// success); cudaErrorInvalidValue for more than 16 constants or a layout
+// that does not cover the batch or a row.
 extern "C" int dfr_scan_launch(const void* j, const void* mask, int per_lane, void* fin, void* out,
                                int out_bf16, int B, int K, int N, int lanes, int blocks,
-                               int stride, int smem_bytes, int model_id, float p0, float p1,
-                               float p2, float p3, void* stream) {
+                               int stride, int smem_bytes, int model_id, const float* params,
+                               int n_params, void* stream) {
+  if (n_params < 0 || n_params > kMaxParams) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  for (int c = 0; c < n_params; ++c) p.v[c] = params[c];
   const Layout lay{lanes, blocks, stride, smem_bytes};
-  const Params p{p0, p1, p2, p3};
   const auto* jf = static_cast<const float*>(j);
   const auto* mf = static_cast<const float*>(mask);
   auto* ff = static_cast<float*>(fin);
@@ -452,9 +546,12 @@ extern "C" int dfr_scan_launch(const void* j, const void* mask, int per_lane, vo
   return dispatch(model_id, jf, mf, per_lane, ff, static_cast<float*>(out), B, K, N, lay, p, s);
 }
 
-// in: 8 inputs u, 8 chain-free values a, alpha, s0 (f32); out[0] the last
+// in (on the card, f32): 8 inputs u, 8 chain-free values (SiliconMR's
+// alpha * drive, the CMT drive), s0, then the 16 constants of Params
+// (SiliconMR's alpha first; the CMT form's kernel_spec()); out[0] the last
 // state; cycles[0] the clock64() cycles of `steps` (a multiple of 8) steps
-// of chain form `form` (0 SiliconMR's step, 1 one f32 add), one thread.
+// of chain form `form` (0 SiliconMR's step, 1 one f32 add, 2 the CMT step),
+// one thread.
 extern "C" int dfr_scan_chain_probe(int form, const void* in, void* out, void* cycles, int steps,
                                     void* stream) {
   const auto* x = static_cast<const float*>(in);
@@ -465,6 +562,8 @@ extern "C" int dfr_scan_chain_probe(int form, const void* in, void* out, void* c
     chain_probe_kernel<0><<<1, 1, 0, s>>>(x, o, c, steps);
   } else if (form == 1) {
     chain_probe_kernel<1><<<1, 1, 0, s>>>(x, o, c, steps);
+  } else if (form == 2) {
+    chain_probe_kernel<2><<<1, 1, 0, s>>>(x, o, c, steps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

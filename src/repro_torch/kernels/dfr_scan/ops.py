@@ -47,11 +47,15 @@ SMEM_PER_BLOCK = 232_448
 # 32 (PERF.md PR 14).
 LANES_PER_BLOCK = 8
 
+# The most f32 constants a model's kernel_spec() may hand the kernel
+# (``kMaxParams`` in dfr_scan.cu).
+MAX_PARAMS = 16
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-             ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+             ctypes.c_void_p]
 
 
 class ScanLayout(NamedTuple):
@@ -110,9 +114,12 @@ def _launch(model, j, mask, s0, out_dtype):
     if spec is None:
         raise NotImplementedError(
             f"the CUDA scan kernel has no form of {type(model).__name__}; "
-            "it inlines SiliconMR, SiliconMRLiteral, MackeyGlass and MZISine "
-            "(the CMT cavity is ROADMAP Queue 1 item 11)")
+            "it inlines SiliconMR, SiliconMRLiteral, MackeyGlass, MZISine "
+            "and MRCavityCMT")
     model_id, params = spec()
+    if len(params) > MAX_PARAMS:
+        raise ValueError(f"the scan kernel takes at most {MAX_PARAMS} constants, "
+                         f"{type(model).__name__} gives {len(params)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the scan kernel emits float32 or bfloat16, not {out_dtype}")
     b, k_periods = j.shape
@@ -130,11 +137,12 @@ def _launch(model, j, mask, s0, out_dtype):
         mt = (mask.to(torch.float32).t() if per_lane else mask.to(torch.float32)).contiguous()
         fn = _build.load("dfr_scan").dfr_scan_launch
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        consts = (ctypes.c_float * len(params))(*params)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(jt.data_ptr(), mt.data_ptr(), int(per_lane), fin.data_ptr(),
                      out.data_ptr(), int(out_dtype == torch.bfloat16), b,
-                     k_periods, n_nodes, *layout, model_id, *params, stream)
+                     k_periods, n_nodes, *layout, model_id, consts, len(params), stream)
         _build.check(err, "dfr_scan")
         dfr_scan.launches += 1
     return out.permute(2, 0, 1).contiguous(), fin.t().to(j.dtype).contiguous()

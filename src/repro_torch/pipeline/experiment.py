@@ -29,9 +29,12 @@ device: it cannot reproduce ``jax.random``'s bits, so runs with sampled
 noise agree with the reference in distribution, and runs with
 ``state_noise_rel=0`` or diagonal noise agree to f32 round-off.
 
-Not ported in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item): composed topologies (item 10) and swept device
-parameters (``dev_params``; item 11).
+``Experiment.run(..., dev_params=...)`` sweeps the device's operating
+point over the batch lanes (``devices.cmt.CMTSweepParams``, leaves scalar
+or [B]) on the ``ref``/``fast`` state paths, materialized or streamed
+(``devices.sweep.run_device_sweep``).  Not ported yet: composed topologies
+(ROADMAP Queue 1 item 10; ``ExperimentConfig`` raises
+``NotImplementedError`` for one).
 """
 
 from __future__ import annotations
@@ -243,13 +246,19 @@ def _evaluate(cfg: ExperimentConfig, st_te: torch.Tensor, w_fit: torch.Tensor,
 
 
 def _gen_states(cfg: ExperimentConfig, mask, j, *, wdm: bool, s0=None,
-                return_final: bool = False, state_dtype=None):
+                return_final: bool = False, state_dtype=None, dev_params=None):
     """States of both workloads: ``mask`` [N] broadcast over B instances,
-    or with ``wdm=True`` per-lane masks [R, N], one channel per row."""
-    gen = generate_channel_states if wdm else generate_states
-    return gen(cfg.model, j, mask, s0=s0, method=cfg.state_method,
-               block_s=cfg.kernel_block_s, return_final=return_final,
-               state_dtype=state_dtype, device=j.device)
+    or with ``wdm=True`` per-lane masks [R, N], one channel per row.
+    ``dev_params`` rides the single-mask workload only."""
+    kw = dict(s0=s0, method=cfg.state_method, block_s=cfg.kernel_block_s,
+              return_final=return_final, state_dtype=state_dtype, device=j.device)
+    if wdm:
+        if dev_params is not None:
+            raise NotImplementedError(
+                "dev_params sweeps use the single-mask workload; per-channel "
+                "WDM masks with per-lane device parameters are not supported")
+        return generate_channel_states(cfg.model, j, mask, **kw)
+    return generate_states(cfg.model, j, mask, dev_params=dev_params, **kw)
 
 
 def _eval_streaming(cfg: ExperimentConfig, states_fn, j_te, te_tg3, w_fit, s0):
@@ -312,7 +321,7 @@ def _streaming_metrics(acc, t_test: int, *, channel_axis: bool):
 
 
 def _run_streaming(cfg: ExperimentConfig, mask, j_tr, tr_tg, j_te, te_tg, *,
-                   wdm: bool, shared: bool):
+                   wdm: bool, shared: bool, dev_params=None):
     """The streaming branch: chunked fit, then chunked evaluation."""
     dev = j_tr.device
     noise_rel = cfg.state_noise_rel if cfg.state_noise_mode == "diagonal" else 0.0
@@ -334,12 +343,15 @@ def _run_streaming(cfg: ExperimentConfig, mask, j_tr, tr_tg, j_te, te_tg, *,
             y_raw3, acc = _eval_streaming(cfg, eval_fn, j_te.T[None], te_tg3, w_fit,
                                           (s_1[None],))
     else:
-        fit = fit_ridge_streaming_wdm if wdm else fit_ridge_streaming
-        w_fit, lam_idx, s_carry = fit(cfg.model, mask, j_tr, tr_tg, **kw)
+        if wdm:
+            w_fit, lam_idx, s_carry = fit_ridge_streaming_wdm(cfg.model, mask, j_tr, tr_tg, **kw)
+        else:
+            w_fit, lam_idx, s_carry = fit_ridge_streaming(cfg.model, mask, j_tr, tr_tg,
+                                                          dev_params=dev_params, **kw)
 
         def eval_fn(j_c, s):
             return _gen_states(cfg, mask, j_c, wdm=wdm, s0=s, return_final=True,
-                               state_dtype=cfg._stream_state_dtype_arg)
+                               state_dtype=cfg._stream_state_dtype_arg, dev_params=dev_params)
 
         with stage("stream_eval", dev):
             y_raw3, acc = _eval_streaming(cfg, eval_fn, j_te, te_tg3, w_fit, s_carry)
@@ -352,23 +364,26 @@ def _run_streaming(cfg: ExperimentConfig, mask, j_tr, tr_tg, j_te, te_tg, *,
 
 
 def _run_pipeline(cfg: ExperimentConfig, mask, tr_in, tr_tg, te_in, te_tg, *,
-                  wdm: bool = False, shared: bool = False):
+                  wdm: bool = False, shared: bool = False, dev_params=None):
     """The whole experiment on the inputs' device.  Each stage is marked
     for ``stages.record_stages`` (the readout's marks are inside the fits).
 
     ``wdm=True``: the batch axis is R wavelength channels and ``mask`` a
     per-channel [R, N] stack.  ``shared=True`` (streaming WDM only): ONE
     readout over all channels' states, targets [1, K(, C)].
+    ``dev_params``: the per-lane device operating point (single mask).
     """
     dev = tr_in.device
     with stage("input_layer", dev):
         j_tr, j_te = _input_layer(cfg, tr_in, te_in)
     if cfg.stream_chunk_k is not None:
-        return _run_streaming(cfg, mask, j_tr, tr_tg, j_te, te_tg, wdm=wdm, shared=shared)
+        return _run_streaming(cfg, mask, j_tr, tr_tg, j_te, te_tg, wdm=wdm, shared=shared,
+                              dev_params=dev_params)
     with stage("states_train", dev):
-        st_tr, s_carry = _gen_states(cfg, mask, j_tr, wdm=wdm, return_final=True)
+        st_tr, s_carry = _gen_states(cfg, mask, j_tr, wdm=wdm, return_final=True,
+                                     dev_params=dev_params)
     with stage("states_test", dev):
-        st_te = _gen_states(cfg, mask, j_te, wdm=wdm, s0=s_carry)
+        st_te = _gen_states(cfg, mask, j_te, wdm=wdm, s0=s_carry, dev_params=dev_params)
     w = cfg.washout
     with stage("noise", dev):
         st_fit = _add_state_noise(cfg, st_tr[:, w:])
@@ -414,10 +429,10 @@ class Experiment:
 
         Inputs are [B, T] (or [T], B = 1); targets may carry a trailing
         channel axis ([B, T, C]).  Train and test lengths may differ.
+        ``dev_params`` sweeps the device's operating point over the batch
+        lanes (e.g. ``devices.cmt.CMTSweepParams``; leaves scalar or [B]),
+        on the ``ref``/``fast`` state paths.
         """
-        if dev_params is not None:
-            raise NotImplementedError(
-                "dev_params (swept device parameters) are ROADMAP Queue 1 item 11")
         tr_in = _canon_batch(inputs_train, "inputs_train", self.device)
         te_in = _canon_batch(inputs_test, "inputs_test", self.device)
         tr_tg = _canon_targets(targets_train, "targets_train", tr_in)
@@ -427,7 +442,20 @@ class Experiment:
             raise ValueError(
                 f"inconsistent batch shapes: train {tuple(tr_in.shape)}/"
                 f"{tuple(tr_tg.shape)}, test {tuple(te_in.shape)}/{tuple(te_tg.shape)}")
-        out = _run_pipeline(self.config, self.mask, tr_in, tr_tg, te_in, te_tg)
+        if dev_params is not None:
+            if self.config.state_method == "kernel":
+                raise ValueError(
+                    "dev_params rides the torch state paths; set state_method='fast' "
+                    "or 'ref' (the scan kernel takes the dataclass operating point)")
+            b = tr_in.shape[0]
+            for leaf in dev_params:
+                shape = tuple(np.shape(leaf))
+                if len(shape) > 1 or (len(shape) == 1 and shape[0] != b):
+                    raise ValueError(
+                        f"dev_params leaves must be scalars or [{b}] (one value per "
+                        f"batch lane), got shape {shape}")
+        out = _run_pipeline(self.config, self.mask, tr_in, tr_tg, te_in, te_tg,
+                            dev_params=dev_params)
         with stage("pack", self.device):
             return _pack_result(*out)
 

@@ -480,13 +480,14 @@ def fit_ridge_streaming(
     exponential forgetting per chunk, and λ = 1.0 is bitwise the
     un-decayed fit.
 
+    ``dev_params`` (e.g. a ``devices.cmt.CMTSweepParams`` with [B] leaves)
+    sweeps the device's operating point over the lanes; ``ref``/``fast``
+    state methods only (``generate_states`` rejects it on the kernel path).
+
     Returns ``(w [B, N + 1, C], lam_idx [B], s_end [B, N])``, ``s_end`` the
     state after period K - 1 (see ``_fit_streaming_core``).  Runs on
     ``device`` (default ``cuda``).
     """
-    if dev_params is not None:
-        raise NotImplementedError(
-            "dev_params (swept device parameters) are ROADMAP Queue 1 item 11")
     dev = resolve_device(device)
     j, y = _canon_stream(j, targets, dev)
     mask = torch.as_tensor(mask, device=dev).to(torch.float32)
@@ -494,7 +495,7 @@ def fit_ridge_streaming(
     def states_fn(j_c, s):
         return generate_states(model, j_c, mask, s0=s, method=state_method,
                                block_s=block_s, return_final=True,
-                               state_dtype=state_dtype, device=dev)
+                               state_dtype=state_dtype, dev_params=dev_params, device=dev)
 
     return _fit_streaming_core(
         states_fn, int(mask.shape[-1]), j, y, washout=washout, chunk_k=chunk_k,

@@ -11,6 +11,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import MZISine as JMZI
 from repro.core import MackeyGlass as JMG
@@ -19,12 +20,15 @@ from repro.core import SiliconMRLiteral as JLit
 from repro.core import generate_states as jgenerate_states
 from repro.core import make_mask as jmake_mask
 from repro.core import tasks as jtasks
+from repro.devices import CMTSweepParams as JSweepParams
+from repro.devices import calibrated_twin as jcalibrated_twin
 from repro.pipeline import Experiment as JExperiment
 from repro.pipeline import ExperimentConfig as JConfig
 from repro.pipeline import apply_readout as japply_readout
 from repro.pipeline import fit_ridge_batched as jfit_ridge_batched
 from repro_torch import convert
 from repro_torch.core import MackeyGlass, MZISine, SiliconMR, SiliconMRLiteral, generate_states
+from repro_torch.devices import CMTSweepParams, calibrated_twin
 from repro_torch.pipeline import Experiment, apply_readout
 
 
@@ -37,13 +41,37 @@ def test_model_from_reference(ref, port):
     assert convert.model_from_reference(ref) == port
 
 
+def test_model_from_reference_carries_the_cmt_cavity():
+    """A reference MRCavityCMT converts (the devices package registers the
+    port's class) and ticks as the reference's to 1e-6."""
+    ref = jcalibrated_twin(JMR(), power_mw=1.0, detune=0.4, n_substeps=3)
+    port = convert.model_from_reference(ref)
+    assert port == calibrated_twin(SiliconMR(), power_mw=1.0, detune=0.4, n_substeps=3)
+    rng = np.random.default_rng(5)
+    u, s_tau, s_pn = (rng.uniform(0, 1, (64,)).astype(np.float32) for _ in range(3))
+    got = port.node_update(*(torch.as_tensor(a) for a in (u, s_tau, s_pn)))
+    want = ref.node_update(*(jnp.asarray(a) for a in (u, s_tau, s_pn)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+
+
+def test_dev_params_from_reference():
+    ref = JSweepParams(detune=jnp.asarray([0.0, 0.5], jnp.float32), loss_scale=1.25,
+                       power=np.asarray([1.0, 2.0]))
+    port = convert.dev_params_from_reference(ref, device="cpu")
+    assert isinstance(port, CMTSweepParams)
+    for a, b in zip(port, ref):
+        assert a.dtype == torch.float32 and np.array_equal(a.numpy(), np.asarray(b, np.float32))
+    with pytest.raises(TypeError, match="lacks"):
+        convert.dev_params_from_reference((1.0,), device="cpu")
+
+
 def test_model_from_reference_rejects_unported_models():
     @dataclasses.dataclass(frozen=True)
-    class MRCavityCMT:
+    class UnportedCavity:
         q: float = 1.0
 
     with pytest.raises(TypeError, match="no port"):
-        convert.model_from_reference(MRCavityCMT())
+        convert.model_from_reference(UnportedCavity())
 
 
 def test_config_from_reference_carries_every_field():

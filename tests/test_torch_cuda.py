@@ -144,6 +144,46 @@ def test_scan_kernel_bf16_states_and_per_lane_masks(dev):
                                rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("per_lane", [False, True], ids=["broadcast", "per_lane"])
+@pytest.mark.parametrize("m", [1, 4])
+def test_scan_kernel_cmt_form_matches_plain(dev, per_lane, m):
+    """K1's CMT form (any substep count) against its plain version within
+    1e-5 (expf/expm1f against torch's exp/expm1), one launch a call, bf16
+    states the f32 states rounded and chunk resume bitwise."""
+    from repro_torch.devices import calibrated_twin
+
+    model = calibrated_twin(SiliconMR(), power_mw=1.0, n_substeps=m)
+    j, s0 = _scan_inputs(dev, b=37, k=6, n=45)
+    mask = (torch.stack([make_mask(45, seed=s, device=dev) for s in range(37)]) if per_lane
+            else make_mask(45, device=dev))
+    before = scan_ops.dfr_scan.launches
+    out, fin = scan_ops.dfr_scan(model, j, mask, s0, return_final=True)
+    assert scan_ops.dfr_scan.launches == before + 1
+    ref, ref_fin = scan_ops.dfr_scan_plain(model, j, mask, s0)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(fin, ref_fin, rtol=0, atol=1e-5)
+    out16 = scan_ops.dfr_scan(model, j, mask, s0, out_dtype=torch.bfloat16)
+    assert torch.equal(out16, out.to(torch.bfloat16))
+    a, f1 = scan_ops.dfr_scan(model, j[:, :2], mask, s0, return_final=True)
+    b, f2 = scan_ops.dfr_scan(model, j[:, 2:], mask, f1, return_final=True)
+    assert torch.equal(torch.cat([a, b], dim=1), out) and torch.equal(f2, fin)
+
+
+def test_swept_fast_path_on_the_card_matches_the_cpu(dev):
+    """dev_params on the card's ``fast`` path: the same eager ops as on the
+    CPU, within 1e-5 (libm exp/expm1 of the two devices)."""
+    from repro_torch.core import generate_states
+    from repro_torch.devices import SweepGrid, calibrated_twin
+
+    model = calibrated_twin(SiliconMR())
+    grid = SweepGrid(detune=(-1.0, 0.5), loss_scale=(1.0, 1.5), power=(0.0, 2.0))
+    j = np.random.default_rng(2).uniform(0, 1, (grid.size, 7)).astype(np.float32)
+    mask = make_mask(16, seed=3)
+    got = generate_states(model, j, mask, method="fast", dev_params=grid.lanes(), device=dev)
+    want = generate_states(model, j, mask, method="fast", dev_params=grid.lanes(), device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gram_kernel_matches_plain(dev, dtype):
     rng = np.random.default_rng(5)

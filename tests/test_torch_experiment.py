@@ -145,7 +145,7 @@ def test_config_raises_for_unported_and_invalid_settings(monkeypatch):
     assert ExperimentConfig(ridge_l2=1e-3).ridge_l2 == (1e-3,)
     assert ExperimentConfig(ridge_l2=[1e-3, 1e-2]).ridge_l2 == (1e-3, 1e-2)
     exp = Experiment(ExperimentConfig(n_nodes=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="swept device parameters"):
         exp.run(np.zeros(10), np.zeros(10), np.zeros(10), np.zeros(10), dev_params={})
     with pytest.raises(ValueError, match="inconsistent"):
         exp.run(np.zeros((2, 10)), np.zeros((2, 10)), np.zeros((3, 10)), np.zeros((3, 10)))

@@ -79,7 +79,7 @@ def test_series_input_state_dtype_and_default_s0():
 def test_unported_options_and_bad_arguments_raise(monkeypatch):
     j, _, mask = _inputs()
     jt = torch.as_tensor(j)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="swept device parameters"):
         generate_states(SiliconMR(), jt, mask, dev_params={"x": 1.0}, device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
         generate_states(SiliconMR(), jt, mask, method="pallas", device="cpu")

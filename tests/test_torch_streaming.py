@@ -154,7 +154,7 @@ def test_fit_ridge_streaming_rejects_bad_arguments():
     with pytest.raises(ValueError, match="do not match"):
         fit_ridge_streaming(SiliconMR(), mask, j, torch.zeros((2, 31)), washout=4,
                             chunk_k=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="kernel"):   # the default state_method
         fit_ridge_streaming(SiliconMR(), mask, j, torch.zeros((2, 30)), washout=4,
                             chunk_k=16, dev_params={"q": 1.0}, device="cpu")
 
