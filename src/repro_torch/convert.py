@@ -16,6 +16,7 @@ import torch
 
 from . import devices
 from .core.accelerator import DFRCConfig
+from .core.graph import ReservoirGraph, ReservoirStage
 from .core.nonlinear import MODEL_REGISTRY
 from .device import resolve_device
 from .pipeline.experiment import ExperimentConfig
@@ -43,11 +44,30 @@ def _config_from_reference(cfg, cls):
         raise TypeError(f"expected a reference {cls.__name__}, got {type(cfg).__name__}")
     fields = _init_fields(cfg)
     fields["model"] = model_from_reference(fields["model"])
+    if fields.get("topology") is not None:
+        fields["topology"] = graph_from_reference(fields["topology"])
     return cls(**fields)
 
 
+def graph_from_reference(obj) -> ReservoirGraph:
+    """The port's ReservoirGraph of a reference ReservoirGraph (or of one
+    ReservoirStage, as a one-stage graph): the same stages, each stage's
+    model through ``model_from_reference``."""
+    def stage(st):
+        if type(st).__name__ != "ReservoirStage" or not dataclasses.is_dataclass(st):
+            raise TypeError(f"expected a reference ReservoirStage, got {type(st).__name__}")
+        fields = _init_fields(st)
+        fields["model"] = model_from_reference(fields["model"])
+        return ReservoirStage(**fields)
+
+    if type(obj).__name__ == "ReservoirGraph":
+        return ReservoirGraph(stages=tuple(stage(st) for st in obj.stages))
+    return ReservoirGraph(stages=(stage(obj),))
+
+
 def config_from_reference(cfg) -> ExperimentConfig:
-    """The port's ExperimentConfig with every field of the reference's."""
+    """The port's ExperimentConfig with every field of the reference's (a
+    topology's stages carried across by ``graph_from_reference``)."""
     return _config_from_reference(cfg, ExperimentConfig)
 
 

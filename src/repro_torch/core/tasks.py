@@ -1,9 +1,10 @@
 """Benchmark task datasets (paper Section V) — port of ``repro/core/tasks.py``.
 
 A numpy-only copy: the reference module is numpy too, but importing it goes
-through ``repro/core/__init__.py``, which pulls in jax.  The generators are
-the reference's line for line, so the same seeds give bitwise-equal
-datasets (NARMA10's deterministic redraw on divergence included).
+through ``repro/core/__init__.py``, which pulls in jax.  The generators run
+the reference's float64 ops (Santa Fe's batched over seeds), so the same
+seeds give bitwise-equal datasets (NARMA10's deterministic redraw on
+divergence included).
 
 * NARMA10 — Eq. (10); inputs i(k) ~ U[0, 0.5].  2000 samples: 1000 train /
   1000 test, as in the paper.
@@ -98,18 +99,31 @@ def santa_fe(n_samples: int = 6000, *, train_frac: float = 4000 / 6000, seed: in
     the chaotic spiking regime of the NH3 laser model.  RK4, subsampled, then
     scaled to 8-bit counts (0..255) like the original recording.
     """
-    rng = np.random.default_rng(seed)
+    i_tr, y_tr, i_te, y_te = (x[0] for x in santa_fe_seeds(n_samples, [seed],
+                                                           train_frac=train_frac))
+    return Dataset(i_tr, y_tr, i_te, y_te, name="santa_fe")
+
+
+def santa_fe_seeds(n_samples: int, seeds, *, train_frac: float = 4000 / 6000):
+    """:func:`santa_fe` of every seed in ``seeds`` at once: the reference's
+    float64 RK4 ops on a [3, S] state stack (a column a seed, each seeded by
+    ``default_rng(seed)``), so the host loop runs once, not S times; every
+    column is bitwise the reference's one-seed series.  Returns the
+    (inputs_train, targets_train, inputs_test, targets_test) of the stacked
+    seeds, each [S, T]."""
     sigma, r, b = 2.0, 15.0, 0.25
     dt, sub = 0.04, 12
     warm = 2000
-    state = np.array([1.0, 1.0, 1.0]) + 0.1 * rng.standard_normal(3)
+    state = np.stack([np.array([1.0, 1.0, 1.0])
+                      + 0.1 * np.random.default_rng(s).standard_normal(3) for s in seeds],
+                     axis=1)
 
     def deriv(s):
         x, y, z = s
         return np.array([sigma * (y - x), (r - z) * x - y, x * y - b * z])
 
     total = warm + n_samples + 1
-    out = np.empty(total)
+    out = np.empty((total, state.shape[1]))
     for k in range(total):
         for _ in range(sub):
             k1 = deriv(state)
@@ -119,10 +133,10 @@ def santa_fe(n_samples: int = 6000, *, train_frac: float = 4000 / 6000, seed: in
             state = state + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
         out[k] = state[0] ** 2
     out = out[warm:]
-    out = np.round(255.0 * (out - out.min()) / (np.ptp(out) + 1e-12))
-    i, y = out[:-1], out[1:]  # predict one step ahead
+    out = np.round(255.0 * (out - out.min(axis=0)) / (np.ptp(out, axis=0) + 1e-12)).T
+    i, y = out[:, :-1], out[:, 1:]
     split = int(n_samples * train_frac)
-    return Dataset(i[:split], y[:split], i[split:], y[split:], name="santa_fe")
+    return i[:, :split], y[:, :split], i[:, split:], y[:, split:]
 
 
 SYMBOLS = np.array([-3.0, -1.0, 1.0, 3.0])

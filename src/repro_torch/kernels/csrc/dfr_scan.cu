@@ -480,7 +480,8 @@ int dispatch(int model_id, const float* j, const float* mask, int per_lane, floa
 // values between two clock64() reads.  Form 0 is SiliconMR's chain step as
 // chain<MR> computes it; form 1 one dependent __fadd_rn, the latency of one
 // f32 op (the least a SiliconMR step can take is three: mul, add, select);
-// form 2 the CMT cavity's chain step as chain<CMT> computes it.
+// form 2 the CMT cavity's chain step as chain<CMT> computes it; form 3
+// MackeyGlass's (mul, add) as chain<MG> computes it.
 constexpr int kProbeUnroll = 8;
 
 template <int V>
@@ -506,7 +507,13 @@ __global__ void chain_probe_kernel(const float* in, float* out, long long* cycle
     for (int n = 0; n < steps; n += kProbeUnroll) {
 #pragma unroll
       for (int c = 0; c < kProbeUnroll; ++c) {
-        s = V == 0 ? chain<MR>(f[c], s, p) : __fadd_rn(s, f[c].a);
+        if constexpr (V == 0) {
+          s = chain<MR>(f[c], s, p);
+        } else if constexpr (V == 3) {
+          s = chain<MG>(f[c], s, p);
+        } else {
+          s = __fadd_rn(s, f[c].a);
+        }
       }
     }
   }
@@ -547,11 +554,12 @@ extern "C" int dfr_scan_launch(const void* j, const void* mask, int per_lane, vo
 }
 
 // in (on the card, f32): 8 inputs u, 8 chain-free values (SiliconMR's
-// alpha * drive, the CMT drive), s0, then the 16 constants of Params
-// (SiliconMR's alpha first; the CMT form's kernel_spec()); out[0] the last
-// state; cycles[0] the clock64() cycles of `steps` (a multiple of 8) steps
-// of chain form `form` (0 SiliconMR's step, 1 one f32 add, 2 the CMT step),
-// one thread.
+// alpha * drive, the CMT drive, MackeyGlass's (1 - c) * drive), s0, then
+// the 16 constants of Params (SiliconMR's alpha first; the CMT and
+// MackeyGlass forms' kernel_spec()); out[0] the last state; cycles[0] the
+// clock64() cycles of `steps` (a multiple of 8) steps of chain form `form`
+// (0 SiliconMR's step, 1 one f32 add, 2 the CMT step, 3 MackeyGlass's
+// step), one thread.
 extern "C" int dfr_scan_chain_probe(int form, const void* in, void* out, void* cycles, int steps,
                                     void* stream) {
   const auto* x = static_cast<const float*>(in);
@@ -564,6 +572,8 @@ extern "C" int dfr_scan_chain_probe(int form, const void* in, void* out, void* c
     chain_probe_kernel<1><<<1, 1, 0, s>>>(x, o, c, steps);
   } else if (form == 2) {
     chain_probe_kernel<2><<<1, 1, 0, s>>>(x, o, c, steps);
+  } else if (form == 3) {
+    chain_probe_kernel<3><<<1, 1, 0, s>>>(x, o, c, steps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,13 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.time_fast [--device cpu] [--reps 3]
 
-Cells, at the paper's operating points (``dfrc_tasks()`` of the JAX
-package, ``src/repro/configs/__init__.py:159``): NARMA10 on SiliconMR
-(N = 900, 2000 samples) and channel equalisation on MackeyGlass (N = 400,
-mask levels ±1, quantized, 9000 symbols at 24 dB), each an ``Experiment``
-with ``state_method="fast"`` (the ``DFRCConfig`` default) and the five-λ
-grid.  Prints one JSON line a cell: host seconds of each run (ending in a
-device synchronise on ``cuda``), the metric, and the device.
+Cells, at the paper's operating points (``repro_torch.configs.dfrc_tasks()``):
+NARMA10 on SiliconMR (N = 900, 2000 samples) and channel equalisation on
+MackeyGlass (N = 400, mask levels ±1, quantized, 9000 symbols at 24 dB),
+each an ``Experiment`` of ``ExperimentConfig.from_dfrc`` (``state_method=
+"fast"``, the ``DFRCConfig`` default, and the five-λ grid).  Prints one
+JSON line a cell: host seconds of each run (ending in a device synchronise
+on ``cuda``), the metric, and the device.
 """
 
 from __future__ import annotations
@@ -19,22 +19,20 @@ import time
 
 import torch
 
-from ..core import MackeyGlass, SiliconMR, tasks
+from ..configs import dfrc_tasks
+from ..core import tasks
 from ..device import resolve_device
 from ..pipeline import Experiment, ExperimentConfig
-
-LAMS = (1e-10, 1e-8, 1e-6, 1e-4, 1e-2)
 
 
 def cells():
     """(name, config, dataset) of each timed cell."""
+    points = dfrc_tasks()
     return (
-        ("narma10 Silicon MR", ExperimentConfig(model=SiliconMR(), n_nodes=900, washout=60,
-                                                ridge_l2=LAMS),
+        ("narma10 Silicon MR", ExperimentConfig.from_dfrc(points["narma10"]["Silicon MR"]),
          tasks.narma10(2000, seed=0)),
         ("channel_eq Electronic (MG)",
-         ExperimentConfig(model=MackeyGlass(), n_nodes=400, mask_levels=(-1.0, 1.0), washout=60,
-                          ridge_l2=LAMS, quantize=True),
+         ExperimentConfig.from_dfrc(points["channel_eq"]["Electronic (MG)"]),
          tasks.channel_equalization(9000, seed=0)),
     )
 

@@ -32,9 +32,9 @@ noise agree with the reference in distribution, and runs with
 ``Experiment.run(..., dev_params=...)`` sweeps the device's operating
 point over the batch lanes (``devices.cmt.CMTSweepParams``, leaves scalar
 or [B]) on the ``ref``/``fast`` state paths, materialized or streamed
-(``devices.sweep.run_device_sweep``).  Not ported yet: composed topologies
-(ROADMAP Queue 1 item 10; ``ExperimentConfig`` raises
-``NotImplementedError`` for one).
+(``devices.sweep.run_device_sweep``).  ``ExperimentConfig.topology``
+replaces the single delay loop with a composed reservoir graph
+(``core.graph``, DESIGN.md §13), streamed only.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.graph import ReservoirGraph, ReservoirStage, build_stage_masks
 from ..core.masking import make_mask, sample_and_hold
 from ..core.metrics import VAR_EPS
 from ..core.nonlinear import NLModel, SiliconMR
@@ -51,7 +52,8 @@ from ..core.reservoir import generate_channel_states, generate_states
 from ..core.tasks import SYMBOLS
 from ..device import resolve_device
 from .ridge import (_chunk_axis, _row_mask, _shared_chunk_states_fn, apply_readout,
-                    fit_ridge_batched, fit_ridge_streaming, fit_ridge_streaming_shared,
+                    composed_chunk_states_fn, fit_ridge_batched, fit_ridge_streaming,
+                    fit_ridge_streaming_composed, fit_ridge_streaming_shared,
                     fit_ridge_streaming_wdm, with_bias)
 from .stages import stage
 
@@ -100,14 +102,28 @@ class ExperimentConfig:
     #     the CUDA Gram kernel's result does not depend on it.
     kernel_block_s: int | None = None
     readout_block_t: int = 512
-    topology: object | None = None         # ROADMAP Queue 1 item 10
+    # A composed reservoir graph (``core.graph.ReservoirGraph``, or one
+    # ``ReservoirStage``, lifted to a one-stage graph) in place of the single
+    # delay loop: the readout sees every stage's nodes (topology.width).
+    # Streaming only (set ``stream_chunk_k``): the stage chain runs chunk by
+    # chunk.  ``n_nodes``/``mask_seed``/``mask_levels`` give way to the
+    # stages' own; a depth-1, loops-1 topology is the single-loop fit, bit
+    # for bit.
+    topology: ReservoirGraph | None = None
 
     def __post_init__(self):
         if not isinstance(self.ridge_l2, tuple):
             object.__setattr__(self, "ridge_l2", _as_tuple(self.ridge_l2))
+        if isinstance(self.topology, ReservoirStage):
+            object.__setattr__(self, "topology", ReservoirGraph(stages=(self.topology,)))
         if self.topology is not None:
-            raise NotImplementedError(
-                "composed reservoir topologies are ROADMAP Queue 1 item 10")
+            if not isinstance(self.topology, ReservoirGraph):
+                raise TypeError(f"topology must be a ReservoirGraph or ReservoirStage, "
+                                f"got {self.topology!r}")
+            if self.stream_chunk_k is None:
+                raise ValueError(
+                    "a composed topology runs streaming-only (per-chunk stage "
+                    "chaining is its memory contract); set stream_chunk_k")
         if self.state_noise_mode not in ("sampled", "diagonal"):
             raise ValueError(f"unknown state_noise_mode {self.state_noise_mode!r}")
         if self.stream_state_dtype not in ("float32", "bfloat16"):
@@ -330,7 +346,17 @@ def _run_streaming(cfg: ExperimentConfig, mask, j_tr, tr_tg, j_te, te_tg, *,
               use_kernel=cfg.readout_use_kernel, block_t=cfg.readout_block_t,
               state_dtype=cfg._stream_state_dtype_arg, noise_rel=noise_rel, device=dev)
     te_tg3 = te_tg[..., None] if te_tg.ndim == 2 else te_tg
-    if shared:
+    if cfg.topology is not None:
+        # the stage chain: fit and evaluation build their per-chunk state
+        # producer with one function, so test states run the fit's ops
+        w_fit, lam_idx, s_carry = fit_ridge_streaming_composed(cfg.topology, mask, j_tr,
+                                                               tr_tg, **kw)
+        eval_fn = composed_chunk_states_fn(cfg.topology, mask, state_method=cfg.state_method,
+                                           block_s=cfg.kernel_block_s,
+                                           state_dtype=cfg._stream_state_dtype_arg, device=dev)
+        with stage("stream_eval", dev):
+            y_raw3, acc = _eval_streaming(cfg, eval_fn, j_te, te_tg3, w_fit, s_carry)
+    elif shared:
         # one [R·N + 1] readout; the channel axis rides the chunk loop as a
         # trailing input dim (B = 1 for the Gram)
         w_1, lam_1, s_1 = fit_ridge_streaming_shared(cfg.model, mask, j_tr, tr_tg[0], **kw)
@@ -372,6 +398,7 @@ def _run_pipeline(cfg: ExperimentConfig, mask, tr_in, tr_tg, te_in, te_tg, *,
     per-channel [R, N] stack.  ``shared=True`` (streaming WDM only): ONE
     readout over all channels' states, targets [1, K(, C)].
     ``dev_params``: the per-lane device operating point (single mask).
+    With ``cfg.topology``, ``mask`` is the tuple of per-stage mask stacks.
     """
     dev = tr_in.device
     with stage("input_layer", dev):
@@ -414,14 +441,18 @@ class Experiment:
     >>> res = exp.run(tr_in, tr_tg, te_in, te_tg)   # arrays [B, T] (or [T])
     >>> res.nrmse                                    # [B]
 
-    Runs on ``device`` (default ``cuda``; ``"cpu"`` on request).
+    Runs on ``device`` (default ``cuda``; ``"cpu"`` on request).  With
+    ``config.topology`` the mask is the tuple of per-stage [L, N] stacks.
     """
 
     def __init__(self, config: ExperimentConfig, *, device=None):
         self.config = config
         self.device = resolve_device(device)
-        self.mask = make_mask(config.n_nodes, levels=config.mask_levels,
-                              seed=config.mask_seed, device=self.device)
+        if config.topology is not None:
+            self.mask = build_stage_masks(config.topology, device=self.device)
+        else:
+            self.mask = make_mask(config.n_nodes, levels=config.mask_levels,
+                                  seed=config.mask_seed, device=self.device)
 
     def run(self, inputs_train, targets_train, inputs_test, targets_test,
             *, dev_params=None) -> ExperimentResult:
@@ -443,6 +474,10 @@ class Experiment:
                 f"inconsistent batch shapes: train {tuple(tr_in.shape)}/"
                 f"{tuple(tr_tg.shape)}, test {tuple(te_in.shape)}/{tuple(te_tg.shape)}")
         if dev_params is not None:
+            if self.config.topology is not None:
+                raise ValueError(
+                    "dev_params with a composed topology is not supported; "
+                    "sweep the single-loop workload")
             if self.config.state_method == "kernel":
                 raise ValueError(
                     "dev_params rides the torch state paths; set state_method='fast' "
@@ -502,8 +537,11 @@ class WDMExperiment:
     pass ``masks`` [R, N] to override.  ``shared_readout=True`` (streaming
     only) trains ONE [R·N + 1] readout over the concatenation of every
     channel's states against ONE target stream ([K] or [K, C]; inputs stay
-    [R, K]); results are then ensemble-level (B = 1).  Runs on ``device``
-    (default ``cuda``).
+    [R, K]); results are then ensemble-level (B = 1).  ``config.topology``
+    (a composed graph per channel) builds per-stage [R, L, N] mask stacks,
+    channel r and loop l seeded ``mask_seed + r·L + l``, and runs the
+    composed streaming fit with the channels as instances.  Runs on
+    ``device`` (default ``cuda``).
     """
 
     def __init__(self, config: ExperimentConfig, n_channels: int, *, masks=None,
@@ -518,6 +556,17 @@ class WDMExperiment:
             raise ValueError(
                 "shared_readout accumulates ONE cross-channel Gram on the "
                 "streaming path; set stream_chunk_k")
+        if shared_readout and config.topology is not None:
+            raise ValueError(
+                "shared_readout with a composed topology is not supported; "
+                "pick one readout generalisation per run")
+        if config.topology is not None:
+            if masks is not None:
+                raise ValueError("with config.topology the per-stage mask stacks "
+                                 "are derived; masks= is not accepted")
+            self.masks = build_stage_masks(config.topology, channels=n_channels,
+                                           device=self.device)
+            return
         if masks is None:
             masks = torch.stack([
                 make_mask(config.n_nodes, levels=config.mask_levels,

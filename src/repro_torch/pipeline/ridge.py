@@ -23,8 +23,10 @@ padding rows to zero, appends the bias column and folds the chunk into
 running per-instance f32 stacks G [B, F, F] and c [B, F, C] — in place,
 through the accumulate-into Gram kernel (``use_kernel=True``) or a plain
 matmul.  The reference's ``lax.scan`` becomes that loop: chunk offsets are
-host ints, and the loop reads nothing back from the device.  Composed
-topologies (``fit_ridge_streaming_composed``) are ROADMAP Queue 1 item 10.
+host ints, and the loop reads nothing back from the device.
+``fit_ridge_streaming_composed`` runs a composed reservoir graph
+(``core.graph``, DESIGN.md §13) through the same loop: every stage over the
+chunk, the carry a tuple of per-stage [B, L, N] tensors.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import dataclasses
 
 import torch
 
+from ..core.graph import ReservoirGraph, _chain_fn
 from ..core.reservoir import generate_channel_states, generate_states
 from ..device import resolve_device
 from .stages import stage
@@ -620,3 +623,68 @@ def fit_ridge_streaming_shared(
         s0=None if s0 is None else (torch.as_tensor(s0, device=dev)[None],),
         forgetting=forgetting, carry_layout=((r, n_nodes),))
     return w[0], idx[0], s_end[0][0]
+
+
+def composed_chunk_states_fn(graph: ReservoirGraph, masks, *, state_method: str = "kernel",
+                             block_s: int | None = None, state_dtype=None, device=None):
+    """The per-chunk state producer of a reservoir graph (DESIGN.md §13):
+    ``states_fn(j_chunk [B, chunk], carries) -> (features [B, chunk,
+    graph.width], carries')`` with ``carries`` a tuple of per-stage
+    [B, L, N_s] f32 tensors (``graph.carry_layout``).  Each stage runs over
+    the chunk (its loops folded into lanes: one scan-kernel launch a stage),
+    its linked drive feeds the next stage within the same chunk, and only
+    chunk-sized feature blocks exist.  The composed streaming fit and the
+    composed streamed evaluation both build theirs here, so test states run
+    the ops the Gram saw."""
+    masks = tuple(masks)
+    if len(masks) != graph.depth:
+        raise ValueError(f"expected {graph.depth} stage mask stacks, got {len(masks)}")
+    return _chain_fn(graph, masks, method=state_method, block_s=block_s,
+                     state_dtype=state_dtype, device=resolve_device(device))
+
+
+def fit_ridge_streaming_composed(
+    graph: ReservoirGraph,
+    masks,                 # per-stage [L, N] / [B, L, N] mask stacks
+    j,                     # [B, K] stage 0's sample-and-held input stream
+    targets,               # [B, K] or [B, K, C]
+    *,
+    washout: int,
+    chunk_k: int,
+    lambdas: tuple[float, ...] = (1e-6,),
+    state_method: str = "kernel",
+    block_s: int | None = None,
+    use_kernel: bool = True,
+    block_t: int = 512,
+    noise_rel: float = 0.0,
+    state_dtype=None,
+    s0=None,               # per-stage [B, L, N] carries
+    forgetting: float = 1.0,
+    device=None,
+):
+    """Streaming readout fit over a composed reservoir graph (DESIGN.md §13).
+
+    ``fit_ridge_streaming``'s chunk loop with the whole stage chain as the
+    state producer: each chunk runs every stage (stage k + 1 driven by
+    stage k's linked output), folds the concatenated [B, chunk,
+    graph.width] features into the per-instance Gram stacks (K3 with
+    ``use_kernel=True``), and carries the per-stage states as a tuple, so
+    the chain resumes bit-exactly at any chunk split.  Peak live state
+    memory is O(B·chunk·width).  A depth-1, loops-1 graph is
+    ``fit_ridge_streaming`` bit for bit (``w``, ``lam_idx``; the carry
+    gains the [B, 1, N] stage axis).  Every knob as ``fit_ridge_streaming``.
+
+    Returns ``(w [B, F, C], lam_idx [B], s_end)`` with F = graph.width + 1
+    and ``s_end`` the per-stage carry tuple after period K - 1: the train ->
+    test carry of the composed evaluation, or ``s0`` of a resumed fit.
+    Runs on ``device`` (default ``cuda``).
+    """
+    dev = resolve_device(device)
+    j, y = _canon_stream(j, targets, dev)
+    states_fn = composed_chunk_states_fn(graph, masks, state_method=state_method,
+                                         block_s=block_s, state_dtype=state_dtype, device=dev)
+    return _fit_streaming_core(
+        states_fn, graph.width, j, y, washout=washout, chunk_k=chunk_k, lambdas=lambdas,
+        use_kernel=use_kernel, block_t=block_t, noise_rel=noise_rel,
+        s0=None if s0 is None else tuple(s0), forgetting=forgetting,
+        carry_layout=graph.carry_layout)

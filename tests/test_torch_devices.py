@@ -279,10 +279,9 @@ def test_dev_params_rejected_on_kernel_path():
 
 
 def test_experiment_dev_params_validation():
-    """The reference's checks: the kernel state path and a leaf that is
-    neither scalar nor [B] raise ValueError; a topology raises at config
-    time in the port (composed graphs are not ported), before any run; the
-    WDM workload raises NotImplementedError."""
+    """The reference's checks: the kernel state path, a composed topology
+    and a leaf that is neither scalar nor [B] raise ValueError; the WDM
+    workload raises NotImplementedError."""
     ds = tasks.narma10(200, seed=0)
     base = dict(model=CMT_HOT, n_nodes=N, washout=20, state_noise_rel=0.0)
     args = (ds.inputs_train[None, :], ds.targets_train[None, :],
@@ -292,10 +291,12 @@ def test_experiment_dev_params_validation():
         Experiment(ExperimentConfig(state_method="kernel", **base), device="cpu").run(
             *args, dev_params=p0)
     from repro.core.graph import ReservoirStage, chain
+    from repro_torch.convert import graph_from_reference
 
-    topo = chain(ReservoirStage(model=J_HOT, n_nodes=N, mask_seed=3))
-    with pytest.raises(NotImplementedError, match="topolog"):
-        ExperimentConfig(topology=topo, stream_chunk_k=16, **base)
+    topo = graph_from_reference(chain(ReservoirStage(model=J_HOT, n_nodes=N, mask_seed=3)))
+    with pytest.raises(ValueError, match="topology"):
+        Experiment(ExperimentConfig(topology=topo, stream_chunk_k=16, **base),
+                   device="cpu").run(*args, dev_params=p0)
     bad = CMTSweepParams(detune=torch.zeros((2,)), loss_scale=1.0, power=0.0)
     with pytest.raises(ValueError, match="batch lane"):
         Experiment(ExperimentConfig(**base), device="cpu").run(*args, dev_params=bad)
@@ -409,13 +410,15 @@ def _cmt_main_reference(cs, perturb: float = 0.0):
         batch[0] = (batch[0] * (1 + rng.uniform(-perturb, perturb, batch[0].shape))
                     ).astype(np.float32)
     model = jcalibrated_twin(JMR(), power_mw=cs.CMT_POWER_MW)
-    cfg = JConfig(model=model, n_nodes=cs.N_MAIN, washout=cs.WASHOUT, ridge_l2=cs.LAMS,
-                  state_noise_rel=0.0, state_method="fast", readout_use_kernel=True)
+    point = cs.main_point()
+    cfg = JConfig(model=model, n_nodes=point.n_nodes, washout=point.washout,
+                  ridge_l2=point.ridge_l2, state_noise_rel=0.0, state_method="fast",
+                  readout_use_kernel=True)
     res = JExperiment(cfg).run(*batch)
     tr, te = jnp.asarray(batch[0], jnp.float32), jnp.asarray(batch[2], jnp.float32)
     lo = jnp.min(tr, axis=1, keepdims=True)
     scale = 1.0 / (jnp.max(tr, axis=1, keepdims=True) - lo + 1e-12)
-    mask = jmake_mask(cs.N_MAIN, seed=cfg.mask_seed)
+    mask = jmake_mask(cfg.n_nodes, seed=cfg.mask_seed)
     st_tr, fin = jgenerate_states(model, jsample_and_hold((tr - lo) * scale), mask,
                                   method="fast", return_final=True)
     st_te = jgenerate_states(model, jsample_and_hold((te - lo) * scale), mask, s0=fin,
@@ -433,7 +436,7 @@ def test_chip_smoke_cmt_nrmse_comes_from_the_reference():
     assert res.nrmse.tolist() == pytest.approx(list(cs.CMT_REF_NRMSE), abs=1e-9)
     assert np.allclose(res.lam, cs.CMT_REF_LAM, rtol=1e-6)
     f64 = cs.ridge64_nrmse(st_tr, batch[1], st_te, batch[3], lam=cs.CMT_REF_LAM,
-                           washout=cs.WASHOUT)
+                           washout=cs.main_point().washout)
     assert f64 == pytest.approx(list(cs.CMT_REF_NRMSE_F64), abs=1e-9)
 
 
@@ -492,7 +495,7 @@ def test_f32_readout_spread_is_the_references_own(cell):
         res, batch, st_tr, st_te = _cmt_main_reference(cs, perturb=2e-7)
         moved = np.abs(res.nrmse - np.asarray(cs.CMT_REF_NRMSE))
         f64 = cs.ridge64_nrmse(st_tr, batch[1], st_te, batch[3], lam=cs.CMT_REF_LAM,
-                               washout=cs.WASHOUT)
+                               washout=cs.main_point().washout)
         f64_moved = np.abs(np.asarray(f64) - np.asarray(cs.CMT_REF_NRMSE_F64))
         tol = cs.CMT_NRMSE_TOL
     else:

@@ -134,7 +134,7 @@ def test_config_raises_for_unported_and_invalid_settings(monkeypatch):
                dict(stream_chunk_k=64, state_noise_rel=0.0, stream_state_dtype="bfloat16")):
         for cls in (ExperimentConfig, JConfig):
             cls(**ok)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="topology must be"):
         ExperimentConfig(topology=object())
     with pytest.raises(ValueError, match="state_noise_mode"):
         ExperimentConfig(state_noise_mode="exact")
