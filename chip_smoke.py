@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 1. device and build — the card's name and power limit (nvidia-smi), TF32
-   off, both CUDA kernels built with nvcc from ``src/repro_torch/kernels/csrc``;
+   off, the three CUDA sources built with nvcc (in parallel) from
+   ``src/repro_torch/kernels/csrc``;
 2. kernels vs their plain PyTorch versions on the card — the scan kernel
    for the five device models (f32 and bf16 states, per-lane masks,
    bitwise chunk resume; the CMT cavity at K = 8), then on the edge grid of
@@ -120,6 +121,21 @@ Then the paper's comparison and the composed graphs
    depth 1 bitwise the single-loop fit; K1 bitwise ``fast``; an uneven
    resume bitwise one pass; a K = 20000 stream's peak memory; the
    per-channel WDM topology.
+
+Then the program contracts (``repro_torch.analysis``):
+
+21. ``contracts`` — the 19 registered entry points, each run once on the
+   card through K1-K3 under its rules (no state tensor, kernel calls per
+   chunk, no float64, no silent bf16 upcast, no host sync but the named
+   sites, the slab and the Gram folded in place, each call's shared memory
+   and row alignment), with each kernel launched once a call, a run under
+   ``set_sync_debug_mode("error")`` where an entry allows no sync site,
+   and the peak device memory; the seeded violation caught; the
+   block-copy fixture under ``SmemBudget`` (in budget it launches, the
+   whole-array tile is flagged and refused); a K = 20000 streamed fit at
+   N = 900 under a quarter of one [B, K, N] f32 state tensor.  The
+   kernels line also holds ``block_copy`` bitwise to its plain version
+   at the fixture's in-budget tile, beside ``x.clone()``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -729,12 +745,14 @@ def max_err(a, b) -> float:
 
 
 def reset_counts() -> None:
+    """Set every kernel wrapper's launch and call counts to 0."""
+    from repro_torch.kernels.block_copy import ops as copy_ops
     from repro_torch.kernels.dfr_scan import ops as scan_ops
     from repro_torch.kernels.ridge_gram import ops as gram_ops
 
-    scan_ops.dfr_scan.launches = 0
-    gram_ops.gram_accumulate_batched.launches = 0
-    gram_ops.gram_accumulate_batched_into.launches = 0
+    for wrapper in (scan_ops.dfr_scan, gram_ops.gram_accumulate_batched,
+                    gram_ops.gram_accumulate_batched_into, copy_ops.block_copy):
+        wrapper.launches = wrapper.calls = 0
 
 
 def launch_counts() -> tuple[int, int, int]:
@@ -2634,6 +2652,95 @@ def phase_composed(dev, tasks, card: str) -> dict:
     return {"launches": launches, "graph": g3, "j": j_tr, "y": y_tr}
 
 
+# the contracts phase: the gate at the registry's shapes, the block-copy
+# fixture's tiles, and a long stream whose peak memory the card measures
+CONTRACT_ENTRIES = 19
+COPY_SHAPE = (2048, 1024)
+COPY_TILE = (32, 256)
+CONTRACT_LONG_K = 20000
+
+
+def phase_contracts(dev, card: str) -> dict:
+    """The port's program contracts on the card (``repro_torch.analysis``):
+    every registered entry point run once through K1-K3 under its rules,
+    with the card's own checks (each kernel launched once a call, the run
+    under ``set_sync_debug_mode("error")`` where an entry allows no sync
+    site, the peak device memory); the seeded violation caught; the
+    block-copy fixture under ``SmemBudget`` (an in-budget tile launches,
+    the 8 MiB tile is flagged and refused before its launch); and
+    ``NoStateTensor``'s peak-memory half on a K = 20000 streamed fit at the
+    main width, under a quarter of one [B, K, N] f32 state tensor."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import NoStateTensor, Program, SmemBudget, card_checks
+    from repro_torch.analysis.cli import run
+    from repro_torch.core import make_mask
+    from repro_torch.kernels.block_copy import ops as copy_ops
+    from repro_torch.pipeline import fit_ridge_streaming
+
+    t0 = time.perf_counter()
+    reset_counts()
+    report = run(device=dev, seed_violation=True)
+    entries = [e for e in report["entry_points"] if e["name"] != "seeded_violation"]
+    (seeded,) = [e for e in report["entry_points"] if e["name"] == "seeded_violation"]
+    n_viol = sum(e["n_violations"] for e in entries)
+    for e in entries:
+        check(e["ok"], f"contract entry {e['name']}: {e['rules']} {e.get('error', '')}")
+        check(all(v[0] == v[1] for v in e["launches_calls"].values()),
+              f"{e['name']}: launches != calls {e['launches_calls']}")
+    check(len(entries) == CONTRACT_ENTRIES, f"{len(entries)} contract entries")
+    check(not seeded["ok"] and any(v["rule"] == "NoStateTensor" and v["path"]
+                                   for r in seeded["rules"] for v in r["violations"]),
+          "the seeded violation was not caught")
+
+    # the fixture: in budget it launches and copies bitwise; the whole-array
+    # tile is flagged, and the wrapper refuses it before a launch
+    x = torch.randn(COPY_SHAPE, device=dev)
+    fits = Program(lambda a: copy_ops.block_copy(a, COPY_TILE), (x,), name="block_copy")
+    check(not SmemBudget().check(fits) and not card_checks(fits, (SmemBudget(),))
+          and torch.equal(fits.trace.result, x), "block_copy in budget")
+    over = Program(lambda a: copy_ops.block_copy(a, COPY_SHAPE), (x,), name="block_copy_over")
+    flagged = SmemBudget().check(over)
+    check(bool(flagged) and isinstance(over.error, ValueError)
+          and over.counts["block_copy"] == (0, 1), f"block_copy over budget: {flagged}")
+
+    # NoStateTensor's peak-memory half at the main width
+    rng = np.random.default_rng(5)
+    n_nodes = stream_config().n_nodes
+    j = torch.as_tensor(rng.uniform(0, 1, (B_MAIN, CONTRACT_LONG_K)), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(rng.uniform(0, 1, (B_MAIN, CONTRACT_LONG_K)), dtype=torch.float32,
+                        device=dev)
+    mask = make_mask(n_nodes, seed=1, device=dev)
+    state_bytes = B_MAIN * CONTRACT_LONG_K * n_nodes * 4
+    long_rule = NoStateTensor(CONTRACT_LONG_K, B_MAIN * CONTRACT_LONG_K * n_nodes,
+                              max_peak_bytes=state_bytes // 4)
+    torch.cuda.empty_cache()
+    long = Program(lambda jj, yy: fit_ridge_streaming(
+        stream_config().model, mask, jj, yy, washout=60, chunk_k=STREAM_CHUNK,
+        lambdas=(1e-6,), use_kernel=True, device=dev), (j, y), name="long_stream_fit")
+    long_viols = long_rule.check(long) + card_checks(long, ())
+    check(not long_viols and long.error is None, f"long streamed fit: {long_viols} {long.error}")
+    long_peak = long.peak_bytes
+    del j, y, long
+    copies = copy_ops.block_copy.launches
+    check(copies >= 1, "the contracts phase launched no block_copy")
+    emit({"phase": "contracts", "card": card, "entries": len(entries),
+          "violations": n_viol, "launches_eq_calls": True, "seeded_caught": True,
+          "torch": report["torch_version"], "device_name": report["device_name"],
+          "entry_seconds": {e["name"]: e["seconds"] for e in entries},
+          "peak_bytes": {e["name"]: e["peak_bytes"] for e in entries},
+          "sync_sites": {e["name"]: sorted({s["op"] for s in e["syncs"]}) for e in entries},
+          "block_copy": {"tile": list(COPY_TILE), "launches": copies,
+                         "smem_flagged": [v.message for v in flagged]},
+          "long_stream_fit": {"B": B_MAIN, "K": CONTRACT_LONG_K, "N": n_nodes,
+                              "chunk": STREAM_CHUNK, "peak_bytes": long_peak,
+                              "budget_bytes": state_bytes // 4},
+          "seconds": time.perf_counter() - t0})
+    return {"block_copy_launches": copies}
+
+
 def phase_kernels_line(dev, narma, paths: dict) -> None:
     """Each kernel at the shapes of the path it rides, with that path's
     launch count: K1 at one streamed chunk (broadcast mask, N = 900) and in
@@ -2666,6 +2773,7 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     import torch
 
     from repro_torch.core import build_stage_masks, generate_states, make_mask
+    from repro_torch.kernels.block_copy import ops as copy_ops
     from repro_torch.kernels.dfr_scan import ops as scan_ops
     from repro_torch.kernels.ridge_gram import ops as gram_ops
     from repro_torch.pipeline import composed_chunk_states_fn, with_bias
@@ -2946,6 +3054,27 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
              "composed: one launch a fit chunk (six topologies; this row d3_l2)",
              [with_bias(f0), with_bias(f1)],
              [yc[:, :MC_CHUNK].contiguous(), yc[:, MC_CHUNK:2 * MC_CHUNK].contiguous()])
+    # the block-copy fixture (the subject of the contract checker's
+    # SmemBudget) at the contracts phase's in-budget tile: bitwise its plain
+    # version, timed beside x.clone(); every byte is read once and written once
+    xc = torch.randn(COPY_SHAPE, device=dev)
+    out = copy_ops.block_copy(xc, COPY_TILE)
+    ref = copy_ops.block_copy_plain(xc, COPY_TILE)
+    check(torch.equal(out, ref) and torch.equal(out, xc), "block_copy: not bitwise its plain version")
+    ms = cuda_ms(lambda: copy_ops.block_copy(xc, COPY_TILE), reps=20)
+    bound, by = bound_ms(2 * xc.numel() * xc.element_size(), 0)
+    rows.append({"name": "block_copy", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/block_copy.cu",
+                 "replaces": "tests/test_analysis.py:251",
+                 "launches": paths["contracts"]["block_copy_launches"],
+                 "path": "contracts: the SmemBudget fixture at an in-budget tile",
+                 "max_abs_err": max_err(out, ref), "bitwise_vs_plain": True, "ms": ms,
+                 "plain_ms": cuda_ms(lambda: copy_ops.block_copy_plain(xc, COPY_TILE), reps=5),
+                 "bound_ms": bound, "bound_by": by,
+                 "library_ms": cuda_ms(lambda: xc.clone(), reps=20), "library_call": "x.clone()",
+                 "bound_share": bound / ms, "shape": list(COPY_SHAPE), "tile": list(COPY_TILE),
+                 "smem_bytes": copy_ops.copy_plan(COPY_SHAPE, xc.dtype, COPY_TILE)["smem_bytes"]})
+    del xc, out, ref
     for row in rows:
         if row["name"].startswith("ridge_gram"):
             check(max(row["error_vs_f32_sum_bound"].values()) <= 1.0,
@@ -3048,10 +3177,11 @@ def main() -> int:
     phase_fast_path(dev, card)
     figures = phase_paper_figures(dev, tasks, card)
     composed = phase_composed(dev, tasks, card)
+    contracts = phase_contracts(dev, card)
     phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm,
                                     "serving": serving, "cmt": cmt,
                                     "accelerator": accelerator, "figures": figures,
-                                    "composed": composed})
+                                    "composed": composed, "contracts": contracts})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

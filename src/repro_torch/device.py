@@ -34,3 +34,12 @@ def resolve_dtype(dtype) -> torch.dtype | None:
     if not isinstance(resolved, torch.dtype):
         raise ValueError(f"unknown dtype {dtype!r}")
     return resolved
+
+
+def host_values(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small tensor of host constants (a λ grid, the 4-PAM symbols) on
+    ``device``.  ``torch.tensor(values, device="cuda")`` copies host data
+    with a blocking copy, which waits for the stream: a host sync in every
+    call that makes one.  A non-blocking copy from host memory stages the
+    values at once and does not wait for the device."""
+    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)

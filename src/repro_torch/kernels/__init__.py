@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
 ``dfr_scan`` (the fused masking + reservoir scan) and ``ridge_gram`` (the
-batched readout Gram) replace the JAX package's two Pallas TPU kernels.
+batched readout Gram) replace the JAX package's two Pallas TPU kernels;
+``block_copy`` replaces the Pallas fixture of its contract checker's tests.
 Each ``ops.py`` wrapper launches its CUDA kernel (``csrc/*.cu``, built by
 ``_build.py`` at first use) for CUDA tensors, takes the plain PyTorch
-version for CPU tensors, and counts its launches.
+version for CPU tensors, and counts its launches and, on either route, its
+calls (``_calls.py``).
 """

@@ -452,3 +452,10 @@ extern "C" int ridge_gram_launch(const void* x, int x_bf16, const void* y, void*
   return has_init ? launch_tiled<float, true>(x, yf, gf, cf, B, T, F, C, s)
                   : launch_tiled<float, false>(x, yf, gf, cf, B, T, F, C, s);
 }
+
+// The dynamic shared memory a block of the kernel takes for an f32 (x_bf16
+// = 0) or bf16 X, so that the wrapper's plan (ops.gram_plan) can be held
+// to the kernel's own constant.
+extern "C" int ridge_gram_smem_bytes(int x_bf16) {
+  return static_cast<int>(x_bf16 ? Ring<__nv_bfloat16>::kBytes : Ring<float>::kBytes);
+}

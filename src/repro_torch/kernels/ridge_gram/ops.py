@@ -32,10 +32,12 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, _calls
 
 C_MAX = 128   # target columns the kernel takes (each moment block walks 64·C chains)
 MAX_INSTANCES = 65535   # instances the kernel takes (its grid's y dimension)
+# The kernel's tiling (kTile, kRows, kStages in ridge_gram.cu), for its plan.
+TILE, STAGE_ROWS, STAGES = 64, 16, 3
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -75,6 +77,31 @@ def gram_plain_batched(x, y, *, block_t: int = 512, g0=None, c0=None,
     return g, c
 
 
+def gram_plan(x_dtype: torch.dtype, f: int, into=None) -> dict:
+    """The launch plan of one call, read on either route (``_calls``): a
+    block's dynamic shared memory, ``Ring<XT>::kBytes`` in ridge_gram.cu
+    (a ring of STAGES stages, each holding the two strips' STAGE_ROWS rows
+    as 16-byte-aligned windows of TILE / (16 / itemsize) + 1 chunks, then
+    the f32 compute slot; or the epilogue's two padded tiles, whichever is
+    larger), the bytes of one staged row, and whether F spans several
+    tiles.  ``into`` is (G0, c0)'s storage for accumulate-into."""
+    row = (TILE * torch.empty((), dtype=x_dtype).element_size() // 16 + 1) * 16
+    main = STAGES * 2 * STAGE_ROWS * row + STAGE_ROWS * 2 * TILE * 4
+    plan = {"smem_bytes": max(main, 2 * TILE * (TILE + 1) * 4), "row_bytes": row,
+            "multi_tile": f > TILE}
+    if into is not None:
+        plan["into"] = into
+    return plan
+
+
+def _counted(wrapper, kernel: str, x, into, fn, *args, **kwargs):
+    """``fn`` as one counted kernel call (``_calls``) unless X is empty."""
+    b, _, f = x.shape
+    if not (b and f):
+        return fn(*args, **kwargs)
+    return _calls.call(wrapper, kernel, gram_plan(x.dtype, f, into), fn, *args, **kwargs)
+
+
 def _launch(x, y, g, c, *, has_init: bool) -> bool:
     """Launch the kernel on (g, c); False when there is nothing to launch."""
     b, t, f = x.shape
@@ -109,13 +136,23 @@ def gram_accumulate_batched(x: torch.Tensor, y: torch.Tensor, *, block_t: int = 
     """Per-instance (G [B, F, F] f32, c [B, F, C] f32), one kernel launch."""
     x, y = _canon(x, y, block_t)
     if not _dispatch(x):
-        return gram_plain_batched(x, y, block_t=block_t)
+        return _counted(_K2, "ridge_gram", x, None, gram_plain_batched, x, y, block_t=block_t)
+    return _counted(_K2, "ridge_gram", x, None, _launch_one_shot, x, y)
+
+
+def _launch_one_shot(x, y):
     b, _, f = x.shape
     g = torch.empty((b, f, f), dtype=torch.float32, device=x.device)
     c = torch.empty((b, f, y.shape[-1]), dtype=torch.float32, device=x.device)
     if _launch(x, y, g, c, has_init=False):
         gram_accumulate_batched.launches += 1
     return g, c
+
+
+def _launch_into(g0, c0, x, y):
+    if _launch(x, y, g0, c0, has_init=True):
+        gram_accumulate_batched_into.launches += 1
+    return g0, c0
 
 
 def gram_accumulate_batched_into(g0: torch.Tensor, c0: torch.Tensor,
@@ -132,11 +169,11 @@ def gram_accumulate_batched_into(g0: torch.Tensor, c0: torch.Tensor,
     for name, s in (("g0", g0), ("c0", c0)):
         if s.dtype != torch.float32 or not s.is_contiguous() or s.device != x.device:
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
+    into = (g0.data_ptr(), c0.data_ptr())
     if not _dispatch(x):
-        return gram_plain_batched(x, y, block_t=block_t, g0=g0, c0=c0, round_y=False)
-    if _launch(x, y, g0, c0, has_init=True):
-        gram_accumulate_batched_into.launches += 1
-    return g0, c0
+        return _counted(_K3, "ridge_gram_into", x, into, gram_plain_batched, x, y,
+                        block_t=block_t, g0=g0, c0=c0, round_y=False)
+    return _counted(_K3, "ridge_gram_into", x, into, _launch_into, g0, c0, x, y)
 
 
 def gram_accumulate(x: torch.Tensor, y: torch.Tensor, *, block_t: int = 512):
@@ -149,3 +186,7 @@ def gram_accumulate(x: torch.Tensor, y: torch.Tensor, *, block_t: int = 512):
 
 gram_accumulate_batched.launches = 0        # K2 kernel launches
 gram_accumulate_batched_into.launches = 0   # K3 kernel launches
+gram_accumulate_batched.calls = 0           # K2 calls on either route (``_calls``)
+gram_accumulate_batched_into.calls = 0      # K3 calls on either route
+# the counters' owners, should a test rebind the module's names
+_K2, _K3 = gram_accumulate_batched, gram_accumulate_batched_into

@@ -50,7 +50,7 @@ from ..core.metrics import VAR_EPS
 from ..core.nonlinear import NLModel, SiliconMR
 from ..core.reservoir import generate_channel_states, generate_states
 from ..core.tasks import SYMBOLS
-from ..device import resolve_device
+from ..device import host_values, resolve_device
 from .ridge import (_chunk_axis, _row_mask, _shared_chunk_states_fn, apply_readout,
                     composed_chunk_states_fn, fit_ridge_batched, fit_ridge_streaming,
                     fit_ridge_streaming_composed, fit_ridge_streaming_shared,
@@ -218,7 +218,7 @@ def _canon_targets(x, name: str, inputs: torch.Tensor) -> torch.Tensor:
 
 
 def _quantize(y: torch.Tensor) -> torch.Tensor:
-    sym = torch.tensor(_SYMBOLS, dtype=y.dtype, device=y.device)
+    sym = host_values(_SYMBOLS, y.dtype, y.device)
     return sym[torch.argmin(torch.abs(y[..., None] - sym), dim=-1)]
 
 
@@ -382,7 +382,7 @@ def _run_streaming(cfg: ExperimentConfig, mask, j_tr, tr_tg, j_te, te_tg, *,
         with stage("stream_eval", dev):
             y_raw3, acc = _eval_streaming(cfg, eval_fn, j_te, te_tg3, w_fit, s_carry)
     nrmse, ser = _streaming_metrics(acc, te_tg3.shape[1], channel_axis=te_tg.ndim == 3)
-    lam = torch.tensor(cfg.ridge_l2, dtype=torch.float32, device=dev)[lam_idx]
+    lam = host_values(cfg.ridge_l2, torch.float32, dev)[lam_idx]
     if y_raw3 is None:
         return None, nrmse, ser, lam, w_fit
     y_raw = y_raw3 if te_tg.ndim == 3 else y_raw3[..., 0]
@@ -419,7 +419,7 @@ def _run_pipeline(cfg: ExperimentConfig, mask, tr_in, tr_tg, te_in, te_tg, *,
                                        block_t=cfg.readout_block_t, device=dev)
     with stage("evaluation", dev):
         y_out, nrmse, ser = _evaluate(cfg, st_te, w_fit, te_tg)
-    lam = torch.tensor(cfg.ridge_l2, dtype=torch.float32, device=dev)[lam_idx]
+    lam = host_values(cfg.ridge_l2, torch.float32, dev)[lam_idx]
     return (y_out if cfg.collect_y_pred else None), nrmse, ser, lam, w_fit
 
 

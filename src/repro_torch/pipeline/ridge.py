@@ -37,7 +37,7 @@ import torch
 
 from ..core.graph import ReservoirGraph, _chain_fn
 from ..core.reservoir import generate_channel_states, generate_states
-from ..device import resolve_device
+from ..device import host_values, resolve_device
 from .stages import stage
 
 
@@ -103,7 +103,7 @@ def gcv_path(g: torch.Tensor, c: torch.Tensor, y2: torch.Tensor, n_samples: int,
     valid = evals > tol                                   # [..., F]
     qc = torch.where(valid[..., None], qc, 0.0)
     qc2 = torch.sum(qc * qc, dim=-1)                      # [..., F]
-    lams = torch.tensor(lambdas, dtype=torch.float32, device=g.device)
+    lams = host_values(lambdas, torch.float32, g.device)
     lamp = lams * (torch.sum(evals, dim=-1, keepdim=True) / f)        # [..., L]
     ev = evals[..., None, :]                              # [..., 1, F]
     ok = valid[..., None, :]
@@ -134,7 +134,7 @@ def solve_gcv_svd(x: torch.Tensor, y: torch.Tensor, lambdas: tuple[float, ...]):
     y2 = torch.sum(y32 * y32, dim=(-2, -1))
     s2 = s * s
     n_samples = x.shape[-2]
-    lams = torch.tensor(lambdas, dtype=torch.float32, device=x.device)
+    lams = host_values(lambdas, torch.float32, x.device)
     lamp = lams * (torch.sum(s2, dim=-1, keepdim=True) / x.shape[-1])   # [..., L]
     denom = s2[..., None, :] + lamp[..., :, None]         # [..., L, R]
     shrink = s2[..., None, :] / denom

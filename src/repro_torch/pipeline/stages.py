@@ -14,6 +14,11 @@ The synchronise at each mark keeps a stage's device work inside its own
 span (one stage no longer overlaps the next), so a recorded run takes
 slightly longer than an unrecorded one.  The record is process-global and
 not thread-safe: record one run at a time.
+
+Recording or not, the marks open now form a stack (``current_path()``,
+outermost first, e.g. ``("stream_fit", "stream_fold")``): the contract
+checker's tracer (``repro_torch.analysis.tracer``) files every op it sees
+under it.
 """
 
 from __future__ import annotations
@@ -24,6 +29,12 @@ import time
 import torch
 
 _seconds: dict[str, float] | None = None
+_path: list[str] = []
+
+
+def current_path() -> tuple[str, ...]:
+    """The names of the marked stages open now, outermost first."""
+    return tuple(_path)
 
 
 def _sync(device: torch.device) -> None:
@@ -33,15 +44,20 @@ def _sync(device: torch.device) -> None:
 
 @contextlib.contextmanager
 def stage(name: str, device: torch.device):
-    """Time the enclosed stage into the active ``record_stages`` dict."""
-    if _seconds is None:
+    """Mark the enclosed stage (``current_path``) and time it into the
+    active ``record_stages`` dict."""
+    _path.append(name)
+    try:
+        if _seconds is None:
+            yield
+            return
+        _sync(device)
+        t0 = time.perf_counter()
         yield
-        return
-    _sync(device)
-    t0 = time.perf_counter()
-    yield
-    _sync(device)
-    _seconds[name] = _seconds.get(name, 0.0) + time.perf_counter() - t0
+        _sync(device)
+        _seconds[name] = _seconds.get(name, 0.0) + time.perf_counter() - t0
+    finally:
+        _path.pop()
 
 
 @contextlib.contextmanager

@@ -22,8 +22,8 @@ Tolerances:
   bitwise;
 * the composed Experiment and the per-channel WDM topology: ≤ 1e-3 NRMSE.
 
-The reference's jaxpr "no full-K stage tensor" contract becomes a
-``TorchDispatchMode`` that records every op's output shape.
+The reference's jaxpr "no full-K stage tensor" contract becomes the shape
+record of the port's contract tracer (``repro_torch.analysis.tracer.Trace``).
 """
 
 import dataclasses
@@ -32,8 +32,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._pytree import tree_flatten
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import ReservoirStage as JStage
 from repro.core import SiliconMR as JMR
@@ -46,6 +44,7 @@ from repro.pipeline import Experiment as JExperiment
 from repro.pipeline import ExperimentConfig as JConfig
 from repro.pipeline import WDMExperiment as JWDMExperiment
 from repro.pipeline import fit_ridge_streaming_composed as jfit_composed
+from repro_torch.analysis.tracer import Trace
 from repro_torch.convert import config_from_reference, graph_from_reference
 from repro_torch.core import (LINK_NONLINEARITIES, ReservoirGraph, ReservoirStage, SiliconMR,
                               build_stage_masks, chain, generate_states, graph_states,
@@ -471,20 +470,6 @@ def test_convert_carries_the_topology():
 # ---------------------------------------------------------------------------
 
 
-class _OutputShapes(TorchDispatchMode):
-    """Records the shape of every tensor an op returns."""
-
-    def __init__(self):
-        super().__init__()
-        self.shapes = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        self.shapes += [tuple(t.shape) for t in tree_flatten(out)[0]
-                        if isinstance(t, torch.Tensor)]
-        return out
-
-
 def test_composed_fit_holds_no_full_stream_stage_tensor():
     """Depth 3 with a multi-loop stage, K = 170 (a ragged tail): the streamed
     composed fit creates no tensor with the stream axis beside any stage's
@@ -501,11 +486,11 @@ def test_composed_fit_holds_no_full_stream_stage_tensor():
     def full(shapes):
         return [s for s in shapes if set(s) & set(lengths) and set(s) & set(widths)]
 
-    with _OutputShapes() as rec:
+    with Trace() as rec:
         fit_ridge_streaming_composed(g, masks, j, y, washout=W0, chunk_k=CHUNK,
                                      lambdas=LAMS, state_method="kernel", device="cpu")
     assert not full(rec.shapes), full(rec.shapes)
     assert (B, CHUNK, g.width + 1) in rec.shapes
-    with _OutputShapes() as rec_m:
+    with Trace() as rec_m:
         graph_states(g, j, masks, method="kernel", device="cpu")
     assert full(rec_m.shapes)

@@ -501,3 +501,58 @@ def test_server_restore_is_bitwise_on_the_card(tmp_path, dev):
     assert [r.rid for r in resumed.completed] == [r.rid for r in ref.completed]
     for a, b in zip(resumed.completed, ref.completed):
         assert np.concatenate(a.y_hat).tobytes() == np.concatenate(b.y_hat).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the block-copy fixture kernel and the contract gate on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,dtype,tile", [((2048, 1024), torch.float32, (32, 256)),
+                                              ((32, 256), torch.bfloat16, (16, 8)),
+                                              ((37, 101), torch.float32, (8, 33)),
+                                              ((5, 7), torch.int64, (5, 7))])
+def test_block_copy_is_bitwise_its_plain_version(dev, shape, dtype, tile):
+    from repro_torch.kernels.block_copy import ops as copy_ops
+
+    x = torch.randn(shape, device=dev).to(dtype) if dtype.is_floating_point else \
+        torch.randint(-9, 9, shape, device=dev, dtype=dtype)
+    before = (copy_ops.block_copy.launches, copy_ops.block_copy.calls)
+    out = copy_ops.block_copy(x, tile)
+    assert (copy_ops.block_copy.launches - before[0],
+            copy_ops.block_copy.calls - before[1]) == (1, 1)
+    assert torch.equal(out, copy_ops.block_copy_plain(x, tile)) and torch.equal(out, x)
+
+
+def test_block_copy_raises_above_the_shared_memory_of_a_block(dev):
+    from repro_torch.kernels.block_copy import ops as copy_ops
+
+    x = torch.zeros((2048, 1024), device=dev)
+    before = copy_ops.block_copy.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        copy_ops.block_copy(x, (2048, 1024))
+    assert copy_ops.block_copy.launches == before
+
+
+def test_gram_plan_is_the_kernels_shared_memory(dev):
+    """ops.gram_plan's bytes are Ring<XT>::kBytes of ridge_gram.cu."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("ridge_gram").ridge_gram_smem_bytes
+    for dtype, flag in ((torch.float32, 0), (torch.bfloat16, 1)):
+        assert gram_ops.gram_plan(dtype, 901)["smem_bytes"] == fn(flag)
+
+
+def test_contract_gate_holds_every_entry_on_the_card(dev):
+    """Every registered entry point holds its contracts on the card, with
+    the card's own checks (launches == calls, the run under sync debug
+    mode "error" where no sync site is allowed); the seeded violation is
+    caught."""
+    from repro_torch.analysis.cli import run
+
+    report = run(device="cuda", seed_violation=True)
+    bad = {e["name"]: e for e in report["entry_points"]
+           if not e["ok"] and e["name"] != "seeded_violation"}
+    assert not bad, bad
+    (seeded,) = [e for e in report["entry_points"] if e["name"] == "seeded_violation"]
+    assert not seeded["ok"]

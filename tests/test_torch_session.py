@@ -28,14 +28,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from repro.core import SiliconMR as JMR
 from repro.core.masking import make_mask as jmake_mask
 from repro.pipeline.session import SessionConfig as JSessionConfig
 from repro.pipeline.session import session_init as jsession_init
 from repro.pipeline.session import session_step as jsession_step
+from repro_torch.analysis.tracer import Trace
 from repro_torch.convert import session_config_from_reference, session_state_from_reference
 from repro_torch.core import SiliconMR, generate_states, make_mask
 from repro_torch.pipeline import fit_ridge_streaming, with_bias
@@ -305,19 +304,6 @@ def test_session_step_updates_the_handed_slab_in_place():
 # ---------------------------------------------------------------------------
 
 
-class _ShapeLog(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.shapes = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        for leaf in tree_flatten(out)[0]:
-            if isinstance(leaf, torch.Tensor):
-                self.shapes.append(tuple(leaf.shape))
-        return out
-
-
 @pytest.mark.parametrize("refresh", [False, True])
 def test_session_step_holds_no_full_stream_tensor(refresh):
     """Every tensor a step makes is at most chunk-sized per row: none holds
@@ -327,7 +313,7 @@ def test_session_step_holds_no_full_stream_tensor(refresh):
     cfg = _cfg(chunk_k=ck, use_kernel=True)
     j, y = _stream(24, k=stream_len, b=b), _stream(25, k=stream_len, b=b)
     state = session_init(cfg, b, device="cpu")
-    with _ShapeLog() as log:
+    with Trace() as log:
         _session_step(cfg, MASK, state, j[:, :ck], y[:, :ck], refresh=refresh)
     assert log.shapes
     assert not any(stream_len in s for s in log.shapes)

@@ -19,17 +19,16 @@ Tolerances:
 * within the port: chunk resume, λ = 1 forgetting and metrics-only vs
   collected runs are bitwise.
 
-The jaxpr "no full-K tensor" guards of the reference become a
-``TorchDispatchMode`` that records every op's output shape during a
-streamed CPU run.
+The jaxpr "no full-K tensor" guards of the reference become the shape
+record of the port's contract tracer (``repro_torch.analysis.tracer.Trace``,
+a dispatch mode that records every op's output shape, a kernel call as one
+op) during a streamed CPU run.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._pytree import tree_flatten
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import SiliconMR as JMR
 from repro.pipeline import Experiment as JExperiment
@@ -37,6 +36,7 @@ from repro.pipeline import ExperimentConfig as JConfig
 from repro.pipeline import fit_ridge_streaming as jfit_streaming
 from repro.pipeline.ridge import _fold_chunk as jfold_chunk
 from repro.pipeline.ridge import _plan_fold as jplan_fold
+from repro_torch.analysis.tracer import Trace
 from repro_torch.core import SiliconMR, generate_states, make_mask, tasks
 from repro_torch.core.metrics import VAR_EPS, nrmse as host_nrmse
 from repro_torch.pipeline import (Experiment, ExperimentConfig, fit_ridge_batched,
@@ -457,20 +457,6 @@ def test_streaming_stage_marks(narma_batch, streamed):
 # ---------------------------------------------------------------------------
 
 
-class _OutputShapes(TorchDispatchMode):
-    """Records the shape of every tensor an op returns."""
-
-    def __init__(self):
-        super().__init__()
-        self.shapes = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        self.shapes += [tuple(t.shape) for t in tree_flatten(out)[0]
-                        if isinstance(t, torch.Tensor)]
-        return out
-
-
 def _full_stream_shapes(shapes, lengths, widths):
     return [s for s in shapes if set(s) & set(lengths) and set(s) & set(widths)]
 
@@ -495,12 +481,12 @@ def test_streaming_fit_holds_no_full_stream_state_tensor():
     state block is the chunk; the materialized fit does create one."""
     j, y = _stream_batch()[:2]
     mask = make_mask(N, seed=1)
-    with _OutputShapes() as rec:
+    with Trace() as rec:
         fit_ridge_streaming(SiliconMR(), mask, j, y, washout=W0, chunk_k=CHUNK,
                             lambdas=(1e-6,), device="cpu")
     assert not _full_stream_shapes(rec.shapes, LENGTHS, (N, N + 1))
     assert (B, CHUNK, N) in rec.shapes and (B, CHUNK, N + 1) in rec.shapes
-    with _OutputShapes() as rec_m:
+    with Trace() as rec_m:
         st = generate_states(SiliconMR(), j, mask, method="kernel", device="cpu")
         fit_ridge_batched(st[:, W0:], y[:, W0:], use_kernel=True, device="cpu")
     assert _full_stream_shapes(rec_m.shapes, LENGTHS, (N, N + 1))
@@ -517,7 +503,7 @@ def test_streaming_pipeline_holds_no_state_or_prediction_block(collect):
                                                       stream_chunk_k=CHUNK,
                                                       collect_y_pred=collect))
     mask = make_mask(N, seed=1)
-    with _OutputShapes() as rec:
+    with Trace() as rec:
         out = _run_pipeline(cfg, mask, *args)
     assert not _full_stream_shapes(rec.shapes, LENGTHS, (N, N + 1))
     preds = [s for s in rec.shapes if len(s) == 3 and s[-1] == 2 and s[1] in (K_TE, 320)]

@@ -21,8 +21,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._pytree import tree_flatten
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import SiliconMR as JMR
 from repro.core import tasks as jtasks
@@ -30,6 +28,7 @@ from repro.pipeline import ExperimentConfig as JConfig
 from repro.pipeline import WDMExperiment as JWDMExperiment
 from repro.pipeline import channel_states as jchannel_states
 from repro_torch import convert
+from repro_torch.analysis.tracer import Trace
 from repro_torch.core import SiliconMR, make_mask, tasks
 from repro_torch.pipeline import (ExperimentConfig, WDMExperiment, channel_states,
                                   fit_ridge, fit_ridge_batched, fit_ridge_streaming_shared,
@@ -359,20 +358,6 @@ def test_wdm_shared_bad_arguments():
 # ---------------------------------------------------------------------------
 
 
-class _OutputShapes(TorchDispatchMode):
-    """Records the shape of every tensor an op returns."""
-
-    def __init__(self):
-        super().__init__()
-        self.shapes = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        self.shapes += [tuple(t.shape) for t in tree_flatten(out)[0]
-                        if isinstance(t, torch.Tensor)]
-        return out
-
-
 R, N, K_TR, K_TE, W0 = 3, 24, 300, 270, 40
 LENGTHS = (K_TR, K_TE, K_TR - W0, 320)   # stream lengths, fit window, padded length
 
@@ -395,12 +380,12 @@ def test_wdm_streaming_pipeline_holds_no_channel_state_tensor(shared):
     cfg = ExperimentConfig(model=SiliconMR(), **_base(n_nodes=N, washout=W0,
                                                       stream_chunk_k=CHUNK))
     masks = _masks(R, N, 30)
-    with _OutputShapes() as rec:
+    with Trace() as rec:
         _run_pipeline(cfg, masks, *args, wdm=True, shared=shared)
     assert not _full_stream_shapes(rec.shapes)
     assert (R, CHUNK, N) in rec.shapes
     if not shared:
-        with _OutputShapes() as rec_m:
+        with Trace() as rec_m:
             _run_pipeline(ExperimentConfig(model=SiliconMR(), **_base(n_nodes=N, washout=W0)),
                           masks, *args, wdm=True)
         assert (R, K_TR, N) in rec_m.shapes
