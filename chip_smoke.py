@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. device and build — the card's name and power limit (nvidia-smi), TF32
-   off, the three CUDA sources built with nvcc (in parallel) from
+   off, the four CUDA sources built with nvcc (in parallel) from
    ``src/repro_torch/kernels/csrc``;
 2. kernels vs their plain PyTorch versions on the card — the scan kernel
    for the five device models (f32 and bf16 states, per-lane masks,
@@ -34,7 +34,10 @@ Phases, each printing one JSON line:
    the Gram vs the SVD readout (≤5e-3) at N = 32, noise off;
 5. the streaming fused path at the same NARMA10 point (chunk 256, the
    noise as its expected Tikhonov diagonal): K1 once per chunk, K3 once per
-   fit chunk, launches (8, 0, 4); bf16 chunks within 0.06 NRMSE of f32;
+   fit chunk, launches (8, 0, 4), the readout-apply kernel once per eval
+   chunk (4); bf16 chunks within 0.06 NRMSE of f32, and the bf16
+   evaluation's peak memory through the readout-apply kernel beside the
+   widened matmul it replaced;
    noise off, the streamed Gram bitwise equal to the materialized K2 Gram
    and the NRMSE within 1e-5; a stage breakdown of one streamed run;
 6. a long stream (K = 20000 a split): the streamed run's peak device memory
@@ -136,6 +139,21 @@ Then the program contracts (``repro_torch.analysis``):
    N = 900 under a quarter of one [B, K, N] f32 state tensor.  The
    kernels line also holds ``block_copy`` bitwise to its plain version
    at the fixture's in-budget tile, beside ``x.clone()``.
+
+Then the LM serving path (``repro_torch.models``, ``runtime.steps``):
+
+22. ``lm_serving`` — reservoir_lm at full width (12 layers, d 768, N 256,
+   R 3): f32 logits on numpy weights held to the JAX package's, K1 once a
+   layer; 8 requests × 512 prompt tokens × 64 new tokens served in bf16
+   and f32 (prefill ms, decode ms a token, tokens/s, K1's share of a step,
+   decode held to forward); the mixer on K1 bitwise its plain route;
+   granite-8b at full width (f32 params drawn on the card) prefilling
+   4 × 128 and decoding 16, decode held to forward; the chunked attention
+   against the dense one at Skv 4096.  The kernels line then adds K1 at
+   the LM's prefill and decode shapes, and the readout-apply kernel at the
+   streamed evaluation's bf16 chunk [64, 256, 900] and the session tick's
+   [4096, 32, 64] (within 1e-6 of its plain version, relative to the sum's
+   magnitude, beside ``torch.baddbmm``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -612,6 +630,62 @@ COMPOSED_REF_MC_F64 = {
 COMPOSED_LONG_K = 20000
 COMPOSED_LONG_CHUNK = 160
 
+# the lm_serving phase (repro_torch.models on the LM serving path): the
+# paper's reservoir_lm (src/repro/configs/reservoir_lm.py) at full width,
+# weights drawn with numpy at LM_SEED (lm_numpy_params), held in f32 to
+# the JAX package's logits on tokens drawn at LM_TOKENS_SEED through a
+# summary (lm_logit_summary: a fixed projection of each position's logits
+# over the vocabulary, and their root mean square), recomputed by
+# tests/test_torch_lm_model.py; LM_SUMMARY_TOL: the port on the CPU is
+# within 5e-7 of these, and within 4e-7 of itself under a 2e-7 relative
+# move of every weight (no branch of the node chain flips)
+LM_SEED = 0
+LM_TOKENS_SEED = 1
+LM_PROJ_SEED = 7
+LM_CHECK_SHAPE = (2, 16)
+LM_SUMMARY_TOL = 2e-5
+LM_REF_SUMMARY = {
+    "proj": (
+        (0.14971231885311517, 0.005818624895427085, 0.06481481979783375, 0.07691882431815095,
+         0.11259927219540769, 0.12875887800435223, 0.1297070336958942, 0.1492899632591138,
+         0.13949228948252354, 0.16265261916124404, 0.1478820779728531, 0.15267809885775274,
+         0.16041674460164718, 0.16241109587683503, 0.16319582131676202, 0.16887747383396728),
+        (-0.05391481868116422, -0.04205815493092653, 0.02264166800362207, 0.05758497446148339,
+         0.06385822561500826, 0.07802859620743625, 0.09456940057455467, 0.11630795523920293,
+         0.10882207329779561, 0.12897718253899512, 0.1283198185946325, 0.14339406374679103,
+         0.1425360610259263, 0.15109816944092852, 0.15613356392042504, 0.16183766113821724),
+    ),
+    "rms": (
+        (0.15563378252443297, 0.1538026949595953, 0.15376037402179976, 0.15360484532303348,
+         0.15381033018337958, 0.15403505911702234, 0.15418646836661057, 0.15433268001818753,
+         0.15422269988699885, 0.15434579267808565, 0.1542985309643352, 0.15435436735009248,
+         0.1544668652024933, 0.15442924217011106, 0.15448580525745095, 0.1544712628490569),
+        (0.15512466451898296, 0.15426637696109458, 0.15404234761989052, 0.15415873983153897,
+         0.15418163228973894, 0.15430022602497076, 0.15439280502793448, 0.15430986140110953,
+         0.15439633027411154, 0.15443355648107512, 0.1545454507468324, 0.15442562868415785,
+         0.15449268824902604, 0.1544510472658021, 0.15457266326789684, 0.15453863746885155),
+    ),
+}
+# (b): serving 8 requests of 512 prompt tokens, 64 new tokens each, bf16
+LM_SERVE_B = 8
+LM_SERVE_PROMPT = 512
+LM_SERVE_NEW = 64
+# (c): the mixer on K1 against its plain route, at a cut length
+LM_MIXER_CHECK = (4, 48)
+# (d): granite-8b (src/repro/configs/granite_8b.py) at full width, prefill
+# 4 x 128, 16 decode steps; the chunked attention against the dense one at
+# Skv 4096 with chunk 1024
+GRANITE_B = 4
+GRANITE_PROMPT = 128
+GRANITE_NEW = 16
+SDPA_SKV = 4096
+SDPA_CHUNK = 1024
+# decode steps profiled (device busy share, kernels by device time)
+LM_PROFILE_STEPS = 3
+# decode against forward in f32: the reference's own bound
+# (tests/test_models.py:73)
+DECODE_ATOL, DECODE_RTOL = 2e-4, 2e-3
+
 
 _T_START = time.perf_counter()
 
@@ -748,10 +822,12 @@ def reset_counts() -> None:
     """Set every kernel wrapper's launch and call counts to 0."""
     from repro_torch.kernels.block_copy import ops as copy_ops
     from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.kernels.readout_apply import ops as apply_ops
     from repro_torch.kernels.ridge_gram import ops as gram_ops
 
     for wrapper in (scan_ops.dfr_scan, gram_ops.gram_accumulate_batched,
-                    gram_ops.gram_accumulate_batched_into, copy_ops.block_copy):
+                    gram_ops.gram_accumulate_batched_into, copy_ops.block_copy,
+                    apply_ops.readout_apply):
         wrapper.launches = wrapper.calls = 0
 
 
@@ -762,6 +838,13 @@ def launch_counts() -> tuple[int, int, int]:
 
     return (scan_ops.dfr_scan.launches, gram_ops.gram_accumulate_batched.launches,
             gram_ops.gram_accumulate_batched_into.launches)
+
+
+def readout_launches() -> int:
+    """Launches of the readout-apply kernel so far."""
+    from repro_torch.kernels.readout_apply import ops as apply_ops
+
+    return apply_ops.readout_apply.launches
 
 
 @contextlib.contextmanager
@@ -782,6 +865,59 @@ def solved_grams():
         yield seen
     finally:
         ridge.solve_gcv = solve
+
+
+def lm_numpy_params(cfg, seed: int) -> dict:
+    """Weights of the LM ``cfg`` in the JAX package's params layout
+    ({"embed", "units": (a dict a unit position, stacked over units),
+    "final_norm"}) as numpy f32 arrays drawn at ``seed``: a matrix leaf
+    normal times 1/sqrt(its fan-in), a vector leaf normal times 0.1.  No
+    leaf is zero, the reservoir readout and the norm scales included (they
+    initialise at zero), so a broken mixer or norm shows in the logits."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.models import layers
+    from repro_torch.models.model import _block_defs
+
+    rng = np.random.default_rng(seed)
+
+    def draw(defs, lead=()):
+        out = {}
+        for name, (shape, _axes, _init) in sorted(defs.items()):
+            scale = 1.0 / math.sqrt(shape[0]) if len(shape) >= 2 else 0.1
+            out[name] = rng.standard_normal((*lead, *shape), dtype=np.float32) * np.float32(scale)
+        return out
+
+    return {"embed": draw(layers.embed_defs(cfg)),
+            "units": tuple(draw(_block_defs(cfg, blk), (cfg.n_units,)) for blk in cfg.unit),
+            "final_norm": draw(layers.norm_defs(cfg))}
+
+
+def lm_tokens(cfg, shape, seed: int):
+    """Token ids of ``shape`` drawn with numpy at ``seed``."""
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def lm_logit_summary(logits) -> dict:
+    """A host summary of logits [B, S, V] (numpy, f32): each position's
+    logits projected on a fixed unit-scale vector drawn at LM_PROJ_SEED,
+    and their root mean square, each [B, S] as nested lists."""
+    import numpy as np
+
+    x = np.asarray(logits, dtype=np.float64)
+    r = np.random.default_rng(LM_PROJ_SEED).standard_normal(x.shape[-1]) / np.sqrt(x.shape[-1])
+    return {"proj": (x @ r).tolist(), "rms": np.sqrt((x * x).mean(-1)).tolist()}
+
+
+def summary_gap(a: dict, b: dict) -> float:
+    """The largest gap between two logit summaries."""
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max()) for k in a)
 
 
 def phase_build(card: str) -> None:
@@ -1270,6 +1406,9 @@ def phase_streaming(dev, narma, card: str) -> dict:
     res, first_s = wall(lambda: exp.run(*narma))
     launches = launch_counts()
     check(launches == (8, 0, 4), f"streamed launches (scan, gram, into) = {launches}")
+    # the readout-apply kernel once an evaluation chunk (1000 periods in 4)
+    applies = readout_launches()
+    check(applies == 4, f"streamed readout-apply launches {applies}")
     check(bool(np.all(np.isfinite(res.nrmse))), "streamed NRMSE finite")
     check(res.y_pred.shape == (B_MAIN, 1000), f"streamed y_pred shape {res.y_pred.shape}")
     check(bool(np.all(res.nrmse < 0.72)), f"streamed NRMSE per instance {res.nrmse}")
@@ -1281,6 +1420,8 @@ def phase_streaming(dev, narma, card: str) -> dict:
                        device=dev).run(*narma)
     drift = float(np.abs(res16.nrmse - res.nrmse).max())
     check(drift <= 0.06, f"bf16 vs f32 streamed NRMSE drift {drift}")
+    eval_peaks = bf16_eval_peaks(dev, narma, dataclasses.replace(cfg, stream_state_dtype="bfloat16"),
+                                 exp.mask)
 
     # noise off: the streamed Gram IS the materialized K2 Gram, bitwise
     off = dataclasses.replace(cfg, state_noise_rel=0.0)
@@ -1298,15 +1439,61 @@ def phase_streaming(dev, narma, card: str) -> dict:
     emit({"phase": "streaming", "task": "narma10", "card": card, "B": B_MAIN, "N": cfg.n_nodes,
           "chunk": STREAM_CHUNK, "noise": "diagonal 0.003",
           "launches": {"dfr_scan": launches[0], "ridge_gram": launches[1],
-                       "ridge_gram_into": launches[2]},
+                       "ridge_gram_into": launches[2], "readout_apply": applies},
           "nrmse_mean": float(res.nrmse.mean()), "nrmse_max": float(res.nrmse.max()),
           "run_wall_s_first": first_s, "run_wall_s_steady": steady_s,
           "bf16_nrmse_max_drift": drift, "bf16_nrmse_mean": float(res16.nrmse.mean()),
-          "noise_off": noise_off,
+          "bf16_eval_peak": eval_peaks, "noise_off": noise_off,
           "stages_wall_s": stages, "stages_run_wall_s": run_s,
           "unmarked_s": run_s - sum(v for k, v in stages.items()
                                     if k not in ("stream_states", "stream_fold"))})
-    return {"launches": launches, "exp": exp}
+    return {"launches": launches, "readout_launches": applies, "exp": exp}
+
+
+def bf16_eval_peaks(dev, narma, cfg16, mask) -> dict:
+    """The bf16 streamed evaluation (``_eval_streaming`` over the test split
+    in chunks of 256, K1 emitting bf16 states) at the NARMA10 width, with a
+    random readout, once through the readout-apply kernel and once through
+    the widened matmul the evaluation ran before it (``with_bias(x).to(f32)
+    @ w``, the kernel's plain version): the device memory each run peaks at
+    above what it starts with, and the gap of their error sums."""
+    import torch
+
+    from repro_torch.kernels.readout_apply import readout_apply, readout_apply_plain
+    from repro_torch.pipeline import experiment as experiment_mod
+    from repro_torch.pipeline.experiment import _canon_batch, _eval_streaming, _gen_states, _input_layer
+
+    te = _canon_batch(narma[2], "inputs_test", dev)
+    _, j_te = _input_layer(cfg16, te, te)
+    y_te = _canon_batch(narma[3], "targets_test", dev)[..., None]
+    b, n = te.shape[0], cfg16.n_nodes
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w = torch.randn((b, n + 1, 1), generator=gen, device=dev) / n ** 0.5
+    s0 = torch.zeros((b, n), dtype=torch.float32, device=dev)
+
+    def eval_fn(j_c, s):
+        return _gen_states(cfg16, mask, j_c, wdm=False, s0=s, return_final=True,
+                           state_dtype="bfloat16")
+
+    out, err2 = {}, {}
+    for name, apply in (("widened_matmul", readout_apply_plain), ("readout_apply", readout_apply)):
+        experiment_mod.readout_apply = apply
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _, acc = _eval_streaming(cfg16, eval_fn, j_te, y_te, w, s0)
+            torch.cuda.synchronize()
+            out[f"{name}_peak_bytes_above_start"] = torch.cuda.max_memory_allocated() - base
+        finally:
+            experiment_mod.readout_apply = readout_apply
+        err2[name] = acc[0]
+    rel = float(((err2["readout_apply"] - err2["widened_matmul"]).abs()
+                 / err2["widened_matmul"]).max())
+    check(rel <= 1e-5, f"bf16 evaluation through the kernel vs the widened matmul: {rel}")
+    out.update(shape_btn=[b, STREAM_CHUNK, n], err2_max_rel_gap=rel,
+               chunk_f32_copy_bytes=4 * b * STREAM_CHUNK * (n + 1))
+    return out
 
 
 def phase_long_stream(dev, tasks, card: str) -> None:
@@ -1422,18 +1609,23 @@ def serve_config(**kw):
     return SessionConfig(**base)
 
 
+def scan_plain(model, j, mask, s0, *, block_s=None, return_final=False, out_dtype=None):
+    """``dfr_scan`` through its plain version, on any device."""
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+
+    states, fin = scan_ops.dfr_scan_plain(model, j, mask, s0, out_dtype=out_dtype)
+    return (states, fin) if return_final else states
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route K1 and K3 through their plain PyTorch versions (on the card's
-    tensors) for the body of the ``with``."""
+    tensors) for the body of the ``with``.  The readout-apply kernel, whose
+    inputs the two routes give alike, stays on its kernel."""
     from repro_torch.kernels.dfr_scan import ops as scan_ops
     from repro_torch.kernels.ridge_gram import ops as gram_ops
 
     scan, into = scan_ops.dfr_scan, gram_ops.gram_accumulate_batched_into
-
-    def scan_plain(model, j, mask, s0, *, block_s=None, return_final=False, out_dtype=None):
-        states, fin = scan_ops.dfr_scan_plain(model, j, mask, s0, out_dtype=out_dtype)
-        return (states, fin) if return_final else states
 
     def into_plain(g0, c0, x, y, *, block_t=512, round_y=True):
         return gram_ops.gram_plain_batched(x, y, block_t=block_t, g0=g0, c0=c0,
@@ -1658,12 +1850,13 @@ def phase_serving(dev, card: str) -> dict:
         reset_counts()
         drained = serve_drain(server, [dataclasses.replace(r, y_hat=[]) for r in reqs[:n_req]])
         launches = launch_counts()
+        applies = readout_launches()
         rep = serve_report(server, drained, reqs[:n_req])
         rep["peak_bytes"] = torch.cuda.max_memory_allocated()
         rep["launches"] = {"dfr_scan": launches[0], "ridge_gram": launches[1],
-                           "ridge_gram_into": launches[2]}
-        check(launches == (server.tick, 0, server.tick), f"B = {b}: launches {launches} over "
-                                                         f"{server.tick} ticks")
+                           "ridge_gram_into": launches[2], "readout_apply": applies}
+        check(launches == (server.tick, 0, server.tick) and applies == server.tick,
+              f"B = {b}: launches {launches}, readout-apply {applies} over {server.tick} ticks")
         check(rep["completed"] == n_req, f"B = {b}: {rep['completed']} of {n_req} completed")
         check(all(np.isfinite(np.concatenate(r.y_hat)).all() for r in server.completed),
               f"B = {b}: a prediction is not finite")
@@ -1698,10 +1891,16 @@ def phase_serving(dev, card: str) -> dict:
 
 
 def profile_ticks(server, n_ticks: int) -> dict:
-    """Device busy time of the next ``n_ticks`` server ticks (torch.profiler:
-    the union of the kernel and copy intervals on the card) against their
-    host wall time, and the kernels by device time; the error if the
-    profiler fails here."""
+    """Device busy time of the next ``n_ticks`` server ticks against their
+    host wall time (``profile_calls``)."""
+    return profile_calls(server.step, n_ticks, "ticks")
+
+
+def profile_calls(fn, n_calls: int, what: str = "calls") -> dict:
+    """Device busy time of ``n_calls`` calls of ``fn`` (torch.profiler: the
+    union of the kernel and copy intervals on the card) against their host
+    wall time, and the kernels by device time; the error if the profiler
+    fails here."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1710,8 +1909,8 @@ def profile_ticks(server, n_ticks: int) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(n_ticks):
-                server.step()
+            for _ in range(n_calls):
+                fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -1723,7 +1922,7 @@ def profile_ticks(server, n_ticks: int) -> dict:
             end = max(end, stop)
             by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        return {"ticks": n_ticks, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+        return {what: n_calls, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
                 "device_busy_share": busy_us / 1e3 / wall_ms, "device_events": len(spans),
                 "top_device_ms": top}
     except Exception as err:  # noqa: BLE001 — the profiler is untried on that machine
@@ -2741,6 +2940,257 @@ def phase_contracts(dev, card: str) -> dict:
     return {"block_copy_launches": copies}
 
 
+@contextlib.contextmanager
+def plain_mixer():
+    """Route the LM's reservoir mixer through the scan kernel's plain
+    version (on the card's tensors) for the body of the ``with``."""
+    from repro_torch.core import layer as mixer
+
+    scan = mixer.dfr_scan
+    mixer.dfr_scan = scan_plain
+    try:
+        yield
+    finally:
+        mixer.dfr_scan = scan
+
+
+def serve_lm(cfg, params, prompts, new_tokens: int, slack: int = 0) -> dict:
+    """Greedy serving of ``prompts`` [B, P] through ``serve_prefill`` and
+    ``serve_decode``, the host clock around each step ending in a device
+    synchronise: ids [B, new], logits [B, new, V], prefill s and each
+    decode step's s, and the cache (room for ``slack`` more steps)."""
+    import torch
+
+    from repro_torch.runtime.steps import serve_decode, serve_prefill
+
+    max_len = prompts.shape[1] + new_tokens + slack
+    (logits, cache), prefill_s = wall(lambda: serve_prefill(cfg, params, prompts, max_len=max_len))
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    ids, all_logits, steps = [tok], [logits], []
+    for _ in range(new_tokens - 1):
+        (logits, cache), step_s = wall(lambda: serve_decode(cfg, params, cache, tok))
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        ids.append(tok)
+        all_logits.append(logits)
+        steps.append(step_s)
+    return {"ids": torch.cat(ids, dim=1), "logits": torch.stack(all_logits, dim=1),
+            "prefill_s": prefill_s, "decode_step_s": steps, "cache": cache}
+
+
+def profile_decode(cfg, params, served: dict, n_steps: int = LM_PROFILE_STEPS) -> dict:
+    """``profile_calls`` over ``n_steps`` more decode steps from a served
+    batch's cache (served with that much slack)."""
+    import torch
+
+    from repro_torch.runtime.steps import serve_decode
+
+    state = {"cache": served["cache"], "tok": served["ids"][:, -1:]}
+
+    def step():
+        logits, state["cache"] = serve_decode(cfg, params, state["cache"], state["tok"])
+        state["tok"] = torch.argmax(logits, dim=-1)[:, None]
+
+    return profile_calls(step, n_steps, "decode_steps")
+
+
+def decode_vs_forward(cfg, params, prompts, served: dict) -> dict:
+    """The served logits (prefill's last position, then each decode step)
+    against one ``forward`` over the prompt and the served ids: the largest
+    gap, and whether it is within the reference's decode bound."""
+    import torch
+
+    from repro_torch.models import forward
+
+    toks = torch.cat([prompts, served["ids"][:, :-1]], dim=1)
+    full, _ = forward(cfg, params, toks)
+    want = full[:, prompts.shape[1] - 1:].float()
+    got = served["logits"].float()
+    gap = (got - want).abs()
+    return {"max_abs_gap": float(gap.max()),
+            "max_gap_over_bound": float((gap / (DECODE_ATOL + DECODE_RTOL * want.abs())).max()),
+            "within_reference_bound": bool(torch.allclose(got, want, atol=DECODE_ATOL,
+                                                          rtol=DECODE_RTOL))}
+
+
+def serving_report(cfg, served: dict, b: int) -> dict:
+    import numpy as np
+
+    steps = np.asarray(served["decode_step_s"])
+    return {"B": b, "prompt": LM_SERVE_PROMPT, "new_tokens": served["ids"].shape[1],
+            "dtype": cfg.dtype, "prefill_ms": served["prefill_s"] * 1e3,
+            "decode_ms_per_token_p50": float(np.percentile(steps, 50) * 1e3),
+            "decode_ms_per_token_p90": float(np.percentile(steps, 90) * 1e3),
+            "decode_tokens_per_s": b * len(steps) / float(steps.sum()),
+            "prefill_tokens_per_s": b * LM_SERVE_PROMPT / served["prefill_s"]}
+
+
+def phase_lm_serving(dev, card: str) -> dict:
+    """The LM serving path (``repro_torch.models`` through
+    ``runtime.steps.serve_prefill`` / ``serve_decode``) at full width:
+
+    (a) reservoir_lm in f32 (12 layers, d 768, N 256, R 3, vocab 32000) on
+        the numpy weights (``lm_numpy_params``, readout non-zero): the logit
+        summary within LM_SUMMARY_TOL of the JAX package's, and K1 launched
+        once a layer (launches == calls == 12 a forward);
+    (b) reservoir_lm serving 8 requests of 512 prompt tokens, 64 new tokens,
+        in bf16 (its config's dtype) and in f32: prefill ms, decode ms a
+        token (p50, p90), tokens/s, K1 launched 12 times a step (prefill
+        [24, 512, 256], decode [24, 1, 256]) and its share of a decode step;
+        decode held to one forward over the same tokens (f32: the
+        reference's bound; bf16: its gap reported);
+    (c) the mixer on K1 against its plain route on the card, bitwise, at
+        [4, 48] tokens (and 16 more resumed from its carry), f32 and bf16;
+    (d) granite-8b at full width (36 layers, d 4096, GQA 32/8, f32 params
+        ≈ 32 GB drawn on the card from a torch.Generator), prefill 4 × 128
+        and 16 decode steps in f32 (decode held to its forward at the
+        reference's bound) and in bf16 (timed, gap reported); the chunked
+        attention against the dense one at Skv 4096, chunk 1024."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core import layer as mixer
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.models import forward, init_params, layers
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+
+    def k1_counts():
+        return scan_ops.dfr_scan.launches, scan_ops.dfr_scan.calls
+
+    # (a) full width, f32, against the JAX package's logits
+    cfg32 = dataclasses.replace(get_config("reservoir_lm"), dtype="float32")
+    host, draw_s = wall(lambda: lm_numpy_params(cfg32, LM_SEED))
+    params = convert.lm_params_from_reference(host, device=dev)
+    del host
+    toks = torch.as_tensor(lm_tokens(cfg32, LM_CHECK_SHAPE, LM_TOKENS_SEED), device=dev)
+    reset_counts()
+    (logits, _), fwd_s = wall(lambda: forward(cfg32, params, toks))
+    counts = k1_counts()
+    check(counts == (cfg32.n_layers, cfg32.n_layers),
+          f"reservoir_lm forward: K1 (launches, calls) {counts}, want {cfg32.n_layers} each")
+    gap = summary_gap(lm_logit_summary(logits.cpu().numpy()), LM_REF_SUMMARY)
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (*LM_CHECK_SHAPE, 32000),
+          f"reservoir_lm logits {tuple(logits.shape)} not finite")
+    check(gap <= LM_SUMMARY_TOL, f"reservoir_lm f32 logits vs the JAX package: {gap}")
+    out["reservoir_lm_f32_vs_reference"] = {
+        "shape_bs": list(LM_CHECK_SHAPE), "summary_max_gap": gap, "tol": LM_SUMMARY_TOL,
+        "k1_launches_calls": list(counts), "numpy_draw_s": draw_s, "forward_s": fwd_s}
+
+    # (b) serving 8 requests: bf16 (timed), then f32 (held to its forward)
+    prompts = torch.as_tensor(lm_tokens(cfg32, (LM_SERVE_B, LM_SERVE_PROMPT), 2), device=dev)
+    cfg16 = get_config("reservoir_lm")
+    check(cfg16.dtype == "bfloat16", f"reservoir_lm serves in {cfg16.dtype}")
+    serve_lm(cfg16, params, prompts[:, :16], 4)                          # warm
+    reset_counts()
+    served16 = serve_lm(cfg16, params, prompts, LM_SERVE_NEW, slack=LM_PROFILE_STEPS)
+    counts = k1_counts()
+    want = cfg16.n_layers * LM_SERVE_NEW                    # 12 a prefill, 12 a step
+    check(counts == (want, want), f"reservoir_lm serving: K1 (launches, calls) {counts}, "
+                                  f"want {want}")
+    rep16 = serving_report(cfg16, served16, LM_SERVE_B)
+    rep16["k1_launches_calls"] = list(counts)
+    rep16["decode_vs_forward"] = decode_vs_forward(cfg16, params, prompts, served16)
+    rep16["profile"] = profile_decode(cfg16, params, served16)
+    # K1 alone at the decode step's shape: 12 calls a step
+    b_r = LM_SERVE_B * mixer._n_channels(cfg16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    j1 = torch.rand((b_r, 1), generator=gen, device=dev)
+    s1 = torch.rand((b_r, cfg16.reservoir_nodes), generator=gen, device=dev) * 0.3
+    mask = mixer._mask(cfg16.reservoir_nodes, dev)
+    k1_ms = cuda_ms(lambda: scan_ops.dfr_scan(mixer._model(cfg16), j1, mask, s1, return_final=True,
+                                             out_dtype=torch.bfloat16), reps=50)
+    rep16["k1_decode_call_ms"] = k1_ms
+    rep16["k1_share_of_decode_step_p50"] = (cfg16.n_layers * k1_ms
+                                            / rep16["decode_ms_per_token_p50"])
+    out["reservoir_lm_bf16_serving"] = rep16
+    served32 = serve_lm(cfg32, params, prompts, LM_SERVE_NEW)
+    rep32 = serving_report(cfg32, served32, LM_SERVE_B)
+    rep32["decode_vs_forward"] = dvf = decode_vs_forward(cfg32, params, prompts, served32)
+    check(dvf["within_reference_bound"], f"reservoir_lm f32 decode vs forward: {dvf}")
+    out["reservoir_lm_f32_serving"] = rep32
+    lm_drive = {"prefill_launches": cfg16.n_layers, "decode_launches": want - cfg16.n_layers,
+                "b_r": b_r}
+    del served16, served32
+
+    # (c) the mixer on K1 against its plain route, bitwise
+    mp = {k[len("mixer/"):]: v[0] for k, v in params["units"][0].items()
+          if k.startswith("mixer/")}
+    b, s = LM_MIXER_CHECK
+    h = torch.randn((b, s + 16, cfg32.d_model), generator=gen, device=dev)
+    mixer_checks = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = h.to(dt)
+        y_k, c_k = mixer.apply_reservoir(cfg32, mp, x[:, :s])
+        y_k2, c_k2 = mixer.apply_reservoir(cfg32, mp, x[:, s:], cache=c_k)
+        with plain_mixer():
+            (y_p, c_p), plain_s = wall(lambda: mixer.apply_reservoir(cfg32, mp, x[:, :s]))
+            y_p2, c_p2 = mixer.apply_reservoir(cfg32, mp, x[:, s:], cache=c_p)
+        same = all(torch.equal(a, r) for a, r in ((y_k, y_p), (y_k2, y_p2), (c_k[0], c_p[0]),
+                                                   (c_k[1], c_p[1]), (c_k2[0], c_p2[0])))
+        check(same, f"mixer on K1 vs its plain route ({dt}): "
+                    f"{max_err(y_k, y_p)}, {max_err(y_k2, y_p2)}")
+        mixer_checks[str(dt).removeprefix("torch.")] = {"bitwise": True, "plain_s": plain_s}
+    out["mixer_k1_vs_plain"] = {"shape_bsd": [b, s, cfg32.d_model], "resumed": 16,
+                                **mixer_checks}
+    # layer 0's drive of the prompts, its K1 lanes [B·R, P], for the kernels line
+    u0 = params["units"][0]
+    h0 = layers.rmsnorm(layers.embed_tokens(cfg16, params["embed"], prompts), u0["norm_mixer"][0],
+                        cfg16.norm_eps)
+    j0 = torch.sigmoid(h0.float() @ u0["mixer/w_in"][0])
+    lm_drive["j"] = j0.permute(0, 2, 1).reshape(b_r, LM_SERVE_PROMPT).contiguous()
+    lm_drive["model"], lm_drive["mask"] = mixer._model(cfg16), mask
+    del params, h, h0, j0
+    torch.cuda.empty_cache()
+
+    # (d) granite-8b at full width
+    g32 = dataclasses.replace(get_config("granite-8b"), dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    gparams, init_s = wall(lambda: init_params(
+        g32, torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = sum(v.numel() for part in (gparams["embed"], *gparams["units"],
+                                          gparams["final_norm"]) for v in part.values())
+    gprompts = torch.as_tensor(lm_tokens(g32, (GRANITE_B, GRANITE_PROMPT), 4), device=dev)
+    granite = {"n_params": n_params, "param_bytes": 4 * n_params, "init_s": init_s}
+    for cfg in (g32, get_config("granite-8b")):
+        serve_lm(cfg, gparams, gprompts[:, :8], 2)                       # warm
+        served = serve_lm(cfg, gparams, gprompts, GRANITE_NEW, slack=LM_PROFILE_STEPS)
+        rep = serving_report(cfg, served, GRANITE_B)
+        rep["prompt"] = GRANITE_PROMPT
+        rep["prefill_tokens_per_s"] = GRANITE_B * GRANITE_PROMPT / served["prefill_s"]
+        rep["decode_vs_forward"] = dvf = decode_vs_forward(cfg, gparams, gprompts, served)
+        check(bool(torch.isfinite(served["logits"]).all()), f"granite-8b {cfg.dtype}: logits")
+        if cfg.dtype == "float32":
+            check(dvf["within_reference_bound"], f"granite-8b f32 decode vs forward: {dvf}")
+        rep["profile"] = profile_decode(cfg, gparams, served)
+        granite[cfg.dtype] = rep
+        del served
+    granite["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del gparams
+    torch.cuda.empty_cache()
+    # the chunked attention against the dense one at Skv 4096, chunk 1024
+    hq, hkv, hd = g32.n_heads, g32.n_kv_heads, g32.head_dim
+    q = torch.randn((1, SDPA_SKV, hq, hd), generator=gen, device=dev)
+    k = torch.randn((1, SDPA_SKV, hkv, hd), generator=gen, device=dev)
+    v = torch.randn((1, SDPA_SKV, hkv, hd), generator=gen, device=dev)
+    dense, dense_s = wall(lambda: layers._sdpa_dense(g32, q, k, v, causal=True))
+    chunked, chunked_s = wall(lambda: layers._sdpa_chunked(g32, q, k, v, causal=True,
+                                                           chunk=SDPA_CHUNK))
+    err = max_err(chunked, dense)
+    check(err <= 1e-5, f"chunked attention vs dense at Skv {SDPA_SKV}: {err}")
+    granite["sdpa_chunked_vs_dense"] = {"shape_q": list(q.shape), "shape_kv": list(k.shape),
+                                        "chunk": SDPA_CHUNK, "max_abs_err": err,
+                                        "dense_s": dense_s, "chunked_s": chunked_s}
+    del q, k, v, dense, chunked
+    torch.cuda.empty_cache()
+    out["granite_8b"] = granite
+    emit({"phase": "lm_serving", "card": card, **out, "seconds": time.perf_counter() - t0})
+    return lm_drive
+
+
 def phase_kernels_line(dev, narma, paths: dict) -> None:
     """Each kernel at the shapes of the path it rides, with that path's
     launch count: K1 at one streamed chunk (broadcast mask, N = 900) and in
@@ -2775,6 +3225,7 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     from repro_torch.core import build_stage_masks, generate_states, make_mask
     from repro_torch.kernels.block_copy import ops as copy_ops
     from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.kernels.readout_apply import ops as apply_ops
     from repro_torch.kernels.ridge_gram import ops as gram_ops
     from repro_torch.pipeline import composed_chunk_states_fn, with_bias
     from repro_torch.pipeline.experiment import _canon_batch, _input_layer
@@ -3054,6 +3505,66 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
              "composed: one launch a fit chunk (six topologies; this row d3_l2)",
              [with_bias(f0), with_bias(f1)],
              [yc[:, :MC_CHUNK].contiguous(), yc[:, MC_CHUNK:2 * MC_CHUNK].contiguous()])
+    # the LM's reservoir mixer: K1 at reservoir_lm's lanes (B·R = 24, N =
+    # 256) on layer 0's prompt drive, at the prefill's 512 periods from a
+    # zero state (as the prefill launches it) and at a decode step's one
+    # period resumed from a carry
+    lm = paths["lm"]
+    split_row("dfr_scan_lm_prefill", lm["model"], lm["j"], lm["mask"], lm["prefill_launches"],
+              "lm_serving: reservoir_lm prefill, one launch a layer (12)", SPLIT_CHECK_K, 0.0,
+              cycles["least_step"], SCAN_OPS_PER_STEP)
+    scan_row("dfr_scan_lm_decode", lm["j"][:, :2].contiguous(), lm["mask"],
+             lm["decode_launches"], f"lm_serving: reservoir_lm decode, one launch a layer a "
+             f"step ({lm['decode_launches']} over {LM_SERVE_NEW - 1} steps)", chunk=1,
+             model=lm["model"])
+
+    def apply_row(name, x, w, launches, path):
+        """The readout-apply kernel against its plain version (the widened
+        matmul) and one ``torch.baddbmm`` on the features already in f32."""
+        b, t, n = x.shape
+        cols = w.shape[-1]
+        out = apply_ops.readout_apply(x, w)
+        ref = apply_ops.readout_apply_plain(x, w)
+        scale = with_bias(x).float().abs() @ w.abs()
+        rel = float(((out - ref).abs() / scale).max())
+        check(rel <= 1e-6, f"{name} vs plain at {[b, t, n]}: {rel} of the sum's magnitude")
+        xf = x.float()
+        bound, by = bound_ms(x.numel() * x.element_size() + 4 * (w.numel() + out.numel()),
+                             2 * b * t * (n + 1) * cols)
+        ms = cuda_ms(lambda: apply_ops.readout_apply(x, w), reps=20)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/readout_apply.cu",
+                     "replaces": "src/repro/pipeline/experiment.py:336",
+                     "replaces_note": "the reference's readout einsum: no TPU kernel",
+                     "launches": launches, "path": path,
+                     "max_abs_err": max_err(out, ref), "max_rel_err_of_sum_magnitude": rel,
+                     "bitwise_vs_plain": bool(torch.equal(out, ref)),
+                     "bitwise_share": float((out == ref).float().mean()), "ms": ms,
+                     "plain_ms": cuda_ms(lambda: apply_ops.readout_apply_plain(x, w), reps=5),
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": cuda_ms(lambda: torch.baddbmm(w[:, n:], xf, w[:, :n]),
+                                           reps=20),
+                     "library_call": "torch.baddbmm(w[:, N:], x.float(), w[:, :N]), x widened "
+                                     "before the timing",
+                     "bound_share": bound / ms, "shape_btn": [b, t, n], "cols": cols,
+                     "dtype": str(x.dtype).removeprefix("torch.")})
+
+    # the streamed evaluation's chunk [64, 256, 900] in bf16 (K1's own
+    # states), and the session tick's [4096, 32, 64] f32
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x16 = scan_ops.dfr_scan(model, j_tr[:, :STREAM_CHUNK].contiguous(), exp.mask,
+                            torch.zeros((B_MAIN, cfg.n_nodes), device=dev),
+                            out_dtype=torch.bfloat16)
+    w16 = torch.randn((B_MAIN, cfg.n_nodes + 1, 1), generator=gen, device=dev) / 30.0
+    apply_row("readout_apply", x16, w16, paths["streaming"]["readout_launches"],
+              "streamed evaluation, one launch an eval chunk (f32 run; the bf16 run the same)")
+    xs = scan_ops.dfr_scan(serve["model"], serve["j"][:, :SERVE_CHUNK].contiguous(),
+                           serve["mask"], torch.zeros((SERVE_B, SERVE_N), device=dev))
+    ws = torch.randn((SERVE_B, SERVE_N + 1, 1), generator=gen, device=dev) / 8.0
+    apply_row("readout_apply_serving", xs, ws, serve["launches"]["readout_apply"],
+              f"serving, B = {SERVE_B}: one launch a tick ({ticks} ticks)")
+    rows[-1]["launches_per_tick"] = rows[-1]["launches"] / ticks
+    del x16, w16, xs, ws
     # the block-copy fixture (the subject of the contract checker's
     # SmemBudget) at the contracts phase's in-budget tile: bitwise its plain
     # version, timed beside x.clone(); every byte is read once and written once
@@ -3178,10 +3689,11 @@ def main() -> int:
     figures = phase_paper_figures(dev, tasks, card)
     composed = phase_composed(dev, tasks, card)
     contracts = phase_contracts(dev, card)
+    lm = phase_lm_serving(dev, card)
     phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm,
                                     "serving": serving, "cmt": cmt,
                                     "accelerator": accelerator, "figures": figures,
-                                    "composed": composed, "contracts": contracts})
+                                    "composed": composed, "contracts": contracts, "lm": lm})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -264,32 +264,25 @@ class NoDtypeAbove(Rule):
 class NoSilentUpcast(Rule):
     """A bf16-chunk program makes no f32-or-wider tensor at chunk scale:
     the halved state traffic is void if a wide copy of each chunk exists
-    anyway.  Same shape grammar as ``NoStateTensor``, on wide dtypes.
-    ``exempt_stages`` names stage marks whose ops are not judged; every
-    use is a known fault listed in ROADMAP.md Queue 3."""
+    anyway.  Same shape grammar as ``NoStateTensor``, on wide dtypes."""
 
     name = "NoSilentUpcast"
 
-    def __init__(self, chunk_len: int, min_elems: int, *, benign_shapes=(), wide="float32",
-                 exempt_stages=()):
+    def __init__(self, chunk_len: int, min_elems: int, *, benign_shapes=(), wide="float32"):
         self.chunk_len = int(chunk_len)
         self.min_elems = int(min_elems)
         self.benign_shapes = tuple(tuple(s) for s in benign_shapes)
         self.wide = wide if isinstance(wide, torch.dtype) else _dtype(wide)
-        self.exempt_stages = tuple(exempt_stages)
 
     def describe(self) -> str:
-        exempt = f", exempt={list(self.exempt_stages)}" if self.exempt_stages else ""
         return (f"{self.name}(chunk_len={self.chunk_len}, min_elems={self.min_elems}, "
-                f"wide>={str(self.wide).removeprefix('torch.')}{exempt})")
+                f"wide>={str(self.wide).removeprefix('torch.')})")
 
     def check(self, program: Program) -> list:
         out = []
         wide = _itemsize(self.wide)
         for rec in state_tensor_records(program.trace, self.chunk_len, self.min_elems,
                                         benign_shapes=self.benign_shapes):
-            if set(rec.path) & set(self.exempt_stages):
-                continue
             dt = _dtype(rec.dtype)
             if dt is not None and dt.is_floating_point and _itemsize(dt) >= wide:
                 out.append(_rec_violation(self.name, f"chunk-scale {rec.dtype} block "

@@ -59,6 +59,7 @@ KERNELS = {
     "ridge_gram": ("repro_torch.kernels.ridge_gram.ops", "gram_accumulate_batched"),
     "ridge_gram_into": ("repro_torch.kernels.ridge_gram.ops", "gram_accumulate_batched_into"),
     "block_copy": ("repro_torch.kernels.block_copy.ops", "block_copy"),
+    "readout_apply": ("repro_torch.kernels.readout_apply.ops", "readout_apply"),
 }
 
 

@@ -1,14 +1,107 @@
-"""The paper's accelerator configs per benchmark task.
+"""Architecture registry and the paper's accelerator configs per task.
 
-Port of the DFRC part of ``repro/configs/__init__.py``: ``dfrc_tasks()``
-gives each task's operating point for the three accelerators the paper
-compares (Fig. 5 and 6) as the port's ``DFRCConfig``.  The LM architecture
-registry of the same reference module is not ported yet.
+Port of ``repro/configs/__init__.py``:
+
+``get_config(arch)`` -> full ModelConfig exactly as assigned (the 11
+architecture files beside this one, data only: no weights);
+``smoke_config(arch)`` -> reduced same-family config for CPU tests;
+``runnable_cells(arch)`` -> the assignment shapes an arch runs;
+``dfrc_tasks()`` -> the paper's own accelerator configs per benchmark task,
+as the port's ``DFRCConfig``.
+
+Shapes (assignment):
+  train_4k     seq 4096,   global_batch 256   (training)
+  prefill_32k  seq 32768,  global_batch 32    (inference prefill)
+  decode_32k   seq 32768,  global_batch 128   (one-token decode, full cache)
+  long_500k    seq 524288, global_batch 1     (long-context decode)
+
+``long_500k`` needs sub-quadratic sequence mixing -> only jamba / xlstm /
+reservoir_lm run it.  The reference's ``input_specs`` (JAX
+``ShapeDtypeStruct`` stand-ins for its dry run) has no counterpart yet: it
+waits for the dry run (ROADMAP.md Queue 1, item 13d).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
+
 from ..core import DFRCConfig, MackeyGlass, MZISine, SiliconMR
+
+ARCHS = {
+    "granite-8b": "granite_8b",
+    "starcoder2-3b": "starcoder2_3b",
+    "qwen3-32b": "qwen3_32b",
+    "gemma-7b": "gemma_7b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "reservoir_lm": "reservoir_lm",
+}
+
+SHAPES = {
+    "train_4k": {"seq": 4096, "batch": 256, "kind": "train"},
+    "prefill_32k": {"seq": 32768, "batch": 32, "kind": "prefill"},
+    "decode_32k": {"seq": 32768, "batch": 128, "kind": "decode"},
+    "long_500k": {"seq": 524288, "batch": 1, "kind": "decode"},
+}
+
+# Families whose sequence mixing is sub-quadratic end-to-end.
+SUBQUADRATIC = {"hybrid", "ssm", "reservoir"}
+
+
+def get_config(arch: str):
+    mod = importlib.import_module(f"{__name__}.{ARCHS[arch]}")
+    return mod.CONFIG
+
+
+def list_archs(include_extras: bool = False) -> list[str]:
+    names = list(ARCHS)
+    return names if include_extras else [n for n in names if n != "reservoir_lm"]
+
+
+def runnable_cells(arch: str) -> list[str]:
+    """The assignment shapes this arch runs (long_500k only if sub-quadratic)."""
+    cfg = get_config(arch)
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in SUBQUADRATIC:
+        cells.append("long_500k")
+    return cells
+
+
+def smoke_config(arch: str):
+    """Reduced same-family config: same unit pattern / block kinds, tiny dims."""
+    cfg = get_config(arch)
+    n_kv = 4 if cfg.n_kv_heads == cfg.n_heads else 2
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=len(cfg.unit),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=n_kv,
+        head_dim=16,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        max_seq_len=128,
+        n_experts=min(8, cfg.n_experts) if cfg.n_experts else 0,
+        top_k=min(2, cfg.top_k) if cfg.top_k else 0,
+        moe_d_ff=32 if cfg.n_experts else 0,
+        # Dropless at smoke scale: with S ~ 10 tokens per group the assigned
+        # capacity factor would drop tokens in forward but not in per-token
+        # decode, breaking the decode-vs-forward consistency check.
+        capacity_factor=8.0,
+        n_encoder_layers=2 if cfg.n_encoder_layers else 0,
+        n_context_tokens=8 if cfg.n_context_tokens else 0,
+        d_context=0,
+        reservoir_nodes=16,
+        dtype="float32",
+        remat="none",
+        microbatches=1,
+    )
 
 
 def dfrc_tasks() -> dict[str, dict[str, DFRCConfig]]:
@@ -40,4 +133,5 @@ def dfrc_tasks() -> dict[str, dict[str, DFRCConfig]]:
     }
 
 
-__all__ = ["dfrc_tasks"]
+__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "dfrc_tasks", "get_config", "list_archs",
+           "runnable_cells", "smoke_config"]

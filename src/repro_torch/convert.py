@@ -3,8 +3,8 @@
 The port never imports the reference package.  These helpers read a
 reference object by duck typing — its class name and its dataclass or
 NamedTuple fields — and build the port's counterpart, so a config, a
-fitted readout, a session slab or a server checkpoint made with the
-reference runs here unchanged.
+fitted readout, a session slab, a server checkpoint or an LM's params and
+decode cache made with the reference runs here unchanged.
 """
 
 from __future__ import annotations
@@ -131,3 +131,58 @@ def mask_from_numpy(m, *, device=None) -> torch.Tensor:
     if m.ndim not in (1, 2):
         raise ValueError(f"a mask is [N] or a mask stack [R, N], got shape {m.shape}")
     return torch.tensor(m, device=device)
+
+
+def _tensor_from_array(a, dev: torch.device) -> torch.Tensor:
+    """A host or JAX array as a tensor of the same dtype (bf16 through its
+    bits: numpy has no bfloat16 of its own)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def lm_params_from_reference(params, *, device=None) -> dict:
+    """The port's LM params (``repro_torch.models.init_params``' layout) from
+    a reference params pytree, its leaves numpy or JAX arrays: the same
+    nesting (``{"embed", "units": (one dict a unit position, leaves stacked
+    over units), "final_norm"}``), each leaf a tensor of its dtype on
+    ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(walk(v) for v in node)
+        return _tensor_from_array(node, dev)
+
+    missing = {"embed", "units", "final_norm"} - set(params)
+    if missing:
+        raise TypeError(f"not a reference LM params tree: no {sorted(missing)}")
+    if "encoder" in params:
+        raise NotImplementedError("the encoder is not ported yet (ROADMAP.md Queue 1, item 13b)")
+    return walk(params)
+
+
+def lm_cache_from_reference(cfg, cache, *, device=None) -> dict:
+    """The port's decode cache from a reference one (``repro.models.init_cache``
+    layout, after a prefill or decode step): ``pos`` as a host int, each
+    unit position's stacked buffers as tensors on ``device`` (default
+    ``cuda``).  A reservoir block's ``(s_prev, s_last)`` must satisfy the
+    reference's invariant ``s_last == s_prev[..., -1]`` (the port carries
+    ``s_prev`` alone and derives ``s_last``); raises ValueError if not."""
+    dev = resolve_device(device)
+    units = []
+    for blk, entry in zip(cfg.unit, cache["units"], strict=True):
+        leaves = tuple(_tensor_from_array(a, dev) for a in entry)
+        if blk.mixer == "reservoir":
+            s_prev, s_last = leaves
+            if not torch.equal(s_last, s_prev[..., -1]):
+                raise ValueError("reservoir cache breaks s_last == s_prev[..., -1]; the port "
+                                 "carries s_prev alone and cannot hold a separate s_last")
+        elif blk.mixer != "attn":
+            raise NotImplementedError(f"the {blk.mixer!r} mixer's cache is not ported yet "
+                                      "(ROADMAP.md Queue 1, item 13b)")
+        units.append(leaves)
+    return {"pos": int(np.asarray(cache["pos"])), "units": tuple(units)}

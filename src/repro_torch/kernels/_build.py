@@ -29,7 +29,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("dfr_scan", "ridge_gram", "block_copy")
+SOURCES = ("dfr_scan", "ridge_gram", "block_copy", "readout_apply")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,21 @@
+"""Model zoo: composable transformer / reservoir stacks for the assigned archs.
+
+Port of ``repro.models``: the serving path of the ``attn`` and
+``reservoir`` mixers with the dense MLP (ROADMAP.md Queue 1, item 13a).
+``param_logical_axes`` waits for the port of ``parallel/`` (item 13d).
+"""
+
+from .config import BlockSpec, ModelConfig
+from .losses import lm_loss
+from .model import decode_step, forward, init_cache, init_params, prefill
+
+__all__ = [
+    "BlockSpec",
+    "ModelConfig",
+    "decode_step",
+    "forward",
+    "init_cache",
+    "init_params",
+    "lm_loss",
+    "prefill",
+]

@@ -1,0 +1,291 @@
+"""Core transformer layers: norms, RoPE, GQA attention, gated MLPs, embeddings.
+
+Port of ``repro/models/layers.py``.  Everything is functional on a params
+dict: ``*_defs(cfg)`` tables declare parameter shapes together with their
+logical sharding axes (kept for the port of ``parallel/``), ``init_from_defs``
+builds tensors from the defs, and ``apply_*`` run the computation.  Params
+are stored in float32 and cast to ``cfg.dtype`` at use, as in the reference.
+
+Attention is plain PyTorch, op for op like the reference's jnp (it is no
+TPU kernel there).  Two differences of the framework, kept small:
+
+* the attention logits are f32 from bf16 q and k: the reference asks its
+  einsum for an f32 result (``preferred_element_type``); PyTorch's bf16
+  einsum returns bf16, so q and k are widened first;
+* a KV cache is written in place at its position (the reference's
+  ``dynamic_update_slice`` on a donated buffer), and a write past the
+  buffer's end raises where the reference clamps it.
+
+Cross-attention waits for the encoder families (ROADMAP.md Queue 1, 13b).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_dtype
+
+# --------------------------------------------------------------------------
+# Param-def helpers
+# --------------------------------------------------------------------------
+
+
+def init_from_defs(defs: dict, generator: torch.Generator, *, lead: tuple = (),
+                   device=None) -> dict:
+    """Build a params dict from a defs table {name: (shape, axes, init)}.
+
+    ``init`` is one of "fan_in" (truncated normal on [-2, 2], times
+    1/sqrt(fan_in) with fan_in = the first axis of ``shape``), "zeros",
+    "ones", or a callable ``(generator, shape, lead, device) -> tensor``.
+    Each tensor is ``lead + shape`` (``lead`` = the unit repeats a stacked
+    leaf carries), f32 on ``device``, drawn from ``generator`` (which must
+    live on ``device``) in the sorted order of the names.  The draws are
+    not the reference's ``jax.random`` bits: only their distribution is
+    the same.
+    """
+    params = {}
+    for name, (shape, _axes, init) in sorted(defs.items()):
+        full = (*lead, *shape)
+        if init == "fan_in":
+            scale = 1.0 / math.sqrt(max(1, shape[0]))
+            t = torch.empty(full, dtype=torch.float32, device=device)
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            params[name] = t.mul_(scale)
+        elif init == "zeros":
+            params[name] = torch.zeros(full, dtype=torch.float32, device=device)
+        elif init == "ones":
+            params[name] = torch.ones(full, dtype=torch.float32, device=device)
+        elif callable(init):
+            params[name] = init(generator, shape, lead, device)
+        else:
+            raise ValueError(f"unknown init {init!r} for {name}")
+    return params
+
+
+def axes_from_defs(defs: dict) -> dict:
+    return {name: axes for name, (_s, axes, _i) in defs.items()}
+
+
+# --------------------------------------------------------------------------
+# RMSNorm
+# --------------------------------------------------------------------------
+
+
+def rmsnorm(x, scale, eps):
+    # f32 *accumulation* of the squares, which are taken in x's dtype: the
+    # reference's jnp.mean(jnp.square(x), dtype=f32).
+    var = torch.mean(x.square(), dim=-1, keepdim=True, dtype=torch.float32)
+    rs = torch.rsqrt(var + eps).to(x.dtype)
+    return x * rs * (1.0 + scale).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, positions):
+    """positions [...,] -> (cos, sin) [..., head_dim/2], f32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [..., S, H, D]; cos/sin [..., S, D/2] broadcast over heads."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    c, s = cos[..., None, :], sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention (self, GQA, optional qk-norm / softcap)
+# --------------------------------------------------------------------------
+
+
+def attn_defs(cfg) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    defs = {
+        "wq": ((d, cfg.n_heads, hd), ("embed", "heads", "hd"), "fan_in"),
+        "wk": ((d, cfg.n_kv_heads, hd), ("embed", "kv", "hd"), "fan_in"),
+        "wv": ((d, cfg.n_kv_heads, hd), ("embed", "kv", "hd"), "fan_in"),
+        "wo": ((cfg.n_heads, hd, d), ("heads", "hd", "embed"), "fan_in"),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ((hd,), ("hd",), "zeros")
+        defs["k_norm"] = ((hd,), ("hd",), "zeros")
+    return defs
+
+
+_CHUNK_THRESHOLD = 8192
+_KV_CHUNK = 2048
+
+
+def _sdpa(cfg, q, k, v, *, causal: bool, q_offset: int = 0):
+    """q [B,Sq,H,D], k/v [B,Skv,KV,D] -> [B,Sq,H,D].  Softmax in f32.
+
+    GQA: H query heads grouped over KV heads.  ``q_offset`` is the absolute
+    position of q[0] for causal masking against a longer kv (decode).
+
+    Long sequences (Skv > 8k with Sq > 1, i.e. 32k+ prefill) switch to the
+    online-softmax KV-chunked path, which caps the f32 logits at
+    [B,H,Sq,chunk] where the dense path holds [B,H,Sq,Skv].
+    """
+    sq, skv = q.shape[1], k.shape[1]
+    if sq > 1 and skv > _CHUNK_THRESHOLD and skv % _KV_CHUNK == 0:
+        return _sdpa_chunked(cfg, q, k, v, causal=causal, q_offset=q_offset)
+    return _sdpa_dense(cfg, q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _chunk_logits(cfg, qg, ks, dh):
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32), ks.to(torch.float32))
+    logits = logits * (1.0 / math.sqrt(dh))
+    if cfg.attn_logit_softcap:
+        cap = cfg.attn_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+def _positions(n: int, offset: int, device) -> torch.Tensor:
+    return torch.arange(n, device=device) + offset
+
+
+def _sdpa_dense(cfg, q, k, v, *, causal: bool, q_offset: int = 0):
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, dh)
+    logits = _chunk_logits(cfg, qg, k, dh)
+    if causal:
+        mask = _positions(sq, q_offset, q.device)[:, None] >= _positions(skv, 0, q.device)[None, :]
+        logits = torch.where(mask[None, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, sq, h, dh)
+
+
+def _sdpa_chunked(cfg, q, k, v, *, causal: bool, q_offset: int = 0, chunk: int = _KV_CHUNK):
+    """Flash-style online softmax over KV chunks (exact, plain torch)."""
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    qg = q.reshape(b, sq, kvh, group, dh)
+    qpos = _positions(sq, q_offset, q.device)
+    f32 = torch.float32
+
+    acc = torch.zeros((b, kvh, group, sq, dh), dtype=f32, device=q.device)
+    mx = torch.full((b, kvh, group, sq), -math.inf, dtype=f32, device=q.device)
+    den = torch.zeros((b, kvh, group, sq), dtype=f32, device=q.device)
+    for idx in range(skv // chunk):
+        ks = k[:, idx * chunk:(idx + 1) * chunk]
+        vs = v[:, idx * chunk:(idx + 1) * chunk]
+        logits = _chunk_logits(cfg, qg, ks, dh)                # [b,kv,g,sq,chunk]
+        if causal:
+            kpos = _positions(chunk, idx * chunk, q.device)
+            mask = (qpos[:, None] >= kpos[None, :])[None, None, None]
+        else:
+            mask = torch.ones((1, 1, 1, sq, chunk), dtype=torch.bool, device=q.device)
+        chunk_mx = torch.amax(torch.where(mask, logits, -math.inf), dim=-1)
+        new_mx = torch.maximum(mx, chunk_mx)
+        safe_mx = torch.where(torch.isneginf(new_mx), 0.0, new_mx)  # fully-masked rows
+        p = torch.where(mask, torch.exp(logits - safe_mx[..., None]), 0.0)
+        corr = torch.where(torch.isneginf(mx), 0.0, torch.exp(mx - safe_mx))
+        den = den * corr + torch.sum(p, dim=-1)
+        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(v.dtype), vs)
+        acc = acc * corr[..., None] + pv.to(f32)
+        mx = new_mx
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    out = torch.movedim(out, 3, 1)                             # [b,sq,kv,g,dh]
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def apply_attn(cfg, p, x, *, positions, cache=None, causal=True):
+    """Self-attention.  With ``cache=(k_buf, v_buf, index)`` (``index`` a
+    host int) writes k, v into the buffers in place at ``index`` and
+    attends over the whole buffer.  Returns (out, new_cache); raises if the
+    write would run past the buffer.
+    """
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    new_cache = None
+    if cache is not None:
+        k_buf, v_buf, idx = cache
+        s = x.shape[1]
+        if idx + s > k_buf.shape[1]:
+            raise ValueError(f"KV cache of {k_buf.shape[1]} positions cannot take {s} more "
+                             f"at position {idx} (the reference clamps the write; the port "
+                             "raises)")
+        k_buf[:, idx:idx + s] = k.to(k_buf.dtype)
+        v_buf[:, idx:idx + s] = v.to(v_buf.dtype)
+        new_cache = (k_buf, v_buf, idx + s)
+        out = _sdpa(cfg, q, k_buf.to(dt), v_buf.to(dt), causal=causal, q_offset=idx)
+    else:
+        out = _sdpa(cfg, q, k, v, causal=causal)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    return y, new_cache
+
+
+# --------------------------------------------------------------------------
+# Gated MLP (SwiGLU / GeGLU)
+# --------------------------------------------------------------------------
+
+
+def mlp_defs(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wi_gate": ((d, f), ("embed", "mlp"), "fan_in"),
+        "wi_up": ((d, f), ("embed", "mlp"), "fan_in"),
+        "wo": ((f, d), ("mlp", "embed"), "fan_in"),
+    }
+
+
+def _gelu(x):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(cfg, p, x):
+    dt = x.dtype
+    act = F.silu if cfg.mlp_act == "silu" else _gelu
+    g = act(x @ p["wi_gate"].to(dt))
+    u = x @ p["wi_up"].to(dt)
+    return (g * u) @ p["wo"].to(dt)
+
+
+# --------------------------------------------------------------------------
+# Embedding / logits
+# --------------------------------------------------------------------------
+
+
+def embed_defs(cfg) -> dict:
+    defs = {"embedding": ((cfg.vocab_size, cfg.d_model), ("vocab", None), "fan_in")}
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ((cfg.d_model, cfg.vocab_size), (None, "vocab"), "fan_in")
+    return defs
+
+
+def embed_tokens(cfg, p, tokens):
+    x = p["embedding"][tokens].to(resolve_dtype(cfg.dtype))
+    return x * math.sqrt(cfg.d_model)
+
+
+def logits_from_hidden(cfg, p, x):
+    dt = x.dtype
+    table = p["lm_head"].to(dt) if "lm_head" in p else p["embedding"].to(dt).T
+    return (x @ table).to(resolve_dtype(cfg.logit_dtype))
+
+
+def norm_defs(cfg, name: str = "scale") -> dict:
+    return {name: ((cfg.d_model,), ("embed",), "zeros")}

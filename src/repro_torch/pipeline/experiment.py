@@ -51,10 +51,11 @@ from ..core.nonlinear import NLModel, SiliconMR
 from ..core.reservoir import generate_channel_states, generate_states
 from ..core.tasks import SYMBOLS
 from ..device import host_values, resolve_device
+from ..kernels.readout_apply import readout_apply
 from .ridge import (_chunk_axis, _row_mask, _shared_chunk_states_fn, apply_readout,
                     composed_chunk_states_fn, fit_ridge_batched, fit_ridge_streaming,
                     fit_ridge_streaming_composed, fit_ridge_streaming_shared,
-                    fit_ridge_streaming_wdm, with_bias)
+                    fit_ridge_streaming_wdm)
 from .stages import stage
 
 _SYMBOLS = tuple(float(s) for s in SYMBOLS)
@@ -306,7 +307,7 @@ def _eval_streaming(cfg: ExperimentConfig, states_fn, j_te, te_tg3, w_fit, s0):
     chunks = zip(_chunk_axis(j_te, chunk_k), _chunk_axis(te_tg3, chunk_k))
     for i, (j_c, y_c) in enumerate(chunks):
         states, s = states_fn(j_c, s)
-        y_hat = with_bias(states).to(torch.float32) @ w_fit          # [B, chunk, C]
+        y_hat = readout_apply(states, w_fit)                         # [B, chunk, C] f32
         valid = _row_mask(i * chunk_k, chunk_k, 0, t_total, dev)[None, :, None]
         err = (y_hat - y_c) * valid
         err2 = err2 + torch.sum(err * err, dim=1)

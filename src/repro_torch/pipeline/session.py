@@ -50,6 +50,7 @@ from ..core.nonlinear import NLModel, SiliconMR
 from ..core.reservoir import generate_states
 from ..device import resolve_device
 from ..kernels.dfr_scan.ops import BLOCK_S_CHOICES
+from ..kernels.readout_apply import readout_apply
 from .ridge import _fold_chunk, _FoldPlan, _plan_fold, guard_readout, solve_gcv, with_bias
 
 
@@ -270,8 +271,9 @@ def _solve(cfg: SessionConfig, state: SessionState) -> SessionState:
 
 
 def _predict(states: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """y_hat [B, chunk, C] f32 from the states and the current readout."""
-    return with_bias(states).to(torch.float32) @ w
+    """y_hat [B, chunk, C] f32 from the states and the current readout
+    (the readout-apply kernel: bf16 states are read as they are)."""
+    return readout_apply(states, w)
 
 
 def session_update(cfg: SessionConfig, mask, state: SessionState, j_chunk, y_chunk, *,

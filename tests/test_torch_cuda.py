@@ -19,7 +19,11 @@ same rounded chunks, f32 sums in another order) and its NRMSE is within
 0.06 of f32 chunks.  Sessions: one K1 and one K3 launch a tick, no
 synchronising call in a fold-only tick, session == streaming fit bitwise
 (λ = 1.0 and 0.99), K1 with non-finite carry and drive rows bitwise its
-plain version as int patterns, and a server's restore bitwise.
+plain version as int patterns, and a server's restore bitwise.  The
+readout-apply kernel within 1e-6 of its plain version relative to the
+sum's magnitude (f32 products and sums, in another order); the LM's
+reservoir mixer on K1 bitwise its plain route; an LM's decode within the
+reference's 2e-4 / 2e-3 of its forward.
 """
 
 import dataclasses
@@ -556,3 +560,95 @@ def test_contract_gate_holds_every_entry_on_the_card(dev):
     assert not bad, bad
     (seeded,) = [e for e in report["entry_points"] if e["name"] == "seeded_violation"]
     assert not seeded["ok"]
+
+
+@pytest.mark.parametrize("b,t,n,c,dtype,w_batch", [(64, 256, 900, 1, torch.bfloat16, None),
+                                                   (4096, 32, 64, 1, torch.float32, None),
+                                                   (3, 7, 33, 6, torch.float32, None),
+                                                   (5, 1, 1, 9, torch.bfloat16, None),
+                                                   (4, 9, 801, 2, torch.bfloat16, 1)])
+def test_readout_apply_kernel_matches_plain(dev, b, t, n, c, dtype, w_batch):
+    """Within 1e-6 of the plain version (the widened matmul) relative to the
+    sum's magnitude: both take each product in f32 and sum in f32, in
+    another order.  One launch a call; a w of batch 1 is broadcast."""
+    from repro_torch.kernels.readout_apply import ops as apply_ops
+    from repro_torch.pipeline import with_bias
+
+    rng = np.random.default_rng(b + t + n + c)
+    x = torch.as_tensor(rng.uniform(0, 1, (b, t, n)), dtype=torch.float32, device=dev).to(dtype)
+    w = torch.as_tensor(rng.standard_normal((w_batch or b, n + 1, c)), dtype=torch.float32,
+                        device=dev)
+    before = (apply_ops.readout_apply.launches, apply_ops.readout_apply.calls)
+    out = apply_ops.readout_apply(x, w)
+    assert (apply_ops.readout_apply.launches - before[0],
+            apply_ops.readout_apply.calls - before[1]) == (1, 1)
+    ref = apply_ops.readout_apply_plain(x, w)
+    assert out.dtype == torch.float32 and out.shape == (b, t, c)
+    scale = with_bias(x).float().abs() @ w.abs()
+    assert float(((out - ref).abs() / scale).max()) <= 1e-6
+
+
+def test_readout_apply_kernel_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels.readout_apply import ops as apply_ops
+
+    x = torch.zeros((2, 3, 4), device=dev)
+    w = torch.zeros((2, 5, 1), device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        apply_ops.readout_apply(x.half(), w)
+    with pytest.raises(ValueError, match="float32 weights"):
+        apply_ops.readout_apply(x, w.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reservoir_mixer_on_k1_is_bitwise_its_plain_route(dev, dtype):
+    """The LM's mixer through K1 == through the scan's plain version, on the
+    card, from zero and resumed from its carry; one K1 launch a call."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import layer as mixer
+
+    cfg = get_config("reservoir_lm")
+    r, n, d = mixer._n_channels(cfg), cfg.reservoir_nodes, cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = {"w_in": torch.randn((d, r), generator=g, device=dev) / d ** 0.5,
+         "readout": torch.randn((r * n, d), generator=g, device=dev) / (r * n) ** 0.5,
+         "readout_bias": torch.randn((d,), generator=g, device=dev) * 0.1}
+    x = torch.randn((2, 24, d), generator=g, device=dev).to(dtype)
+    before = scan_ops.dfr_scan.launches
+    y1, c1 = mixer.apply_reservoir(cfg, p, x[:, :16])
+    y2, c2 = mixer.apply_reservoir(cfg, p, x[:, 16:], cache=c1)
+    assert scan_ops.dfr_scan.launches == before + 2
+
+    def scan_plain(model, j, mask, s0, *, return_final=False, out_dtype=None, **_):
+        states, fin = scan_ops.dfr_scan_plain(model, j, mask, s0, out_dtype=out_dtype)
+        return (states, fin) if return_final else states
+
+    real = mixer.dfr_scan
+    mixer.dfr_scan = scan_plain
+    try:
+        p1, pc1 = mixer.apply_reservoir(cfg, p, x[:, :16])
+        p2, pc2 = mixer.apply_reservoir(cfg, p, x[:, 16:], cache=pc1)
+    finally:
+        mixer.dfr_scan = real
+    assert torch.equal(y1, p1) and torch.equal(y2, p2)
+    assert torch.equal(c2[0], pc2[0]) and torch.equal(c2[1], pc2[1])
+
+
+def test_lm_decode_matches_forward_on_the_card(dev):
+    """reservoir_lm and granite-8b (smoke widths, f32) decode on the card
+    as they forward, at the reference's bound."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+
+    for arch in ("reservoir_lm", "granite-8b"):
+        cfg = smoke_config(arch)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+        if arch == "reservoir_lm":
+            ro = params["units"][0]["mixer/readout"]
+            ro.copy_(torch.randn(ro.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                                 device=dev) * 0.1)
+        toks = torch.randint(0, cfg.vocab_size, (2, 10), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(3))
+        full, _ = forward(cfg, params, toks)
+        _, cache = prefill(cfg, params, toks[:, :9], max_len=10)
+        step, _ = decode_step(cfg, params, cache, toks[:, 9:])
+        torch.testing.assert_close(step[:, 0], full[:, -1], atol=2e-4, rtol=2e-3)
