@@ -202,10 +202,9 @@ def _device_sweep_program(name, device, *, state_dtype="float32", use_kernel=Fal
 @register("device_sweep", "Swept-params CMT robustness map: grid as lanes, one streamed run")
 def _device_sweep(device):
     prog = _device_sweep_program("device_sweep", device)
-    # torch states and a matmul Gram throughout; the readout-apply kernel
-    # an eval chunk
     return prog, (NoHostSync(allow=_EIGH), NoDtypeAbove("float32"),
-                  MaxKernelCalls((1, _EVAL_CHUNKS)), *_state_rules())
+                  MaxKernelCalls(0),          # torch states and a matmul Gram throughout
+                  *_state_rules())
 
 
 @register("device_sweep_bf16", "Swept CMT map, bf16 state chunks (no silent f32 chunk upcast)")

@@ -56,32 +56,52 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def generate(cfg, params, prompts: torch.Tensor, new_tokens: int):
-    """Greedy serving of ``prompts`` [B, P]: one prefill, then
-    ``new_tokens - 1`` decode steps.  Returns ``(ids [B, new_tokens],
-    logits [B, new_tokens, V], seconds)`` with ``seconds`` = {"prefill",
-    "decode"} host wall, each ending in a device synchronise.  No step reads
-    a value back to the host."""
+def start(cfg, params, prompts: torch.Tensor, new_tokens: int, *, slack: int = 0) -> dict:
+    """Prefill ``prompts`` [B, P] into a cache with room for ``new_tokens``
+    (and ``slack`` more decode steps) and take the first greedy token.
+
+    Returns the served batch: ``ids`` and ``logits`` (a list of [B, 1] and
+    [B, V] tensors, one a token), the ``cache``, ``prefill_s`` and
+    ``decode_step_s`` (host wall, each ending in a device synchronise).
+    """
     dev = prompts.device
-    max_len = prompts.shape[1] + new_tokens
+    max_len = prompts.shape[1] + new_tokens + slack
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = serve_prefill(cfg, params, prompts, max_len=max_len)
     tok = torch.argmax(logits, dim=-1)[:, None]
-    generated, all_logits = [tok], [logits]
     _sync(dev)
-    t_prefill = time.perf_counter() - t0
+    return {"ids": [tok], "logits": [logits], "cache": cache,
+            "prefill_s": time.perf_counter() - t0, "decode_step_s": []}
 
+
+def decode(cfg, params, served: dict) -> None:
+    """One greedy decode step of a served batch (``start``), in place.  No
+    step reads a value back to the host."""
+    tok = served["ids"][-1]
+    _sync(tok.device)
     t0 = time.perf_counter()
+    logits, served["cache"] = serve_decode(cfg, params, served["cache"], tok)
+    served["ids"].append(torch.argmax(logits, dim=-1)[:, None])
+    served["logits"].append(logits)
+    _sync(tok.device)
+    served["decode_step_s"].append(time.perf_counter() - t0)
+
+
+def generate(cfg, params, prompts: torch.Tensor, new_tokens: int, *, slack: int = 0) -> dict:
+    """Greedy serving of ``prompts`` [B, P]: one prefill, then
+    ``new_tokens - 1`` decode steps.  The served batch of ``start``, with
+    ``ids`` [B, new_tokens] and ``logits`` [B, new_tokens, V] joined."""
+    served = start(cfg, params, prompts, new_tokens, slack=slack)
     for _ in range(new_tokens - 1):
-        logits, cache = serve_decode(cfg, params, cache, tok)
-        tok = torch.argmax(logits, dim=-1)[:, None]
-        generated.append(tok)
-        all_logits.append(logits)
-    _sync(dev)
-    t_decode = time.perf_counter() - t0
-    return (torch.cat(generated, dim=1), torch.stack(all_logits, dim=1),
-            {"prefill": t_prefill, "decode": t_decode})
+        decode(cfg, params, served)
+    return joined(served)
+
+
+def joined(served: dict) -> dict:
+    """A served batch with its ``ids`` and ``logits`` joined over tokens."""
+    return {**served, "ids": torch.cat(served["ids"], dim=1),
+            "logits": torch.stack(served["logits"], dim=1)}
 
 
 def main(argv=None):
@@ -102,11 +122,12 @@ def main(argv=None):
     b = args.requests
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, args.prompt_len)),
                               dtype=torch.int64, device=dev)
-    ids, _, seconds = generate(cfg, params, prompts, args.new_tokens)
-    out = ids.cpu().numpy()
-    tps = b * (args.new_tokens - 1) / max(seconds["decode"], 1e-9)
-    print(f"arch={cfg.name} device={dev} batch={b} prefill={seconds['prefill']*1e3:.1f}ms "
-          f"decode={seconds['decode']*1e3:.1f}ms ({tps:.1f} tok/s) "
+    served = generate(cfg, params, prompts, args.new_tokens)
+    out = served["ids"].cpu().numpy()
+    decode_s = sum(served["decode_step_s"])
+    tps = b * (args.new_tokens - 1) / max(decode_s, 1e-9)
+    print(f"arch={cfg.name} device={dev} batch={b} prefill={served['prefill_s']*1e3:.1f}ms "
+          f"decode={decode_s*1e3:.1f}ms ({tps:.1f} tok/s) "
           f"sample={out[0, :12].tolist()}")
     return out
 

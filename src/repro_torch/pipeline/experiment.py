@@ -51,7 +51,7 @@ from ..core.nonlinear import NLModel, SiliconMR
 from ..core.reservoir import generate_channel_states, generate_states
 from ..core.tasks import SYMBOLS
 from ..device import host_values, resolve_device
-from ..kernels.readout_apply import readout_apply
+from ..kernels.readout_apply import readout_apply, readout_apply_plain
 from .ridge import (_chunk_axis, _row_mask, _shared_chunk_states_fn, apply_readout,
                     composed_chunk_states_fn, fit_ridge_batched, fit_ridge_streaming,
                     fit_ridge_streaming_composed, fit_ridge_streaming_shared,
@@ -86,7 +86,9 @@ class ExperimentConfig:
     quantize: bool = False
     # Streaming fused path: a chunk length in periods streams fit and eval;
     # the solve is then always the Gram/eigh route (``readout_use_kernel``
-    # picks how G accumulates: the Gram kernel or a plain matmul).
+    # picks how G accumulates, the Gram kernel or a plain matmul, and how
+    # the evaluation applies the readout, the readout-apply kernel or the
+    # widened matmul).
     # ``state_noise_mode``: "sampled" draws the noise on the materialized
     # states (materialized route only), "diagonal" adds its expected Gram
     # σ²·T_fit·I (the streaming route).
@@ -304,10 +306,11 @@ def _eval_streaming(cfg: ExperimentConfig, states_fn, j_te, te_tg3, w_fit, s0):
     y_sq = torch.zeros((b, c_cols), dtype=torch.float32, device=dev)
     s = s0
     y_chunks = []
+    apply = readout_apply if cfg.readout_use_kernel else readout_apply_plain
     chunks = zip(_chunk_axis(j_te, chunk_k), _chunk_axis(te_tg3, chunk_k))
     for i, (j_c, y_c) in enumerate(chunks):
         states, s = states_fn(j_c, s)
-        y_hat = readout_apply(states, w_fit)                         # [B, chunk, C] f32
+        y_hat = apply(states, w_fit)                                 # [B, chunk, C] f32
         valid = _row_mask(i * chunk_k, chunk_k, 0, t_total, dev)[None, :, None]
         err = (y_hat - y_c) * valid
         err2 = err2 + torch.sum(err * err, dim=1)

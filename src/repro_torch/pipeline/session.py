@@ -8,9 +8,10 @@ leaf has a leading batch axis, so one state IS a continuously batched slab.
 
 * ``session_step`` is the serving tick: ONE reservoir pass per chunk (one
   scan-kernel launch with ``state_method="kernel"``) shared by the
-  prediction, made with the readout solved from earlier chunks, and the
-  fold of the chunk into the Gram statistics (one accumulate-into Gram
-  launch with ``use_kernel=True``), optionally followed by a re-solve.
+  prediction, made with the readout solved from earlier chunks (one
+  readout-apply launch with ``use_kernel=True``), and the fold of the
+  chunk into the Gram statistics (one accumulate-into Gram launch with
+  ``use_kernel=True``), optionally followed by a re-solve.
 * **RLS forgetting** (``forgetting`` = λ < 1) scales the carried statistics
   by λ per chunk; at λ = 1.0 no scaling op runs, and a chunk-aligned
   session folds and solves bitwise as ``fit_ridge_streaming`` does.
@@ -50,7 +51,7 @@ from ..core.nonlinear import NLModel, SiliconMR
 from ..core.reservoir import generate_states
 from ..device import resolve_device
 from ..kernels.dfr_scan.ops import BLOCK_S_CHOICES
-from ..kernels.readout_apply import readout_apply
+from ..kernels.readout_apply import readout_apply, readout_apply_plain
 from .ridge import _fold_chunk, _FoldPlan, _plan_fold, guard_readout, solve_gcv, with_bias
 
 
@@ -73,7 +74,8 @@ class SessionConfig:
     forgetting: float = 1.0
     refresh_every: int = 1
     state_method: str = "fast"     # "fast" | "ref" | "kernel"
-    use_kernel: bool = False       # Gram fold via the accumulate-into Gram op
+    use_kernel: bool = False       # Gram fold via the accumulate-into Gram op,
+                                   # prediction via the readout-apply kernel
     block_s: int | None = None     # TPU sublane tile: validated, unused
     block_t: int = 512             # fold tile of the Gram's plain version
     block_f: int = 128             # TPU feature tile: validated, unused
@@ -270,10 +272,11 @@ def _solve(cfg: SessionConfig, state: SessionState) -> SessionState:
     return state._replace(w=w, lam_idx=idx)
 
 
-def _predict(states: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _predict(cfg: SessionConfig, states: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y_hat [B, chunk, C] f32 from the states and the current readout
-    (the readout-apply kernel: bf16 states are read as they are)."""
-    return readout_apply(states, w)
+    (``use_kernel``: the readout-apply kernel, which reads bf16 states as
+    they are; else the widened matmul)."""
+    return (readout_apply if cfg.use_kernel else readout_apply_plain)(states, w)
 
 
 def session_update(cfg: SessionConfig, mask, state: SessionState, j_chunk, y_chunk, *,
@@ -302,7 +305,7 @@ def session_predict(cfg: SessionConfig, mask, state: SessionState, j_chunk):
     untouched, the carry and period counter advance.
     """
     states, s_next = _gen_chunk(cfg, mask, j_chunk, state.s)
-    return _predict(states, state.w), state._replace(s=s_next, step=state.step + cfg.chunk_k)
+    return _predict(cfg, states, state.w), state._replace(s=s_next, step=state.step + cfg.chunk_k)
 
 
 def _session_step(cfg: SessionConfig, mask, state: SessionState, j_chunk, y_chunk, *,
@@ -324,7 +327,7 @@ def _session_step(cfg: SessionConfig, mask, state: SessionState, j_chunk, y_chun
         state = _zero_rows_(state, _as_rows(state, reset))
     y3 = _canon_chunk_targets(cfg, y_chunk, state.s.device)
     states, s_next = _gen_chunk(cfg, mask, j_chunk, state.s)
-    y_hat = _predict(states, state.w)
+    y_hat = _predict(cfg, states, state.w)
     state = _fold(cfg, state, states, y3, _valid_mask(cfg, state.step, n_valid), s_next)
     if refresh:
         state = _solve(cfg, state)

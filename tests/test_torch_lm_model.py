@@ -6,6 +6,14 @@ reservoir readout too) carried across by ``convert.lm_params_from_reference``.
 Tolerances, f32: logits to 1e-5 against the reference (the port agrees to
 ≈ 1e-6 on O(1) logits: sums in another order); the port's decode against
 its own forward at the reference's 2e-4 / 2e-3 (tests/test_models.py:73).
+bf16 (reservoir_lm's own serving dtype): logits to BF16_LOGIT_TOL = 2^-4
+against the reference run in bf16.  The logits (|z| < 3 here) are f32
+products of bf16 hidden states that the two round apart; over the five
+smoke archs × seeds 0-2 the gaps came to 2^-7 … 2^-5 (one to two ulps of a
+bf16 value in [2, 4)), and the bound is twice the largest.  It catches what
+is larger than bf16 rounding; the port run in f32 is within 0.023 of the
+reference's bf16 logits here, so the bf16 test also checks the caches'
+dtype.
 """
 
 import dataclasses
@@ -36,6 +44,7 @@ SERVED = ["reservoir_lm", "granite-8b", "gemma-7b", "qwen3-32b", "starcoder2-3b"
 UNPORTED = ["jamba-v0.1-52b", "xlstm-1.3b", "qwen3-moe-30b-a3b", "llama-3.2-vision-11b",
             "seamless-m4t-medium"]
 LOGIT_TOL = 1e-5
+BF16_LOGIT_TOL = 2 ** -4
 DECODE_ATOL, DECODE_RTOL = 2e-4, 2e-3
 
 
@@ -84,6 +93,31 @@ def test_forward_prefill_decode_match_reference(arch):
     for tu, ju in zip(tc["units"], jc["units"], strict=True):
         for tb, jb in zip(tu, ju, strict=True):
             _close(tb, jb)
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_bf16_forward_prefill_decode_match_reference(arch):
+    cfg, jcfg, jp, tp = _setup(arch)
+    cfg, jcfg = (dataclasses.replace(c, dtype="bfloat16") for c in (cfg, jcfg))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 10))
+
+    def close(t, j):
+        _close(t.float(), np.asarray(j, dtype=np.float32), BF16_LOGIT_TOL)
+
+    jl, _ = jforward(jcfg, jp, jnp.asarray(toks, jnp.int32))
+    tl, _ = forward(cfg, tp, torch.as_tensor(toks))
+    close(tl, jl)
+    jpl, jc = jprefill(jcfg, jp, jnp.asarray(toks[:, :7], jnp.int32), max_len=12)
+    tpl, tc = prefill(cfg, tp, torch.as_tensor(toks[:, :7]), max_len=12)
+    close(tpl, jpl)
+    for i in range(7, 10):
+        jd, jc = jdecode_step(jcfg, jp, jc, jnp.asarray(toks[:, i:i + 1], jnp.int32))
+        td, tc = decode_step(cfg, tp, tc, torch.as_tensor(toks[:, i:i + 1]))
+        close(td, jd)
+    # the cache is kept in the model's dtype, as the reference's
+    for tu, ju in zip(tc["units"], jc["units"], strict=True):
+        for tb, jb in zip(tu, ju, strict=True):
+            assert str(tb.dtype).removeprefix("torch.") == str(jb.dtype)
 
 
 @pytest.mark.parametrize("arch", SERVED)
@@ -204,8 +238,10 @@ def test_serve_launcher_logits_match_reference_greedy_loop():
     jp = jax.tree.map(jnp.asarray, params)
     prompts = rng.integers(0, cfg.vocab_size, (2, 12))
     new = 6
-    ids, logits, _ = serve.generate(cfg, convert.lm_params_from_reference(params, device="cpu"),
-                                    torch.as_tensor(prompts), new)
+    served = serve.generate(cfg, convert.lm_params_from_reference(params, device="cpu"),
+                            torch.as_tensor(prompts), new)
+    ids, logits = served["ids"], served["logits"]
+    assert len(served["decode_step_s"]) == new - 1 and served["cache"]["pos"] == 12 + new - 1
     jl, cache = jsteps.serve_prefill(jcfg, jp, jnp.asarray(prompts, jnp.int32), max_len=12 + new)
     ref_logits = [np.asarray(jl)]
     tok = ids[:, :1].numpy()             # feed the port's own ids to both

@@ -77,9 +77,10 @@ def test_counts_a_call_on_either_route_and_launches_only_on_the_card():
 
 
 def _bf16_config(**kw):
+    kw = {"readout_use_kernel": True, **kw}
     return ExperimentConfig(model=SiliconMR(), n_nodes=16, washout=16, ridge_l2=(1e-6, 1e-4),
                             state_noise_rel=0.0, stream_chunk_k=32, state_method="kernel",
-                            readout_use_kernel=True, stream_state_dtype="bfloat16", **kw)
+                            stream_state_dtype="bfloat16", **kw)
 
 
 def test_streamed_bf16_and_session_results_unchanged(monkeypatch):
@@ -98,8 +99,29 @@ def test_streamed_bf16_and_session_results_unchanged(monkeypatch):
     assert np.array_equal(new.nrmse, old.nrmse) and np.array_equal(new.y_pred, old.y_pred)
     states = torch.as_tensor(rng.uniform(0, 1, (4, 32, 16)), dtype=torch.float32)
     w = torch.as_tensor(rng.standard_normal((4, 17, 1)), dtype=torch.float32)
+    cfg = session_mod.SessionConfig(model=SiliconMR(), n_nodes=16, use_kernel=True)
     for dt in (torch.float32, torch.bfloat16):
-        assert torch.equal(session_mod._predict(states.to(dt), w), widened(states.to(dt), w))
+        assert torch.equal(session_mod._predict(cfg, states.to(dt), w), widened(states.to(dt), w))
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_the_kernel_flags_pick_the_readout_apply_route(use_kernel):
+    """``readout_use_kernel`` (a streamed evaluation) and the session's
+    ``use_kernel`` (its prediction) take the op, one call a chunk; without
+    them the plain widened matmul runs and no call is made, so the plain
+    witnesses of the kernel paths stay plain throughout."""
+    rng = np.random.default_rng(9)
+    data = tuple(rng.uniform(0, 1, (3, t)).astype(np.float32) for t in (96, 96, 64, 64))
+    calls = ops.readout_apply.calls
+    Experiment(_bf16_config(readout_use_kernel=use_kernel), device=CPU).run(*data)
+    assert ops.readout_apply.calls - calls == (2 if use_kernel else 0)   # 64 test periods / 32
+    cfg = session_mod.SessionConfig(model=SiliconMR(), n_nodes=16, use_kernel=use_kernel)
+    states = torch.as_tensor(rng.uniform(0, 1, (2, 32, 16)), dtype=torch.bfloat16)
+    w = torch.as_tensor(rng.standard_normal((2, 17, 1)), dtype=torch.float32)
+    calls = ops.readout_apply.calls
+    y = session_mod._predict(cfg, states, w)
+    assert ops.readout_apply.calls - calls == int(use_kernel)
+    assert torch.equal(y, readout_apply_plain(states, w))
 
 
 def _eval_program(apply):
