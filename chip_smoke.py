@@ -50,8 +50,11 @@ Phases, each printing one JSON line:
 8. the ``kernels`` line, after every other phase: each kernel at the
    shapes of the path it rides,
    its launches on that path, error vs the plain version (K1 also on a
-   chunk resumed from a carry and on a split from zero, exact),
-   kernel / plain / library times and the roofline bound (K1 also its chain
+   chunk resumed from a carry and on a split from zero, exact), the
+   kernel's and the library call's device time warm (``ms``,
+   ``library_ms``) and with L2 flushed before each call (``cold_ms``, the
+   bound share's denominator), the host's time a call through the wrapper
+   (``call_ms``), the plain version's time and the roofline bound (K1 also its chain
    bound at the card's maximum SM clock, from a chain-only loop timed on
    the card in this run, and its lanes a block) (K3 at the fold chunk of
    each of its three paths, timed from a symmetric running Gram), K1 and
@@ -138,7 +141,8 @@ Then the program contracts (``repro_torch.analysis``):
    whole-array tile is flagged and refused); a K = 20000 streamed fit at
    N = 900 under a quarter of one [B, K, N] f32 state tensor.  The
    kernels line also holds ``block_copy`` bitwise to its plain version
-   at the fixture's in-budget tile, beside ``x.clone()``.
+   at the fixture's in-budget tile (the TMA route), beside ``x.clone()``,
+   and names the route that ran.
 
 Then the LM serving path (``repro_torch.models``, ``runtime.steps``):
 
@@ -153,7 +157,7 @@ Then the LM serving path (``repro_torch.models``, ``runtime.steps``):
    the LM's prefill and decode shapes, and the readout-apply kernel at the
    streamed evaluation's bf16 chunk [64, 256, 900] and the session tick's
    [4096, 32, 64] (within 1e-6 of its plain version, relative to the sum's
-   magnitude, beside ``torch.baddbmm``).
+   magnitude, bitwise from call to call, beside ``torch.baddbmm``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -3238,6 +3242,7 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     from repro_torch.kernels.dfr_scan import ops as scan_ops
     from repro_torch.kernels.readout_apply import ops as apply_ops
     from repro_torch.kernels.ridge_gram import ops as gram_ops
+    from repro_torch.launch.time_kernels import kernel_times
     from repro_torch.pipeline import composed_chunk_states_fn, with_bias
     from repro_torch.pipeline.experiment import _canon_batch, _input_layer
 
@@ -3249,6 +3254,22 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     rows = []
     cycles = chain_cycles(dev)
     clocks = sm_clocks_mhz()
+
+    def times(fn, reps, bound, library=None):
+        """The kernel's ``ms``, ``cold_ms`` and ``call_ms`` (kernel_times),
+        its bound share of ``cold_ms``, and the library call's times."""
+        t = kernel_times(fn, reps)
+        out = {"ms": t["ms"], "cold_ms": t["cold_ms"], "call_ms": t["call_ms"],
+               "host_ahead": t["host_ahead"], "bound_share": bound / t["cold_ms"]}
+        if library is not None:
+            lt = kernel_times(library, reps)
+            out.update(library_ms=lt["ms"], library_cold_ms=lt["cold_ms"],
+                       library_call_ms=lt["call_ms"], library_host_ahead=lt["host_ahead"],
+                       vs_library=t["ms"] / lt["ms"])
+        return out
+
+    def plain_time(fn, reps):
+        return kernel_times(fn, reps, cold=False)["ms"]
 
     def scan_row(name, j, mask, launches, path, chunk=STREAM_CHUNK, model=model):
         b, k = j.shape
@@ -3283,9 +3304,10 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                        "checked_k": chunk, "max_abs_err": err_full, "plain_s": full_s})
         check(err_full == 0.0, f"{name} vs plain on a whole split: {err_full}")
         del out, ref
-        ms = cuda_ms(lambda: scan_ops.dfr_scan(model, j1, mask, carry), reps=5)
         bound, by = bound_ms(4 * (b * chunk + mask.numel() + 2 * b * n + b * chunk * n),
                              SCAN_OPS_PER_STEP * b * chunk * n)
+        t = times(lambda: scan_ops.dfr_scan(model, j1, mask, carry), 5, bound)
+        ms = t["ms"]
         # each lane's K·N steps are one dependent chain, each step at least
         # CHAIN_OPS dependent f32 ops; lanes run side by side
         chain_bound = chunk * n * cycles["least_step"] / (clocks["max"] * 1e3)
@@ -3293,7 +3315,7 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                      "source": "src/repro_torch/kernels/csrc/dfr_scan.cu",
                      "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97",
                      "launches": launches, "path": path,
-                     "max_abs_err": max(c["max_abs_err"] for c in checks), "ms": ms,
+                     "max_abs_err": max(c["max_abs_err"] for c in checks), **t,
                      "plain_ms": plain_s * 1e3, "bound_ms": bound, "bound_by": by,
                      "library_ms": None, "chain_bound_ms": chain_bound,
                      "chain_bound_share": chain_bound / ms, "chain_cycles_per_step": cycles,
@@ -3346,22 +3368,21 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                   f"{name} from a non-symmetric G0: {max_err(gi, gq)}")
             del r0, rc, gi, ci, gq, cq
             g_run, c_run = g0.clone(), c0.clone()
-            ms = cuda_ms(lambda: gram_ops.gram_accumulate_batched_into(
-                g_run, c_run, x, y, round_y=False), reps=5)
+            kernel = (lambda: gram_ops.gram_accumulate_batched_into(
+                g_run, c_run, x, y, round_y=False))
             g_pl, c_pl = g0.clone(), c0.clone()
-            plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(
-                x, y, g0=g_pl, c0=c_pl, round_y=False), reps=5)
-            lib_call, lib_ms = "torch.baddbmm", cuda_ms(lambda: torch.baddbmm(g0, x.mT, x),
-                                                        reps=5)
+            plain_ms = plain_time(lambda: gram_ops.gram_plain_batched(
+                x, y, g0=g_pl, c0=c_pl, round_y=False), 5)
+            lib_call, library = "torch.baddbmm", (lambda: torch.baddbmm(g0, x.mT, x))
             zeros = torch.zeros_like(g0), torch.zeros_like(c0)
             vs_bound = {"kernel": gram_error_ratio(*gram_ops.gram_accumulate_batched_into(
                             *zeros, x, y, round_y=False), x, y),
                         "plain": gram_error_ratio(*gram_ops.gram_plain_batched(
                             x, y, round_y=False), x, y)}
         else:
-            ms = cuda_ms(lambda: gram_ops.gram_accumulate_batched(x, y), reps=5)
-            plain_ms = cuda_ms(lambda: gram_ops.gram_plain_batched(x, y), reps=5)
-            lib_call, lib_ms = "torch.bmm", cuda_ms(lambda: torch.bmm(x.mT, x), reps=5)
+            kernel = (lambda: gram_ops.gram_accumulate_batched(x, y))
+            plain_ms = plain_time(lambda: gram_ops.gram_plain_batched(x, y), 5)
+            lib_call, library = "torch.bmm", (lambda: torch.bmm(x.mT, x))
             vs_bound = {"kernel": gram_error_ratio(g, c, x, y),
                         "plain": gram_error_ratio(gp, cp, x, y)}
         # G is symmetric: the function needs F(F+1)/2 dot products over T,
@@ -3372,9 +3393,9 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
                      "replaces": replaces, "launches": launches, "path": path,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "library_ms": lib_ms, "library_call": lib_call,
-                     "bound_share": bound / ms, "vs_library": ms / lib_ms,
+                     "max_abs_err": err, **times(kernel, 5, bound, library),
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_call": lib_call,
                      "shape_btf": [b, t, f], "g0": "K2 of the chunk before" if into else None,
                      "symmetric_bitwise": True, "error_vs_f32_sum_bound": vs_bound})
         return g
@@ -3451,15 +3472,16 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         (ref, _), plain_s = wall(lambda: scan_ops.dfr_scan_plain(model, jk, mask, zero))
         err = max_err(out, ref)
         check(err <= tol, f"{name} vs plain on the first {check_k} periods: {err} > {tol}")
-        ms = cuda_ms(lambda: scan_ops.dfr_scan(model, j, mask, zero), reps=3)
         bound, by = bound_ms(4 * (b * k + mask.numel() + 2 * b * n + b * k * n), ops * b * k * n)
+        t = times(lambda: scan_ops.dfr_scan(model, j, mask, zero), 3, bound)
+        ms = t["ms"]
         chain_bound = (None if step_cycles is None
                        else k * n * step_cycles / (clocks["max"] * 1e3))
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/dfr_scan.cu",
                      "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97",
                      "launches": launches, "path": path, "max_abs_err": err,
-                     "exact_vs_plain": err == 0.0, "ms": ms, "plain_ms": plain_s * 1e3,
+                     "exact_vs_plain": err == 0.0, **t, "plain_ms": plain_s * 1e3,
                      "plain_shape_bkn": [b, check_k, n], "bound_ms": bound, "bound_by": by,
                      "library_ms": None, "chain_bound_ms": chain_bound,
                      "chain_bound_share": None if chain_bound is None else chain_bound / ms,
@@ -3533,7 +3555,8 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
 
     def apply_row(name, x, w, launches, path):
         """The readout-apply kernel against its plain version (the widened
-        matmul) and one ``torch.baddbmm`` on the features already in f32."""
+        matmul), bitwise from call to call, and one ``torch.baddbmm`` on the
+        features already in f32."""
         b, t, n = x.shape
         cols = w.shape[-1]
         out = apply_ops.readout_apply(x, w)
@@ -3541,10 +3564,12 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         scale = with_bias(x).float().abs() @ w.abs()
         rel = float(((out - ref).abs() / scale).max())
         check(rel <= 1e-6, f"{name} vs plain at {[b, t, n]}: {rel} of the sum's magnitude")
+        check(torch.equal(out, apply_ops.readout_apply(x, w)),
+              f"{name}: two calls differ at {[b, t, n]}")
         xf = x.float()
         bound, by = bound_ms(x.numel() * x.element_size() + 4 * (w.numel() + out.numel()),
                              2 * b * t * (n + 1) * cols)
-        ms = cuda_ms(lambda: apply_ops.readout_apply(x, w), reps=20)
+        plan = apply_ops.apply_plan(b, t, n, cols, x.dtype)
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/readout_apply.cu",
                      "replaces": "src/repro/pipeline/experiment.py:336",
@@ -3552,14 +3577,17 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                      "launches": launches, "path": path,
                      "max_abs_err": max_err(out, ref), "max_rel_err_of_sum_magnitude": rel,
                      "bitwise_vs_plain": bool(torch.equal(out, ref)),
-                     "bitwise_share": float((out == ref).float().mean()), "ms": ms,
-                     "plain_ms": cuda_ms(lambda: apply_ops.readout_apply_plain(x, w), reps=5),
+                     "bitwise_share": float((out == ref).float().mean()),
+                     **times(lambda: apply_ops.readout_apply(x, w), 20, bound,
+                             lambda: torch.baddbmm(w[:, n:], xf, w[:, :n])),
+                     "plain_ms": plain_time(lambda: apply_ops.readout_apply_plain(x, w), 5),
                      "bound_ms": bound, "bound_by": by,
-                     "library_ms": cuda_ms(lambda: torch.baddbmm(w[:, n:], xf, w[:, :n]),
-                                           reps=20),
                      "library_call": "torch.baddbmm(w[:, N:], x.float(), w[:, :N]), x widened "
                                      "before the timing",
-                     "bound_share": bound / ms, "shape_btn": [b, t, n], "cols": cols,
+                     "plan": {k: plan[k] for k in ("group", "seg", "passes", "row_groups",
+                                                    "threads", "rows_per_block", "grid",
+                                                    "smem_bytes")},
+                     "shape_btn": [b, t, n], "cols": cols,
                      "dtype": str(x.dtype).removeprefix("torch.")})
 
     # the streamed evaluation's chunk [64, 256, 900] in bf16 (K1's own
@@ -3583,26 +3611,34 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     # version, timed beside x.clone(); every byte is read once and written once
     xc = torch.randn(COPY_SHAPE, device=dev)
     out = copy_ops.block_copy(xc, COPY_TILE)
+    copy_route = copy_ops.block_copy.last_route
     ref = copy_ops.block_copy_plain(xc, COPY_TILE)
     check(torch.equal(out, ref) and torch.equal(out, xc), "block_copy: not bitwise its plain version")
-    ms = cuda_ms(lambda: copy_ops.block_copy(xc, COPY_TILE), reps=20)
+    check(copy_route == "tma", f"block_copy took the {copy_route} route at the fixture's tile")
     bound, by = bound_ms(2 * xc.numel() * xc.element_size(), 0)
     rows.append({"name": "block_copy", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/block_copy.cu",
                  "replaces": "tests/test_analysis.py:251",
                  "launches": paths["contracts"]["block_copy_launches"],
                  "path": "contracts: the SmemBudget fixture at an in-budget tile",
-                 "max_abs_err": max_err(out, ref), "bitwise_vs_plain": True, "ms": ms,
-                 "plain_ms": cuda_ms(lambda: copy_ops.block_copy_plain(xc, COPY_TILE), reps=5),
-                 "bound_ms": bound, "bound_by": by,
-                 "library_ms": cuda_ms(lambda: xc.clone(), reps=20), "library_call": "x.clone()",
-                 "bound_share": bound / ms, "shape": list(COPY_SHAPE), "tile": list(COPY_TILE),
+                 "copy_route": copy_route,
+                 "tma_box": list(copy_ops.copy_route(COPY_SHAPE, xc.dtype, COPY_TILE,
+                                                     xc.data_ptr())["box"]),
+                 "max_abs_err": max_err(out, ref), "bitwise_vs_plain": True,
+                 **times(lambda: copy_ops.block_copy(xc, COPY_TILE), 20, bound,
+                         lambda: xc.clone()),
+                 "plain_ms": plain_time(lambda: copy_ops.block_copy_plain(xc, COPY_TILE), 5),
+                 "bound_ms": bound, "bound_by": by, "library_call": "x.clone()",
+                 "shape": list(COPY_SHAPE), "tile": list(COPY_TILE),
                  "smem_bytes": copy_ops.copy_plan(COPY_SHAPE, xc.dtype, COPY_TILE)["smem_bytes"]})
     del xc, out, ref
     for row in rows:
         if row["name"].startswith("ridge_gram"):
             check(max(row["error_vs_f32_sum_bound"].values()) <= 1.0,
                   f"{row['name']} outside the f32 sum's error bound")
+        # with L2 flushed before each call no kernel can beat its HBM bound
+        check(row["bound_share"] <= 1.0,
+              f"{row['name']}: bound share {row['bound_share']} of its cold time above 1")
     emit({"kernels": rows})
     g_serve = serve["g"]
     eighs = [{"shape": [bb, f, f], "path": "NARMA10 readout", "ms": eigh_ms}]

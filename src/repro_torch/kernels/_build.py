@@ -20,12 +20,15 @@ Nothing here runs at import time: the first ``load`` builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -102,3 +105,21 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, symbol: str, argtypes: tuple):
+    """C entry point ``symbol`` of library ``name``, its ``argtypes`` set
+    once and ``restype`` an int (a cudaError_t)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream, entering the
+    device's context only when it is not the current device."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)

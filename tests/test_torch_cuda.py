@@ -21,7 +21,10 @@ synchronising call in a fold-only tick, session == streaming fit bitwise
 (λ = 1.0 and 0.99), K1 with non-finite carry and drive rows bitwise its
 plain version as int patterns, and a server's restore bitwise.  The
 readout-apply kernel within 1e-6 of its plain version relative to the
-sum's magnitude (f32 products and sums, in another order); the LM's
+sum's magnitude (f32 products and sums, in another order), the same bits
+from call to call, at N on either side of its chunk and lane edges and
+rows off 16 bytes; the block copy bitwise on both its routes (TMA and
+SIMT), each case asserting the route it took; the LM's
 reservoir mixer on K1 bitwise its plain route; an LM's decode within the
 reference's 2e-4 / 2e-3 of its forward.
 """
@@ -526,6 +529,53 @@ def test_block_copy_is_bitwise_its_plain_version(dev, shape, dtype, tile):
     assert (copy_ops.block_copy.launches - before[0],
             copy_ops.block_copy.calls - before[1]) == (1, 1)
     assert torch.equal(out, copy_ops.block_copy_plain(x, tile)) and torch.equal(out, x)
+    assert copy_ops.block_copy.last_route == copy_ops.copy_route(shape, dtype, tile,
+                                                                 x.data_ptr())["route"]
+
+
+def _copy_input(dev, shape, dtype, offset=0):
+    """A contiguous [rows, cols] array of ``dtype`` whose data starts
+    ``offset`` elements into its buffer (off a 16-byte boundary if > 0)."""
+    n = shape[0] * shape[1] + offset
+    buf = (torch.randn(n, device=dev).to(dtype) if dtype.is_floating_point
+           else torch.randint(-2 ** 30, 2 ** 30, (n,), device=dev, dtype=dtype))
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.parametrize("shape,dtype,tile,offset,route", [
+    # the TMA route: the fixture's tile, a tile wider and one taller than a
+    # 256-element box, ragged right and bottom edges, bf16
+    ((2048, 1024), torch.float32, (32, 256), 0, "tma"),
+    ((64, 1040), torch.float32, (8, 512), 0, "tma"),
+    ((610, 96), torch.float32, (300, 32), 0, "tma"),
+    ((100, 200), torch.float32, (32, 48), 0, "tma"),
+    ((256, 520), torch.bfloat16, (16, 64), 0, "tma"),
+    ((32, 256), torch.bfloat16, (16, 8), 0, "tma"),
+    # the SIMT route: the four earlier cases from a pointer off 16 bytes,
+    # (37, 101) and (5, 7) also where they lie, and a tile that fills the
+    # last bytes of a block's shared memory
+    ((2048, 1024), torch.float32, (32, 256), 1, "simt"),
+    ((32, 256), torch.bfloat16, (16, 8), 1, "simt"),
+    ((37, 101), torch.float32, (8, 33), 0, "simt"),
+    ((37, 101), torch.float32, (8, 33), 1, "simt"),
+    ((5, 7), torch.int64, (5, 7), 0, "simt"),
+    ((5, 7), torch.int64, (5, 7), 1, "simt"),
+    ((454, 520), torch.float32, (227, 256), 0, "simt"),
+])
+def test_block_copy_routes_are_bitwise(dev, shape, dtype, tile, offset, route):
+    """Each route copies every element's bits: equal to the plain version
+    and to x, with the route the wrapper chose before the launch."""
+    from repro_torch.kernels.block_copy import ops as copy_ops
+
+    x = _copy_input(dev, shape, dtype, offset)
+    assert copy_ops.copy_route(shape, dtype, tile, x.data_ptr())["route"] == route
+    before = copy_ops.block_copy.launches
+    out = copy_ops.block_copy(x, tile)
+    torch.cuda.synchronize()
+    assert copy_ops.block_copy.launches == before + 1
+    assert copy_ops.block_copy.last_route == route
+    assert torch.equal(out, copy_ops.block_copy_plain(x, tile)) and torch.equal(out, x)
+    assert torch.equal(out.view(torch.uint8), x.view(torch.uint8))
 
 
 def test_block_copy_raises_above_the_shared_memory_of_a_block(dev):
@@ -586,6 +636,61 @@ def test_readout_apply_kernel_matches_plain(dev, b, t, n, c, dtype, w_batch):
     assert out.dtype == torch.float32 and out.shape == (b, t, c)
     scale = with_bias(x).float().abs() @ w.abs()
     assert float(((out - ref).abs() / scale).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("c", [1, 3, 5])
+@pytest.mark.parametrize("t", [1, 3, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 63, 64, 65, 900, 901])
+def test_readout_apply_kernel_edge_grid(dev, n, dtype, t, c):
+    """N at the edges of a row's 16-byte chunks and of a group's lanes, T
+    short and long, C = 1 and over a 4-column sweep (a w of batch 1 at C =
+    3): within 1e-6 of the plain version relative to the sum's magnitude,
+    and the same bits from call to call."""
+    from repro_torch.kernels.readout_apply import ops as apply_ops
+    from repro_torch.pipeline import with_bias
+
+    b = 3
+    rng = np.random.default_rng(n * 1000 + t * 10 + c)
+    x = torch.as_tensor(rng.uniform(-1, 1, (b, t, n)), dtype=torch.float32, device=dev).to(dtype)
+    w = torch.as_tensor(rng.standard_normal((1 if c == 3 else b, n + 1, c)),
+                        dtype=torch.float32, device=dev)
+    out = apply_ops.readout_apply(x, w)
+    ref = apply_ops.readout_apply_plain(x, w)
+    scale = with_bias(x).float().abs() @ w.abs()
+    assert float(((out - ref).abs() / scale).max()) <= 1e-6
+    assert torch.equal(out, apply_ops.readout_apply(x, w))
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 1), (torch.bfloat16, 3),
+                                          (torch.float32, 1)])
+def test_readout_apply_kernel_rows_off_16_bytes(dev, dtype, offset):
+    """Features whose data starts off a 16-byte boundary: every row has its
+    own head and tail; the result is the plain version's, within 1e-6."""
+    from repro_torch.kernels.readout_apply import ops as apply_ops
+    from repro_torch.pipeline import with_bias
+
+    b, t, n = 4, 33, 901
+    buf = torch.rand(b * t * n + offset, device=dev).to(dtype)
+    x = buf[offset:].view(b, t, n)
+    w = torch.randn((b, n + 1, 2), device=dev)
+    out = apply_ops.readout_apply(x, w)
+    scale = with_bias(x).float().abs() @ w.abs()
+    assert float(((out - apply_ops.readout_apply_plain(x, w)).abs() / scale).max()) <= 1e-6
+    assert torch.equal(out, apply_ops.readout_apply(x, w))
+
+
+def test_readout_apply_plan_is_the_kernels_shared_memory(dev):
+    """ops.apply_plan's bytes are what readout_apply.cu stages a block."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.readout_apply import ops as apply_ops
+
+    fn = _build.load("readout_apply").readout_apply_smem_bytes
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((64, 256, 900, 1), (4096, 32, 64, 1), (3, 7, 901, 5), (2, 2, 3000, 2)):
+            plan = apply_ops.apply_plan(*shape, dtype)
+            assert plan["smem_bytes"] == fn(int(dtype == torch.bfloat16), plan["seg"],
+                                            plan["rows_per_block"], plan["col_block"])
 
 
 def test_readout_apply_kernel_rejects_what_it_does_not_take(dev):

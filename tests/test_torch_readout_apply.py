@@ -170,3 +170,112 @@ def test_device_sweep_bf16_holds_every_rule_without_an_exemption():
     assert check_rules(program, rules) == []
     assert program.error is None
     assert count_kernel_calls(program.trace)["readout_apply"] == 2   # an eval chunk each
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan, simulated: every element read exactly once
+# ---------------------------------------------------------------------------
+
+
+def _simulate_reads(plan, b, t, n, itemsize, base_addr):
+    """Replay the kernel's loops (readout_apply.cu) over the plan: how often
+    each x[b, t, f] is read, and the (pass, f) of every w row read."""
+    elems, group, seg, passes = plan["elems"], plan["group"], plan["seg"], plan["passes"]
+    per_group = plan["threads"] // group
+    head_tail = (elems + 2) // 4                     # kHeadTail
+    reads = np.zeros((b, t, n), dtype=np.int64)
+    # block, thread and row group -> (instance, row): each row taken by
+    # exactly one group of `group` lanes, at one slot of its block
+    blk = np.arange(plan["grid"])[:, None, None]
+    tid = np.arange(plan["threads"])[None, :, None]
+    rg = np.arange(plan["row_groups"])[None, None, :]
+    bb = np.broadcast_to(blk // plan["blocks_per_b"], (plan["grid"], plan["threads"],
+                                                         plan["row_groups"]))
+    slot = rg * per_group + tid // group
+    tt = (blk % plan["blocks_per_b"]) * plan["rows_per_block"] + slot
+    assert (slot < plan["rows_per_block"]).all()
+    live = tt < t
+    rows_seen = np.zeros((b, t), dtype=np.int64)
+    np.add.at(rows_seen, (bb[live], tt[live]), 1)
+    assert (rows_seen == group).all()
+    used = set()
+
+    def one_row(addr):
+        """A row's reads by its group's lanes, and the w rows each pass reads."""
+        row_reads = np.zeros(n, dtype=np.int64)
+        head, body, tail = ops.row_split(n, itemsize, addr)
+        assert head < elems and tail < elems and head + body * elems + tail == n
+        tail0 = head + body * elems
+        for lane in range(group):
+            f_head = lane + group * np.arange(head_tail)
+            f_tail = tail0 + f_head
+            np.add.at(row_reads, f_head[f_head < head], 1)
+            np.add.at(row_reads, f_tail[f_tail < n], 1)
+            used.update((0, int(f)) for f in f_head[f_head < head])
+            used.update((passes - 1, int(f)) for f in f_tail[f_tail < n])
+            for p in range(passes):
+                j = np.arange(lane, min(seg, body - p * seg), group)    # chunks of the pass
+                f = (head + (p * seg + j)[:, None] * elems + np.arange(elems)[None, :]).ravel()
+                np.add.at(row_reads, f, 1)
+                used.update((p, int(v)) for v in f)
+        return row_reads
+
+    # a row's split depends only on its start's offset from a 16-byte boundary
+    patterns = {}
+    for b_i in range(b):
+        for t_i in range(t):
+            addr = base_addr + (b_i * t + t_i) * n * itemsize
+            if addr % 16 not in patterns:
+                patterns[addr % 16] = one_row(addr)
+            reads[b_i, t_i] = patterns[addr % 16]
+    return reads, used
+
+
+_PLAN_NS = (1, 7, 63, 64, 65, 900, 901)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", _PLAN_NS)
+def test_apply_plan_reads_every_element_once_at_any_alignment(n, dtype):
+    """For the card tests' shapes (T ∈ {1, 3, 256}, C ∈ {1, 3, 5}) and row
+    starts at every alignment the dtype allows, the plan's blocks, row
+    groups, passes and chunks read each x[b, t, f] exactly once (head,
+    16-byte body, tail), every w row a pass reads lies in the slice it
+    stages (pass 0 holds the head, the last pass the tail and the bias
+    row), and the block's shared memory holds its rows' chunks."""
+    item = dtype.itemsize
+    for t in (1, 3, 256):
+        for c in (1, 3, 5):
+            plan = ops.apply_plan(2, t, n, c, dtype)
+            assert plan["group"] in (4, 8, 16) and plan["row_groups"] in (1, 2, 4)
+            assert plan["seg"] % plan["group"] == 0
+            assert plan["seg"] <= ops.LANE_CHUNKS * plan["group"]
+            assert plan["col_block"] == (1 if c == 1 else 4)
+            assert plan["rows_per_block"] * plan["seg"] * 16 <= max(
+                ops.ROWS_BUDGET, plan["threads"] // plan["group"] * plan["seg"] * 16)
+            assert plan["smem_bytes"] == ops.smem_bytes(item, plan["seg"],
+                                                        plan["rows_per_block"],
+                                                        plan["col_block"])
+            step = plan["seg"] * plan["elems"]
+            for base in sorted({0, item, 8, 16 - item}):
+                reads, used = _simulate_reads(plan, 2, t, n, item, base)
+                assert (reads == 1).all(), (t, c, base)
+                for p, f in used | {(plan["passes"] - 1, n)}:     # the bias row last
+                    rel = f - p * step
+                    assert 0 <= rel < min((plan["seg"] + 1) * plan["elems"], n + 1 - p * step)
+                    assert rel // plan["elems"] <= plan["seg"]
+
+
+def test_apply_plan_at_the_main_path_shapes():
+    """The layouts the kernel's design names: 16 lanes a row, four chunks a
+    lane a pass, two passes, 16 rows in a block of 256 threads at the bf16
+    evaluation chunk; 8 lanes a row, two chunks a lane, an instance's 32
+    rows in a block of 128 threads at the serving tick."""
+    bf = ops.apply_plan(64, 256, 900, 1, torch.bfloat16)
+    assert (bf["group"], bf["seg"], bf["passes"], bf["rows_per_block"]) == (16, 64, 2, 16)
+    assert (bf["threads"], bf["grid"]) == (256, 64 * 16)
+    f32 = ops.apply_plan(4096, 32, 64, 1, torch.float32)
+    assert (f32["group"], f32["seg"], f32["passes"], f32["rows_per_block"]) == (8, 16, 1, 32)
+    assert (f32["threads"], f32["grid"]) == (128, 4096)
+    # bf16 rows of N = 900 alternate between two alignments: 0 and 8 bytes off
+    assert [ops.row_split(900, 2, r * 1800) for r in range(2)] == [(0, 112, 4), (4, 112, 0)]
