@@ -153,7 +153,15 @@ Then the LM serving path (``repro_torch.models``, ``runtime.steps``):
    decode held to forward); the mixer on K1 bitwise its plain route;
    granite-8b at full width (f32 params drawn on the card) prefilling
    4 × 128 and decoding 16, decode held to forward; the chunked attention
-   against the dense one at Skv 4096.  The kernels line then adds K1 at
+   against the dense one at Skv 4096.  Then every other arch: each smoke
+   config's f32 logits on numpy weights held to the JAX package's, and
+   one line a cell (LM_ARCH_CELLS) at full width, depth cut only where f32
+   params would not fit the card: qwen3-moe-30b-a3b, qwen3-moe-235b-a22b
+   and jamba-v0.1-52b (MoE at the dropless capacity factor; decode held to
+   a forward routed as the served run, expert-set flips and the share
+   dropped at the config's own factor reported), xlstm-1.3b, the VLM
+   llama-3.2-vision-11b (1600 stub patches) and the encoder-decoder
+   seamless-m4t-medium (1024 stub frames).  The kernels line then adds K1 at
    the LM's prefill and decode shapes, and the readout-apply kernel at the
    streamed evaluation's bf16 chunk [64, 256, 900] and the session tick's
    [4096, 32, 64] (within 1e-6 of its plain version, relative to the sum's
@@ -647,6 +655,7 @@ LM_SEED = 0
 LM_TOKENS_SEED = 1
 LM_PROJ_SEED = 7
 LM_CHECK_SHAPE = (2, 16)
+LM_CONTEXT_SEED = 3
 LM_SUMMARY_TOL = 2e-5
 LM_REF_SUMMARY = {
     "proj": (
@@ -694,6 +703,161 @@ DECODE_ATOL, DECODE_RTOL = 2e-4, 2e-3
 # |z| <= 0.71) and 2^-6 (granite-8b, 36 layers, |z| <= 1.25); the bound is
 # twice the larger.
 DECODE_BF16_ATOL = 2 ** -5
+# (e) every other arch of repro_torch.configs.ARCHS at full width: (arch,
+# layers run of its n_layers, B, prompt, new tokens, dtypes served).  Depth
+# is cut only where an f32 copy of the params (ModelConfig.param_count())
+# would not fit the 80 GB card: qwen3-moe-30b-a3b 12 of 48 layers (31.2
+# GB), qwen3-moe-235b-a22b 3 of 94 (32.3 GB), jamba-v0.1-52b one unit of 8
+# of 32 (52.0 GB); xlstm-1.3b (7.4 GB), llama-3.2-vision-11b (37.0 GB) and
+# seamless-m4t-medium (2.9 GB) run whole.  Params are drawn on the card by
+# init_params; each cross-attention gate is then set to atanh(LM_CROSS_GATE)
+# (init_params leaves it 0, where tanh(0) silences the block).
+LM_ARCH_CELLS = (
+    ("qwen3-moe-30b-a3b", 12, 4, 128, 16, ("float32", "bfloat16")),
+    ("qwen3-moe-235b-a22b", 3, 2, 64, 8, ("bfloat16",)),
+    ("jamba-v0.1-52b", 8, 2, 128, 8, ("bfloat16",)),
+    ("xlstm-1.3b", 48, 4, 256, 16, ("float32", "bfloat16")),
+    ("llama-3.2-vision-11b", 40, 2, 128, 8, ("bfloat16",)),
+    ("seamless-m4t-medium", 24, 4, 64, 16, ("float32", "bfloat16")),
+)
+# one bf16 decode profile a family (moe, hybrid, ssm, vlm, audio)
+LM_PROFILED = ("qwen3-moe-30b-a3b", "jamba-v0.1-52b", "xlstm-1.3b", "llama-3.2-vision-11b",
+               "seamless-m4t-medium")
+LM_CROSS_GATE = 0.5
+# xlstm-1.3b's sLSTM at its config's init is a chaotic recurrence: r_rec's
+# fan-in axis in the defs is its 4 heads, so it is drawn at 1/sqrt(4) where
+# its true fan-in is head_dim = 512 (gain ≈ 0.5·sqrt(512) ≈ 11).  A 1e-7
+# relative nudge of its pre-activations moves the logits by 7e-3 sixteen
+# tokens later and by O(1) after 24, so a forward and its own first row
+# run alone (row_split_spread: another GEMM shape) differ by O(1) on the
+# card, and no decode can be held to a forward.  The cell reports that
+# spread at the config's init, then draws r_rec at 1/sqrt(head_dim)
+# (multiplies it by sqrt(heads / head_dim)), where the nudge does not grow.
+# bf16 decode against forward for xlstm-1.3b: its mLSTM decodes by the
+# (C, n, m) recurrence and forwards by the parallel form, which round bf16
+# at other points (the parallel form rounds the weighted scores before the
+# value product).  The H100 gave a gap of 0.2266 (logits |z| <= 1.02,
+# 48 layers; the same forward at another GEMM shape moves by 0.084), and
+# the JAX package's own gap between its two forms is 0.13-0.18 at smoke
+# size (seeds 0-2); the bound is twice the larger, as DECODE_BF16_ATOL's
+DECODE_BF16_ATOL_BY_ARCH = {"xlstm-1.3b": 2 ** -1}
+# each arch's smoke config in f32 on lm_numpy_params at LM_SEED, tokens at
+# LM_TOKENS_SEED and (VLM, enc-dec) a context at LM_CONTEXT_SEED: the JAX
+# package's logit summary, recomputed by tests/test_torch_lm_model.py; the
+# two qwen3-moe smoke configs coincide, so they share one
+LM_SMOKE_SUMMARY = {
+    "qwen3-moe-30b-a3b": {
+        "proj": (
+            (-0.117148442, -0.000550252851, 0.0282382807, 0.0822666727, 0.388924259,
+             -0.224674039, -0.793872883, 0.0389697696, 0.433959568, 0.51915771,
+             -0.0128469299, -0.241476823, -0.0490208726, -0.0266466976, -0.605400632,
+             -0.480233696),
+            (0.663964129, 0.881329478, 0.157902443, -0.443163184, 0.230340732,
+             0.0670331402, 0.720680501, -0.0223279055, -0.154489435, -0.226651979,
+             0.729356429, -0.376920398, 0.147780746, 0.279847477, -0.120271274,
+             0.0773349683),
+        ),
+        "rms": (
+            (0.494251677, 0.49950406, 0.482950711, 0.485068797, 0.532639311,
+             0.479289305, 0.475329801, 0.494872744, 0.484991103, 0.497553574,
+             0.510232084, 0.501918347, 0.490576344, 0.49275821, 0.544633276,
+             0.525357656),
+            (0.505423201, 0.466844707, 0.505242123, 0.521693953, 0.480514626,
+             0.485506986, 0.482540436, 0.471623243, 0.525346483, 0.512688901,
+             0.513294542, 0.517958148, 0.492890518, 0.466830775, 0.517909892,
+             0.476518674),
+        ),
+    },
+    "jamba-v0.1-52b": {
+        "proj": (
+            (-0.270333348, -0.29326046, -0.260595862, 0.408094891, -0.320195858,
+             -0.5210965, -0.33732999, 0.915297757, -1.09547193, 0.0207930017,
+             -0.0292321665, -0.527922468, -0.239111593, -0.0838048697, -0.555166661,
+             0.618133514),
+            (0.0607032697, 0.4252684, 0.131031977, 0.103579418, 0.4606878,
+             0.261939431, 0.168539621, -0.129031589, 0.372105399, -0.689474575,
+             -0.376959018, -0.0130660658, 0.0184469725, 0.260461338, -0.195535421,
+             -0.357581467),
+        ),
+        "rms": (
+            (0.497165933, 0.481797066, 0.499348369, 0.524639487, 0.460170314,
+             0.501425634, 0.520731047, 0.502874117, 0.506944429, 0.477417749,
+             0.512500921, 0.489613977, 0.500763946, 0.458352493, 0.509881604,
+             0.500218619),
+            (0.529998133, 0.517133158, 0.482172331, 0.512507052, 0.465506266,
+             0.510162203, 0.496812317, 0.477397588, 0.464801383, 0.501291891,
+             0.527006995, 0.47685416, 0.508574404, 0.511521894, 0.512157978,
+             0.461616095),
+        ),
+    },
+    "xlstm-1.3b": {
+        "proj": (
+            (0.520133246, -0.159919756, -0.0164382816, -0.167386769, -0.0606189325,
+             -0.142439435, 0.560814418, -0.77864192, 0.23136343, -0.375762952,
+             -0.115050996, -0.0308710522, 0.269413965, 0.1135179, -0.147814304,
+             0.808293735),
+            (-0.18554696, -0.0467001976, -0.0587856234, -0.335830904, 0.0656688189,
+             0.560562554, -0.158627571, -0.213035068, 0.362887171, -0.387573453,
+             0.61379677, 0.0647559393, 0.210316373, 0.385531148, -0.0995377259,
+             -0.126130099),
+        ),
+        "rms": (
+            (0.519977888, 0.518207731, 0.490491564, 0.513555957, 0.522105589,
+             0.489336678, 0.485198872, 0.508608254, 0.490308614, 0.489485976,
+             0.459640455, 0.503176664, 0.44764143, 0.466445157, 0.499949394,
+             0.49125353),
+            (0.493337948, 0.459056921, 0.519940567, 0.510667984, 0.474763679,
+             0.471864564, 0.491539657, 0.511196981, 0.532223814, 0.498958438,
+             0.458729462, 0.50293561, 0.527130047, 0.548142197, 0.466142747,
+             0.486397188),
+        ),
+    },
+    "llama-3.2-vision-11b": {
+        "proj": (
+            (0.104245509, 0.109116374, 0.1163327, 0.27596747, 0.0908272562,
+             0.219978108, 0.539989669, 0.302391063, 0.476073064, 0.3805585,
+             0.283982986, 0.644988914, 0.310766147, 0.395163899, 0.586778654,
+             0.586430159),
+            (0.269128722, 0.527812446, 0.377261359, 0.410043378, 0.460217541,
+             0.462817887, 0.645292166, 0.260744201, 0.262716071, 0.265516604,
+             0.447443089, 0.422494931, 0.377425497, 0.381870311, 0.410458152,
+             0.530992875),
+        ),
+        "rms": (
+            (0.517518687, 0.523345912, 0.513711434, 0.532649542, 0.511856757,
+             0.514716411, 0.503628658, 0.507729445, 0.503215161, 0.517588891,
+             0.527398205, 0.536554903, 0.51334122, 0.515945726, 0.524594664,
+             0.516289785),
+            (0.554483976, 0.530514082, 0.534190872, 0.545847137, 0.517870641,
+             0.502987388, 0.516890769, 0.516663057, 0.51446484, 0.530857878,
+             0.537791289, 0.533006633, 0.533141525, 0.546954936, 0.535277619,
+             0.536019751),
+        ),
+    },
+    "seamless-m4t-medium": {
+        "proj": (
+            (0.0115904277, 0.139111527, 0.0300571365, 0.498920425, 0.246342295,
+             0.0334363184, 0.133102364, 0.140916656, 0.238955979, 0.617861487,
+             0.363218527, 0.284702114, 0.0208914672, -0.180276205, 0.081864259,
+             0.264273973),
+            (-0.727942143, 0.0646790978, -0.0570322037, -0.504911055, 0.0973542395,
+             -0.701142093, -0.0583423192, -0.32577383, -0.886799123, -0.628134037,
+             -0.431795734, -0.565305114, -0.902866409, -0.863193781, -0.559870191,
+             -0.0765864385),
+        ),
+        "rms": (
+            (0.52160898, 0.512793604, 0.510671555, 0.505580452, 0.499230798,
+             0.525771749, 0.514192985, 0.489757749, 0.548362039, 0.49622184,
+             0.528685311, 0.548757099, 0.531716548, 0.551100411, 0.519622491,
+             0.530753112),
+            (0.509840084, 0.5164075, 0.517789159, 0.571158952, 0.496006287,
+             0.503080765, 0.484338099, 0.516775924, 0.486814517, 0.515950393,
+             0.552227921, 0.507492086, 0.514506666, 0.487498805, 0.502175467,
+             0.510981927),
+        ),
+    },
+}
+LM_SMOKE_SUMMARY["qwen3-moe-235b-a22b"] = LM_SMOKE_SUMMARY["qwen3-moe-30b-a3b"]
 
 
 _T_START = time.perf_counter()
@@ -879,16 +1043,19 @@ def solved_grams():
 def lm_numpy_params(cfg, seed: int) -> dict:
     """Weights of the LM ``cfg`` in the JAX package's params layout
     ({"embed", "units": (a dict a unit position, stacked over units),
-    "final_norm"}) as numpy f32 arrays drawn at ``seed``: a matrix leaf
-    normal times 1/sqrt(its fan-in), a vector leaf normal times 0.1.  No
-    leaf is zero, the reservoir readout and the norm scales included (they
-    initialise at zero), so a broken mixer or norm shows in the logits."""
+    "final_norm"}, and an encoder-decoder's {"encoder": {"units",
+    "final_norm"}} drawn after them) as numpy f32 arrays drawn at ``seed``:
+    a matrix leaf normal times 1/sqrt(its fan-in), a vector leaf normal
+    times 0.1.  No leaf is zero, the reservoir readout, the norm scales and
+    the cross-attention gate included (they initialise at zero, where the
+    gate's tanh silences its block), so a broken mixer or norm shows in
+    the logits."""
     import math
 
     import numpy as np
 
     from repro_torch.models import layers
-    from repro_torch.models.model import _block_defs
+    from repro_torch.models.model import _ENCODER_BLOCK, _block_defs
 
     rng = np.random.default_rng(seed)
 
@@ -899,9 +1066,14 @@ def lm_numpy_params(cfg, seed: int) -> dict:
             out[name] = rng.standard_normal((*lead, *shape), dtype=np.float32) * np.float32(scale)
         return out
 
-    return {"embed": draw(layers.embed_defs(cfg)),
-            "units": tuple(draw(_block_defs(cfg, blk), (cfg.n_units,)) for blk in cfg.unit),
+    params = {"embed": draw(layers.embed_defs(cfg)),
+              "units": tuple(draw(_block_defs(cfg, blk), (cfg.n_units,)) for blk in cfg.unit),
+              "final_norm": draw(layers.norm_defs(cfg))}
+    if cfg.n_encoder_layers:
+        params["encoder"] = {
+            "units": (draw(_block_defs(cfg, _ENCODER_BLOCK), (cfg.n_encoder_layers,)),),
             "final_norm": draw(layers.norm_defs(cfg))}
+    return params
 
 
 def lm_tokens(cfg, shape, seed: int):
@@ -909,6 +1081,18 @@ def lm_tokens(cfg, shape, seed: int):
     import numpy as np
 
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def lm_context(cfg, b: int, seed: int):
+    """The stub context of a cross-attention family, [B, n_context_tokens,
+    d_model] f32 drawn with numpy at ``seed`` (its frontend is a stub in
+    the reference too), else None."""
+    import numpy as np
+
+    if not cfg.n_context_tokens:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (b, cfg.n_context_tokens, cfg.d_model), dtype=np.float32)
 
 
 def lm_logit_summary(logits) -> dict:
@@ -2992,7 +3176,7 @@ def profile_decode(cfg, params, served: dict, n_steps: int = LM_PROFILE_STEPS) -
     return profile_calls(lambda: serve.decode(cfg, params, more), n_steps, "decode_steps")
 
 
-def decode_vs_forward(cfg, params, prompts, served: dict) -> dict:
+def decode_vs_forward(cfg, params, prompts, served: dict, context=None) -> dict:
     """The served logits (prefill's last position, then each decode step)
     against one ``forward`` over the prompt and the served ids: the largest
     gap, and whether it is within the reference's decode bound."""
@@ -3001,7 +3185,7 @@ def decode_vs_forward(cfg, params, prompts, served: dict) -> dict:
     from repro_torch.models import forward
 
     toks = torch.cat([prompts, served["ids"][:, :-1]], dim=1)
-    full, _ = forward(cfg, params, toks)
+    full, _ = forward(cfg, params, toks, context=context)
     want = full[:, prompts.shape[1] - 1:].float()
     got = served["logits"].float()
     gap = (got - want).abs()
@@ -3011,16 +3195,208 @@ def decode_vs_forward(cfg, params, prompts, served: dict) -> dict:
                                                           rtol=DECODE_RTOL))}
 
 
-def serving_report(cfg, served: dict, b: int) -> dict:
+def serving_report(cfg, served: dict, b: int, prompt: int = LM_SERVE_PROMPT) -> dict:
     import numpy as np
 
     steps = np.asarray(served["decode_step_s"])
-    return {"B": b, "prompt": LM_SERVE_PROMPT, "new_tokens": served["ids"].shape[1],
+    return {"B": b, "prompt": prompt, "new_tokens": served["ids"].shape[1],
             "dtype": cfg.dtype, "prefill_ms": served["prefill_s"] * 1e3,
             "decode_ms_per_token_p50": float(np.percentile(steps, 50) * 1e3),
             "decode_ms_per_token_p90": float(np.percentile(steps, 90) * 1e3),
             "decode_tokens_per_s": b * len(steps) / float(steps.sum()),
-            "prefill_tokens_per_s": b * LM_SERVE_PROMPT / served["prefill_s"]}
+            "prefill_tokens_per_s": b * prompt / served["prefill_s"]}
+
+
+@contextlib.contextmanager
+def moe_meter(replay=None):
+    """Record each MoE layer's routing for the body of the ``with``: a list,
+    one top_e [B, S, k] a call of ``moe.route``, in call order.  With
+    ``replay`` (one [B, S', k] a layer, S' >= S), each layer takes those
+    experts in place of its own top-k, weighted by its own probabilities
+    at them, renormalised: a forward that routes as a served run did."""
+    import torch
+
+    from repro_torch.models import moe
+
+    route = moe.route
+    log = []
+
+    def metered(cfg, p, x):
+        probs, top_p, top_e = route(cfg, p, x)
+        if replay is not None:
+            top_e = replay[len(log)][:, :x.shape[1]]
+            top_p = torch.gather(probs, -1, top_e)
+            top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+        log.append(top_e)
+        return probs, top_p, top_e
+
+    moe.route = metered
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def moe_decode_vs_forward(cfg, params, prompts, new: int, context, own_factor: float) -> dict:
+    """An MoE arch's served run (the launcher's ``generate``) under the
+    meter, then forwards over the same tokens: the tokens whose expert set
+    differs, in any MoE layer, between the served run and a forward (a
+    near-tie that the two paths' rounding decides apart); decode held to a
+    forward that takes the served run's experts (``decode_vs_forward``);
+    and the share of slots a forward drops at the config's own capacity
+    factor."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, moe
+
+    n_moe = cfg.moe_layers_per_unit * cfg.n_units
+    with moe_meter() as log:
+        served = serve.generate(cfg, params, prompts, new, context=context)
+    routed = [torch.cat(log[layer::n_moe], dim=1) for layer in range(n_moe)]
+    toks = torch.cat([prompts, served["ids"][:, :-1]], dim=1)
+    with moe_meter() as own:
+        forward(cfg, params, toks, context=context)
+    differs = torch.zeros(toks.shape, dtype=torch.bool, device=toks.device)
+    for mine, full in zip(routed, own, strict=True):
+        differs |= (mine.sort(dim=-1).values != full.sort(dim=-1).values).any(-1)
+    with moe_meter(replay=routed):
+        dvf = decode_vs_forward(cfg, params, prompts, served, context)
+    own_cfg = dataclasses.replace(cfg, capacity_factor=own_factor)
+    with moe_meter() as own:
+        forward(own_cfg, params, toks, context=context)
+    cap = moe.capacity(own_cfg, toks.shape[1])
+    dropped = sum(int((moe._group_positions(e.reshape(e.shape[0], -1), cfg.n_experts)
+                       >= cap).sum()) for e in own)
+    return {"decode_vs_forward": dvf, "routing": "the served run's experts",
+            "expert_set_flips": int(differs.sum()), "tokens_compared": differs.numel(),
+            "dropped_share_at_own_factor": {"capacity_factor": own_factor,
+                                            "share": dropped / sum(e.numel() for e in own)}}
+
+
+def row_split_spread(cfg, params, toks, context=None) -> float:
+    """The largest gap between a batched forward's logits and its first
+    row's alone: the same arithmetic at another GEMM shape, so how far the
+    model carries the card's rounding."""
+    from repro_torch.models import forward
+
+    full, _ = forward(cfg, params, toks, context=context)
+    one, _ = forward(cfg, params, toks[:1], context=None if context is None else context[:1])
+    return float((full[:1].float() - one.float()).abs().max())
+
+
+def tree_numel(node) -> int:
+    """Elements of a params tree (dicts and tuples of tensors)."""
+    if isinstance(node, dict):
+        return sum(tree_numel(v) for v in node.values())
+    if isinstance(node, tuple):
+        return sum(tree_numel(v) for v in node)
+    return node.numel()
+
+
+def lm_arch_cell(dev, card: str, arch: str, n_layers: int, b: int, prompt: int, new: int,
+                 dtypes) -> None:
+    """One arch of LM_ARCH_CELLS at full width through the launcher's
+    ``generate``: prefill ms, decode ms a token (p50, p90), tokens/s, decode
+    held to one forward over the same tokens (f32: the reference's bound;
+    bf16: DECODE_BF16_ATOL), a bf16 decode profile for LM_PROFILED.  An MoE
+    arch serves at the dropless capacity factor E/k (cap = S: a forward over
+    S tokens then drops no slot that a one-token decode keeps), with the
+    share of slots its forward would drop at the config's own factor and,
+    in bf16, the tokens whose expert set differs between decode and forward.
+    Emits the cell's line; the params are freed before it returns."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=n_layers)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = wall(lambda: init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    for blk, unit in zip(cfg.unit, params["units"], strict=True):
+        if blk.mixer == "cross_attn":
+            unit["mixer/gate"].fill_(math.atanh(LM_CROSS_GATE))
+    n_params = tree_numel(params)
+    prompts = torch.as_tensor(lm_tokens(cfg, (b, prompt), 5), device=dev)
+    ctx = lm_context(cfg, b, 6)
+    ctx = None if ctx is None else torch.as_tensor(ctx, device=dev)
+    rep = {"layers": n_layers, "of_layers": base.n_layers, "n_params": n_params,
+           "param_bytes": 4 * n_params, "init_s": init_s,
+           "context": None if ctx is None else list(ctx.shape)}
+    if cfg.n_experts:
+        rep["capacity_factor"] = cfg.capacity_factor
+    if any(blk.mixer == "cross_attn" for blk in cfg.unit):
+        rep["cross_gate_tanh"] = LM_CROSS_GATE
+    if any(blk.mixer == "slstm" for blk in cfg.unit):
+        rep["own_init_row_split_spread"] = row_split_spread(
+            dataclasses.replace(cfg, dtype="float32"), params, prompts, ctx)
+        hd = cfg.d_model // cfg.n_heads
+        for blk, unit in zip(cfg.unit, params["units"], strict=True):
+            if blk.mixer == "slstm":
+                unit["mixer/r_rec"].mul_(math.sqrt(cfg.n_heads / hd))
+        rep["slstm_r_rec_scale"] = "1/sqrt(head_dim)"
+    for dtype in dtypes:
+        c = dataclasses.replace(cfg, dtype=dtype)
+        serve.generate(c, params, prompts[:, :8], 2, context=ctx)          # warm
+        served = serve.generate(c, params, prompts, new, slack=LM_PROFILE_STEPS, context=ctx)
+        r = serving_report(c, served, b, prompt)
+        check(bool(torch.isfinite(served["logits"]).all()), f"{arch} {dtype}: logits")
+        if cfg.n_experts:
+            r.update(moe_decode_vs_forward(c, params, prompts, new, ctx, base.capacity_factor))
+            dvf = r["decode_vs_forward"]
+        else:
+            r["decode_vs_forward"] = dvf = decode_vs_forward(c, params, prompts, served, ctx)
+            toks = torch.cat([prompts, served["ids"][:, :-1]], dim=1)
+            r["row_split_spread"] = row_split_spread(c, params, toks, ctx)
+        if dtype == "float32":
+            check(dvf["within_reference_bound"], f"{arch} f32 decode vs forward: {dvf}")
+        else:
+            bound = DECODE_BF16_ATOL_BY_ARCH.get(arch, DECODE_BF16_ATOL)
+            dvf["bf16_atol"] = bound
+            check(dvf["max_abs_gap"] <= bound, f"{arch} bf16 decode vs forward: {dvf}")
+            if arch in LM_PROFILED:
+                r["profile"] = profile_decode(c, params, served)
+        rep[dtype] = r
+        del served
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_serving", "cell": arch, "card": card, **rep,
+          "seconds": time.perf_counter() - t0})
+
+
+def lm_smoke_vs_reference(dev) -> dict:
+    """Each arch of LM_ARCH_CELLS at its smoke config in f32 on the numpy
+    weights: the logit summary's gap to the JAX package's
+    (LM_SMOKE_SUMMARY), checked within LM_SUMMARY_TOL."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import forward
+
+    gaps = {}
+    for arch, *_ in LM_ARCH_CELLS:
+        cfg = smoke_config(arch)
+        params = convert.lm_params_from_reference(lm_numpy_params(cfg, LM_SEED), device=dev)
+        toks = torch.as_tensor(lm_tokens(cfg, LM_CHECK_SHAPE, LM_TOKENS_SEED), device=dev)
+        ctx = lm_context(cfg, LM_CHECK_SHAPE[0], LM_CONTEXT_SEED)
+        logits, _ = forward(cfg, params, toks,
+                            context=None if ctx is None else torch.as_tensor(ctx, device=dev))
+        check(bool(torch.isfinite(logits).all()), f"{arch} smoke logits not finite")
+        gaps[arch] = summary_gap(lm_logit_summary(logits.cpu().numpy()), LM_SMOKE_SUMMARY[arch])
+        check(gaps[arch] <= LM_SUMMARY_TOL, f"{arch} smoke f32 logits vs the JAX package: "
+                                            f"{gaps[arch]}")
+    return {"shape_bs": list(LM_CHECK_SHAPE), "summary_max_gap": gaps, "tol": LM_SUMMARY_TOL}
 
 
 def phase_lm_serving(dev, card: str) -> dict:
@@ -3044,7 +3420,10 @@ def phase_lm_serving(dev, card: str) -> dict:
         ≈ 32 GB drawn on the card from a torch.Generator), prefill 4 × 128
         and 16 decode steps in f32 (decode held to its forward at the
         reference's bound) and in bf16 (timed, DECODE_BF16_ATOL); the chunked
-        attention against the dense one at Skv 4096, chunk 1024."""
+        attention against the dense one at Skv 4096, chunk 1024;
+    (e) each arch of LM_ARCH_CELLS: its smoke config against the JAX
+        package's logits (``lm_smoke_vs_reference``), then its full-width
+        cell on a line of its own (``lm_arch_cell``)."""
     import numpy as np
     import torch
 
@@ -3162,8 +3541,7 @@ def phase_lm_serving(dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     gparams, init_s = wall(lambda: init_params(
         g32, torch.Generator(device=dev).manual_seed(0), device=dev))
-    n_params = sum(v.numel() for part in (gparams["embed"], *gparams["units"],
-                                          gparams["final_norm"]) for v in part.values())
+    n_params = tree_numel(gparams)
     gprompts = torch.as_tensor(lm_tokens(g32, (GRANITE_B, GRANITE_PROMPT), 4), device=dev)
     granite = {"n_params": n_params, "param_bytes": 4 * n_params, "init_s": init_s}
     for cfg in (g32, get_config("granite-8b")):
@@ -3201,7 +3579,12 @@ def phase_lm_serving(dev, card: str) -> dict:
     del q, k, v, dense, chunked
     torch.cuda.empty_cache()
     out["granite_8b"] = granite
+    # (e) the other archs: each smoke config against the JAX package's
+    # logits, then each full-width cell on its own line
+    out["smoke_archs_vs_reference"] = lm_smoke_vs_reference(dev)
     emit({"phase": "lm_serving", "card": card, **out, "seconds": time.perf_counter() - t0})
+    for cell in LM_ARCH_CELLS:
+        lm_arch_cell(dev, card, *cell)
     return lm_drive
 
 

@@ -146,8 +146,9 @@ def lm_params_from_reference(params, *, device=None) -> dict:
     """The port's LM params (``repro_torch.models.init_params``' layout) from
     a reference params pytree, its leaves numpy or JAX arrays: the same
     nesting (``{"embed", "units": (one dict a unit position, leaves stacked
-    over units), "final_norm"}``), each leaf a tensor of its dtype on
-    ``device`` (default ``cuda``)."""
+    over units), "final_norm"}``, and an encoder-decoder's ``"encoder"``
+    subtree), each leaf a tensor of its dtype on ``device`` (default
+    ``cuda``)."""
     dev = resolve_device(device)
 
     def walk(node):
@@ -160,16 +161,19 @@ def lm_params_from_reference(params, *, device=None) -> dict:
     missing = {"embed", "units", "final_norm"} - set(params)
     if missing:
         raise TypeError(f"not a reference LM params tree: no {sorted(missing)}")
-    if "encoder" in params:
-        raise NotImplementedError("the encoder is not ported yet (ROADMAP.md Queue 1, item 13b)")
     return walk(params)
+
+
+_CACHE_LEAVES = {"attn": 2, "cross_attn": 2, "mamba": 2, "mlstm": 4, "slstm": 4}
 
 
 def lm_cache_from_reference(cfg, cache, *, device=None) -> dict:
     """The port's decode cache from a reference one (``repro.models.init_cache``
     layout, after a prefill or decode step): ``pos`` as a host int, each
-    unit position's stacked buffers as tensors on ``device`` (default
-    ``cuda``).  A reservoir block's ``(s_prev, s_last)`` must satisfy the
+    unit position's stacked buffers (attention and cross-attention k, v;
+    Mamba's conv window and h; mLSTM's conv window, C, n, m; sLSTM's c, n,
+    m, h) as tensors of their dtype on ``device`` (default ``cuda``).  A
+    reservoir block's ``(s_prev, s_last)`` must satisfy the
     reference's invariant ``s_last == s_prev[..., -1]`` (the port carries
     ``s_prev`` alone and derives ``s_last``); raises ValueError if not."""
     dev = resolve_device(device)
@@ -181,8 +185,8 @@ def lm_cache_from_reference(cfg, cache, *, device=None) -> dict:
             if not torch.equal(s_last, s_prev[..., -1]):
                 raise ValueError("reservoir cache breaks s_last == s_prev[..., -1]; the port "
                                  "carries s_prev alone and cannot hold a separate s_last")
-        elif blk.mixer != "attn":
-            raise NotImplementedError(f"the {blk.mixer!r} mixer's cache is not ported yet "
-                                      "(ROADMAP.md Queue 1, item 13b)")
+        elif len(leaves) != _CACHE_LEAVES[blk.mixer]:
+            raise ValueError(f"a {blk.mixer!r} cache has {_CACHE_LEAVES[blk.mixer]} buffers, "
+                             f"got {len(leaves)}")
         units.append(leaves)
     return {"pos": int(np.asarray(cache["pos"])), "units": tuple(units)}

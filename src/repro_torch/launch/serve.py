@@ -4,13 +4,15 @@ Port of ``repro/launch/serve.py``: a batch of random prompts is prefilled
 once, then decoded token by token with the batch's cache updated in place
 (the reference donates it between steps).  One card, no mesh
 (``launch/mesh.py`` has no counterpart here).  Weights are drawn from a
-``torch.Generator`` seeded with ``--seed``; the prompts from numpy's.
+``torch.Generator`` seeded with ``--seed``; the prompts from numpy's, and
+for a cross-attention family (VLM, encoder-decoder) the stub context
+[B, n_context_tokens, d_model] after them, as the reference's launcher
+draws it (its frontends are stubs).  Every arch in ``configs.ARCHS``
+serves.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --requests 8 --new-tokens 32            # on cuda
-  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch reservoir_lm
-
-Architectures whose blocks are not ported yet raise NotImplementedError.
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch jamba-v0.1-52b
 """
 
 from __future__ import annotations
@@ -56,9 +58,11 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def start(cfg, params, prompts: torch.Tensor, new_tokens: int, *, slack: int = 0) -> dict:
-    """Prefill ``prompts`` [B, P] into a cache with room for ``new_tokens``
-    (and ``slack`` more decode steps) and take the first greedy token.
+def start(cfg, params, prompts: torch.Tensor, new_tokens: int, *, slack: int = 0,
+          context: torch.Tensor | None = None) -> dict:
+    """Prefill ``prompts`` [B, P] (with ``context`` [B, T, d] for a
+    cross-attention family) into a cache with room for ``new_tokens`` (and
+    ``slack`` more decode steps) and take the first greedy token.
 
     Returns the served batch: ``ids`` and ``logits`` (a list of [B, 1] and
     [B, V] tensors, one a token), the ``cache``, ``prefill_s`` and
@@ -68,7 +72,7 @@ def start(cfg, params, prompts: torch.Tensor, new_tokens: int, *, slack: int = 0
     max_len = prompts.shape[1] + new_tokens + slack
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = serve_prefill(cfg, params, prompts, max_len=max_len)
+    logits, cache = serve_prefill(cfg, params, prompts, context, max_len=max_len)
     tok = torch.argmax(logits, dim=-1)[:, None]
     _sync(dev)
     return {"ids": [tok], "logits": [logits], "cache": cache,
@@ -88,11 +92,12 @@ def decode(cfg, params, served: dict) -> None:
     served["decode_step_s"].append(time.perf_counter() - t0)
 
 
-def generate(cfg, params, prompts: torch.Tensor, new_tokens: int, *, slack: int = 0) -> dict:
-    """Greedy serving of ``prompts`` [B, P]: one prefill, then
-    ``new_tokens - 1`` decode steps.  The served batch of ``start``, with
-    ``ids`` [B, new_tokens] and ``logits`` [B, new_tokens, V] joined."""
-    served = start(cfg, params, prompts, new_tokens, slack=slack)
+def generate(cfg, params, prompts: torch.Tensor, new_tokens: int, *, slack: int = 0,
+             context: torch.Tensor | None = None) -> dict:
+    """Greedy serving of ``prompts`` [B, P] (and ``context``): one prefill,
+    then ``new_tokens - 1`` decode steps.  The served batch of ``start``,
+    with ``ids`` [B, new_tokens] and ``logits`` [B, new_tokens, V] joined."""
+    served = start(cfg, params, prompts, new_tokens, slack=slack, context=context)
     for _ in range(new_tokens - 1):
         decode(cfg, params, served)
     return joined(served)
@@ -122,7 +127,12 @@ def main(argv=None):
     b = args.requests
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, args.prompt_len)),
                               dtype=torch.int64, device=dev)
-    served = generate(cfg, params, prompts, args.new_tokens)
+    context = None
+    if cfg.n_context_tokens:
+        context = torch.as_tensor(
+            rng.standard_normal((b, cfg.n_context_tokens, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+    served = generate(cfg, params, prompts, args.new_tokens, context=context)
     out = served["ids"].cpu().numpy()
     decode_s = sum(served["decode_step_s"])
     tps = b * (args.new_tokens - 1) / max(decode_s, 1e-9)

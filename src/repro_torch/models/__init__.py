@@ -1,8 +1,9 @@
 """Model zoo: composable transformer / reservoir stacks for the assigned archs.
 
-Port of ``repro.models``: the serving path of the ``attn`` and
-``reservoir`` mixers with the dense MLP (ROADMAP.md Queue 1, item 13a).
-``param_logical_axes`` waits for the port of ``parallel/`` (item 13d).
+Port of ``repro.models``: the serving path of every block kind (``attn``,
+``cross_attn``, ``mamba``, ``mlstm``, ``slstm``, ``reservoir``), the dense
+and MoE MLPs and the encoder.  ``param_logical_axes`` waits for the port of
+``parallel/`` (ROADMAP.md Queue 1, item 13d).
 """
 
 from .config import BlockSpec, ModelConfig

@@ -9,9 +9,8 @@ value.
 The stack is described as a list of repeating *units* (``stages``); each unit
 is a short heterogeneous pattern of blocks (e.g. Jamba's
 [mamba ×3, attn, mamba ×4] with MoE every 2nd layer); parameters are
-stacked over unit repeats, and the model loops over them.  Of the block
-kinds, this port runs ``attn`` and ``reservoir`` mixers with ``dense`` or
-no MLP; the others raise (ROADMAP.md Queue 1, item 13b).  The fields for
+stacked over unit repeats, and the model loops over them.  The port runs
+every block kind and MLP kind below.  The fields for
 the JAX package's jit and cost-analysis knobs (``remat``,
 ``analysis_unroll``, ``strategy``, ``microbatches``) are kept so a
 reference config carries across field for field; the serving path does

@@ -16,7 +16,8 @@ TPU kernel there).  Two differences of the framework, kept small:
   ``dynamic_update_slice`` on a donated buffer), and a write past the
   buffer's end raises where the reference clamps it.
 
-Cross-attention waits for the encoder families (ROADMAP.md Queue 1, 13b).
+Cross-attention (the VLM and encoder-decoder families) attends to a
+context's k, v computed once (``context_kv``) through a tanh-gated residual.
 """
 
 from __future__ import annotations
@@ -103,7 +104,7 @@ def apply_rope(x, cos, sin):
 
 
 # --------------------------------------------------------------------------
-# Attention (self, GQA, optional qk-norm / softcap)
+# Attention (self, GQA, optional qk-norm / softcap; cross variant)
 # --------------------------------------------------------------------------
 
 
@@ -119,6 +120,17 @@ def attn_defs(cfg) -> dict:
         defs["q_norm"] = ((hd,), ("hd",), "zeros")
         defs["k_norm"] = ((hd,), ("hd",), "zeros")
     return defs
+
+
+def cross_attn_defs(cfg) -> dict:
+    d, hd, dc = cfg.d_model, cfg.head_dim, (cfg.d_context or cfg.d_model)
+    return {
+        "wq": ((d, cfg.n_heads, hd), ("embed", "heads", "hd"), "fan_in"),
+        "wk": ((dc, cfg.n_kv_heads, hd), ("ctx", "kv", "hd"), "fan_in"),
+        "wv": ((dc, cfg.n_kv_heads, hd), ("ctx", "kv", "hd"), "fan_in"),
+        "wo": ((cfg.n_heads, hd, d), ("heads", "hd", "embed"), "fan_in"),
+        "gate": ((1,), (None,), "zeros"),  # tanh-gated residual (llama-3.2 style)
+    }
 
 
 _CHUNK_THRESHOLD = 8192
@@ -235,6 +247,26 @@ def apply_attn(cfg, p, x, *, positions, cache=None, causal=True):
         out = _sdpa(cfg, q, k, v, causal=causal)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
     return y, new_cache
+
+
+def apply_cross_attn(cfg, p, x, *, context_kv):
+    """Cross-attention to a precomputed (k, v) of the context (image patches /
+    encoder frames).  Tanh-gated residual contribution."""
+    dt = x.dtype
+    k, v = context_kv
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    out = _sdpa(cfg, q, k.to(dt), v.to(dt), causal=False)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    return torch.tanh(p["gate"].to(torch.float32)).to(dt) * y
+
+
+def context_kv(cfg, p, context):
+    """Cross-attention k, v [B, T, KV, hd] from context embeddings
+    [B, T, d_ctx], in the context's dtype."""
+    dt = context.dtype
+    k = torch.einsum("btd,dhk->bthk", context, p["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", context, p["wv"].to(dt))
+    return k, v
 
 
 # --------------------------------------------------------------------------

@@ -5,7 +5,10 @@ pattern of BlockSpecs) repeated ``cfg.n_units`` times.  Parameters for each
 unit position are stacked over repeats, leaf for leaf as in the
 reference's pytree (so ``convert.lm_params_from_reference`` maps one onto
 the other), and the reference's ``lax.scan`` over units is a Python loop
-over the stacked leading axis.
+over the stacked leading axis.  Heterogeneous patterns (Jamba's
+mamba/attn interleave, xLSTM's 7:1, VLM cross-attn insertion, enc-dec) are
+expressed purely in the unit pattern; an encoder-decoder config also
+carries a bidirectional attention + dense-MLP encoder (``encode``).
 
 Three entry points:
   ``forward``      tokens -> logits (+ MoE aux loss)      [train / eval]
@@ -16,30 +19,24 @@ Caches are dicts ``{"pos": int, "units": tuple}``, one entry per unit
 position stacked over units, as in the reference; ``pos`` is a host int
 (the host drives the decode loop, so no step reads a position back from
 the device).  Prefill and decode update the cache's buffers in place and
-return the same buffers: the reference's server donates them.
-
-Blocks ported: the ``attn`` and ``reservoir`` mixers, and the ``dense``
-MLP (or none).  ``cross_attn``, ``mamba``, ``mlstm``, ``slstm``, ``moe``
-and the encoder raise NotImplementedError (ROADMAP.md Queue 1, item 13b).
+return the same buffers: the reference's server donates them.  A
+cross-attention entry holds the context's k, v, computed once at prefill
+in the context's dtype, as the reference stores them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 
 from ..core import layer as reservoir_layer
 from ..device import resolve_device, resolve_dtype
-from . import layers
-from .config import ModelConfig
+from . import layers, mamba, moe, xlstm
+from .config import BlockSpec, ModelConfig
 
-_UNPORTED = "is not ported yet (ROADMAP.md Queue 1, item 13b)"
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} {_UNPORTED}")
-
+_ENCODER_BLOCK = BlockSpec("attn", "dense")
 
 # --------------------------------------------------------------------------
 # Param defs per block
@@ -49,10 +46,16 @@ def _unported(what: str):
 def _mixer_defs(cfg, kind: str) -> dict:
     if kind == "attn":
         return layers.attn_defs(cfg)
+    if kind == "cross_attn":
+        return layers.cross_attn_defs(cfg)
+    if kind == "mamba":
+        return mamba.mamba_defs(cfg)
+    if kind == "mlstm":
+        return xlstm.mlstm_defs(cfg)
+    if kind == "slstm":
+        return xlstm.slstm_defs(cfg)
     if kind == "reservoir":
         return reservoir_layer.reservoir_defs(cfg)
-    if kind in ("cross_attn", "mamba", "mlstm", "slstm"):
-        raise _unported(f"the {kind!r} mixer")
     raise ValueError(kind)
 
 
@@ -62,7 +65,7 @@ def _mlp_defs(cfg, kind: str) -> dict:
     if kind == "dense":
         return layers.mlp_defs(cfg)
     if kind == "moe":
-        raise _unported("the 'moe' MLP")
+        return moe.moe_defs(cfg)
     raise ValueError(kind)
 
 
@@ -80,13 +83,6 @@ def _split(params: dict, prefix: str) -> dict:
     return {k[plen:]: v for k, v in params.items() if k.startswith(prefix + "/")}
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.n_encoder_layers:
-        raise _unported("the encoder (n_encoder_layers > 0)")
-    for blk in cfg.unit:
-        _block_defs(cfg, blk)
-
-
 # --------------------------------------------------------------------------
 # Init
 # --------------------------------------------------------------------------
@@ -98,17 +94,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
 
     Structure as the reference's: ``{"embed": {...}, "units": (one dict a
     unit position, each leaf stacked [n_units, ...]), "final_norm":
-    {"scale"}}``, every leaf f32.  The draws differ from the reference's
-    ``jax.random`` bits; their distributions are the same.
+    {"scale"}}``, and with an encoder ``"encoder": {"units": (one dict
+    stacked [n_encoder_layers, ...],), "final_norm"}``; every leaf f32.
+    The draws differ from the reference's ``jax.random`` bits; their
+    distributions are the same.
     """
     dev = resolve_device(device)
-    _check_ported(cfg)
+
+    def stacked_unit(unit, n_repeats):
+        return tuple(layers.init_from_defs(_block_defs(cfg, blk), generator, lead=(n_repeats,),
+                                           device=dev) for blk in unit)
+
     params: dict[str, Any] = {
         "embed": layers.init_from_defs(layers.embed_defs(cfg), generator, device=dev)}
-    params["units"] = tuple(
-        layers.init_from_defs(_block_defs(cfg, blk), generator, lead=(cfg.n_units,), device=dev)
-        for blk in cfg.unit)
+    params["units"] = stacked_unit(cfg.unit, cfg.n_units)
     params["final_norm"] = layers.init_from_defs(layers.norm_defs(cfg), generator, device=dev)
+    if cfg.n_encoder_layers:
+        params["encoder"] = {
+            "units": stacked_unit((_ENCODER_BLOCK,), cfg.n_encoder_layers),
+            "final_norm": layers.init_from_defs(layers.norm_defs(cfg), generator, device=dev)}
     return params
 
 
@@ -117,37 +121,55 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
 # --------------------------------------------------------------------------
 
 
-def _apply_block(cfg, blk, p, x, *, positions, cache=None):
+def _apply_block(cfg, blk, p, x, *, positions, context=None, cache=None):
     """Pre-norm mixer + residual, pre-norm MLP + residual.
 
     Returns (x, new_cache, aux).  ``cache`` is the mixer state for this block
-    (None in a plain forward).
+    (None in a plain forward); a cross-attention block's cache is its
+    context's (k, v), else it computes them from ``context``.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.rmsnorm(x, p["norm_mixer"], cfg.norm_eps)
     mp = _split(p, "mixer")
+    new_cache = None
     if blk.mixer == "attn":
         y, new_cache = layers.apply_attn(cfg, mp, h, positions=positions,
                                          cache=cache, causal=cfg.causal)
+    elif blk.mixer == "cross_attn":
+        if cache is not None:
+            ctx_kv = new_cache = cache        # computed at prefill
+        elif context is None:
+            raise ValueError(f"{cfg.name}: a cross-attention block needs a context")
+        else:
+            ctx_kv = layers.context_kv(cfg, mp, context)
+        y = layers.apply_cross_attn(cfg, mp, h, context_kv=ctx_kv)
+    elif blk.mixer == "mamba":
+        y, new_cache = mamba.apply_mamba(cfg, mp, h, cache=cache)
+    elif blk.mixer == "mlstm":
+        y, new_cache = xlstm.apply_mlstm(cfg, mp, h, cache=cache)
+    elif blk.mixer == "slstm":
+        y, new_cache = xlstm.apply_slstm(cfg, mp, h, cache=cache)
     elif blk.mixer == "reservoir":
         y, new_cache = reservoir_layer.apply_reservoir(cfg, mp, h, cache=cache)
-    elif blk.mixer in ("cross_attn", "mamba", "mlstm", "slstm"):
-        raise _unported(f"the {blk.mixer!r} mixer")
     else:
         raise ValueError(blk.mixer)
     x = x + y
 
     if blk.mlp != "none":
-        if blk.mlp != "dense":
-            raise _unported(f"the {blk.mlp!r} MLP")
         h = layers.rmsnorm(x, p["norm_mlp"], cfg.norm_eps)
-        x = x + layers.apply_mlp(cfg, _split(p, "mlp"), h)
+        if blk.mlp == "dense":
+            y = layers.apply_mlp(cfg, _split(p, "mlp"), h)
+        elif blk.mlp == "moe":
+            y, aux = moe.apply_moe(cfg, _split(p, "mlp"), h)
+        else:
+            raise ValueError(blk.mlp)
+        x = x + y
     return x, new_cache, aux
 
 
-def _unit_params(params: dict, u: int) -> tuple:
+def _unit_params(units: tuple, u: int) -> tuple:
     """Unit repeat ``u``'s params: each unit position's leaves at index u."""
-    return tuple({k: v[u] for k, v in pos.items()} for pos in params["units"])
+    return tuple({k: v[u] for k, v in pos.items()} for pos in units)
 
 
 # --------------------------------------------------------------------------
@@ -156,19 +178,43 @@ def _unit_params(params: dict, u: int) -> tuple:
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, *, context=None):
-    """tokens [B, S] -> (logits [B, S, V], moe_aux scalar)."""
-    if context is not None or cfg.n_encoder_layers:
-        raise _unported("cross-attention context")
+    """tokens [B, S] -> (logits [B, S, V], moe_aux scalar).
+
+    ``context`` [B, T, d]: image-patch / audio-frame stub embeddings for
+    cross-attention families (encoded first if the config has an encoder).
+    """
     x = layers.embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    if cfg.n_encoder_layers:
+        context = encode(cfg, params, context)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(cfg.n_units):
-        unit_params = _unit_params(params, u)
+        unit_params = _unit_params(params["units"], u)
         for pos, blk in enumerate(cfg.unit):
-            x, _, a = _apply_block(cfg, blk, unit_params[pos], x, positions=positions)
+            x, _, a = _apply_block(cfg, blk, unit_params[pos], x, positions=positions,
+                                   context=context)
             aux = aux + a
     x = layers.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return layers.logits_from_hidden(cfg, params["embed"], x), aux
+
+
+def _encoder_view(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, causal=False, unit=())
+
+
+def encode(cfg: ModelConfig, params: dict, frames):
+    """Bidirectional encoder over stub frame embeddings [B, T, d], in
+    ``cfg.dtype``."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the encoder needs context frames")
+    enc_cfg = _encoder_view(cfg)
+    x = frames.to(resolve_dtype(cfg.dtype))
+    positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    enc = params["encoder"]
+    for u in range(cfg.n_encoder_layers):
+        x, _, _ = _apply_block(enc_cfg, _ENCODER_BLOCK, _unit_params(enc["units"], u)[0], x,
+                               positions=positions)
+    return layers.rmsnorm(x, enc["final_norm"]["scale"], cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------
@@ -176,28 +222,36 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, context=None):
 # --------------------------------------------------------------------------
 
 
+def _stacked(leaves: tuple, u: int) -> tuple:
+    return tuple(a.expand(u, *a.shape).clone() for a in leaves)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, context_len: int = 0,
                device=None) -> dict:
     """Stacked per-unit-position cache (zeros; ``pos`` tracks the fill) on
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``).  Buffer dtypes are the reference's:
+    attention and cross-attention k, v in ``cfg.dtype``, the recurrent
+    states (and the Mamba / mLSTM conv windows) f32."""
     dev = resolve_device(device)
-    _check_ported(cfg)
-    if context_len:
-        raise _unported("cross-attention context")
     u = cfg.n_units
     kv_dt = resolve_dtype(cfg.dtype)
     cache_units = []
     for blk in cfg.unit:
-        if blk.mixer == "attn":
-            shape = (u, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        if blk.mixer in ("attn", "cross_attn"):
+            length = max_len if blk.mixer == "attn" else context_len
+            shape = (u, batch, length, cfg.n_kv_heads, cfg.head_dim)
             cache_units.append((torch.zeros(shape, dtype=kv_dt, device=dev),
                                 torch.zeros(shape, dtype=kv_dt, device=dev)))
+        elif blk.mixer == "mamba":
+            cache_units.append(_stacked(mamba.init_mamba_cache(cfg, batch, device=dev), u))
+        elif blk.mixer == "mlstm":
+            cache_units.append(_stacked(xlstm.init_mlstm_cache(cfg, batch, device=dev), u))
+        elif blk.mixer == "slstm":
+            cache_units.append(_stacked(xlstm.init_slstm_cache(cfg, batch, device=dev), u))
         elif blk.mixer == "reservoir":
             n, r = cfg.reservoir_nodes, reservoir_layer._n_channels(cfg)
             cache_units.append((torch.zeros((u, batch, r, n), dtype=torch.float32, device=dev),
                                 torch.zeros((u, batch, r), dtype=torch.float32, device=dev)))
-        elif blk.mixer in ("cross_attn", "mamba", "mlstm", "slstm"):
-            raise _unported(f"the {blk.mixer!r} mixer's cache")
         else:
             raise ValueError(blk.mixer)
     return {"pos": 0, "units": tuple(cache_units)}
@@ -213,22 +267,30 @@ def _mixer_cache(blk, unit_cache, u: int, pos: int):
 
 
 def _store_cache(blk, unit_cache, u: int, new_cache) -> None:
-    """Write a reservoir block's new carry into the stacked buffers; an
-    attention block wrote its k, v in place already."""
+    """Write a block's new state into the stacked buffers (in their dtype,
+    as the reference casts it); an attention block wrote its k, v in place
+    already, and a cross-attention block's decode hands back the buffers
+    themselves (``copy_`` returns at once on the same memory)."""
     if blk.mixer != "attn":
-        for leaf, new in zip(unit_cache, new_cache):
+        for leaf, new in zip(unit_cache, new_cache, strict=True):
             leaf[u].copy_(new)
 
 
-def _forward_cached(cfg, params, cache, tokens):
-    """Shared prefill/decode body: runs [B, S] tokens through cached blocks."""
+def _forward_cached(cfg, params, cache, tokens, *, context=None):
+    """Shared prefill/decode body: runs [B, S] tokens through cached blocks.
+    With ``context`` (prefill) each cross-attention block computes its
+    context's k, v and stores them in the cache."""
     x = layers.embed_tokens(cfg, params["embed"], tokens)
     pos0 = cache["pos"]
     positions = pos0 + torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    if cfg.n_encoder_layers and context is not None:
+        context = encode(cfg, params, context)
     for u in range(cfg.n_units):
-        unit_params = _unit_params(params, u)
+        unit_params = _unit_params(params["units"], u)
         for pos, blk in enumerate(cfg.unit):
             blk_cache = _mixer_cache(blk, cache["units"][pos], u, pos0)
+            if blk.mixer == "cross_attn" and context is not None:
+                blk_cache = layers.context_kv(cfg, _split(unit_params[pos], "mixer"), context)
             x, nc, _ = _apply_block(cfg, blk, unit_params[pos], x,
                                     positions=positions, cache=blk_cache)
             _store_cache(blk, cache["units"][pos], u, nc)
@@ -238,11 +300,18 @@ def _forward_cached(cfg, params, cache, tokens):
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens, *, max_len: int, context=None):
-    """tokens [B, S] -> (logits [B, S, V], cache filled to S of ``max_len``)."""
+    """tokens [B, S] (and ``context`` [B, T, d] for a cross-attention
+    family) -> (logits [B, S, V], cache filled to S of ``max_len``)."""
+    cache = init_cache(cfg, tokens.shape[0], max_len,
+                       context_len=(context.shape[1] if context is not None else 0),
+                       device=tokens.device)
     if context is not None:
-        raise _unported("cross-attention context")
-    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
-    return _forward_cached(cfg, params, cache, tokens)
+        # the stored k, v take the (encoded) context's dtype, as the reference's
+        ctx_dt = resolve_dtype(cfg.dtype) if cfg.n_encoder_layers else context.dtype
+        cache["units"] = tuple(
+            tuple(buf.to(ctx_dt) for buf in entry) if blk.mixer == "cross_attn" else entry
+            for blk, entry in zip(cfg.unit, cache["units"], strict=True))
+    return _forward_cached(cfg, params, cache, tokens, context=context)
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache, tokens):

@@ -1,0 +1,263 @@
+"""xLSTM blocks — mLSTM (matrix memory) and sLSTM (scalar memory) mixers
+[Beck et al., arXiv:2405.04517].  xlstm-1.3b stacks them 7:1.
+
+Port of ``repro/models/xlstm.py``, op for op in plain PyTorch.
+
+mLSTM: the parallel (attention-like) form for a forward and for any
+S > 1 (a prefill starts from a zero state, as in the reference: an
+incoming cache only sets the dtype of the conv state it returns); the
+O(1) (C, n, m) matrix-memory recurrence for one-token decode steps.
+
+sLSTM: inherently sequential (recurrent R matrices, block-diagonal per
+head); the reference's ``lax.scan`` over the sequence is a Python loop over
+S here, one cell step a token.
+
+Blocks carry their own projections (d_ff = 0): mLSTM up-projects by
+``mlstm_expand`` before mixing and down-projects after, sLSTM is followed by
+a gated ~4/3 projection.  The score products of the parallel form widen q
+and k to f32 first, where the reference asks its einsum for an f32 result
+(as the port's attention does).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import _gelu, rmsnorm
+
+# --------------------------------------------------------------------------
+# mLSTM
+# --------------------------------------------------------------------------
+
+
+def _full(value: float):
+    """A callable init: every element ``value``."""
+
+    def init(_generator, shape, lead, device):
+        return torch.full((*lead, *shape), value, dtype=torch.float32, device=device)
+
+    return init
+
+
+def mlstm_defs(cfg) -> dict:
+    d = cfg.d_model
+    d_in = d * cfg.mlstm_expand
+    h = cfg.n_heads
+    hd = d_in // h
+    return {
+        "up_proj": ((d, 2 * d_in), ("embed", "mlp"), "fan_in"),
+        "conv_w": ((4, d_in), (None, "mlp"), "fan_in"),
+        "conv_b": ((d_in,), ("mlp",), "zeros"),
+        "wq": ((d_in, h, hd), ("mlp", "heads", None), "fan_in"),
+        "wk": ((d_in, h, hd), ("mlp", "heads", None), "fan_in"),
+        "wv": ((d_in, h, hd), ("mlp", "heads", None), "fan_in"),
+        "w_i": ((d_in, h), ("mlp", "heads"), "zeros"),
+        "w_f": ((d_in, h), ("mlp", "heads"), "zeros"),
+        "b_i": ((h,), ("heads",), "zeros"),
+        "b_f": ((h,), ("heads",), _full(3.0)),  # open forget gates
+        "skip_scale": ((d_in,), ("mlp",), "ones"),
+        "out_norm": ((d_in,), ("mlp",), "zeros"),
+        "down_proj": ((d_in, d), ("mlp", "embed"), "fan_in"),
+    }
+
+
+def _mlstm_gates(p, xc):
+    """log input / forget gate pre-activations, f32.  xc [B,S,d_in]."""
+    x32 = xc.to(torch.float32)
+    i_pre = x32 @ p["w_i"] + p["b_i"]          # [B,S,H]
+    f_pre = x32 @ p["w_f"] + p["b_f"]
+    log_f = -F.softplus(-f_pre)                # log sigmoid(f)
+    return i_pre, log_f
+
+
+def _mlstm_qkv(p, xc, dt):
+    q = torch.einsum("bsd,dhk->bshk", xc, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", xc, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", xc, p["wv"].to(dt))
+    return q, k / math.sqrt(q.shape[-1]), v
+
+
+def _conv_taps(p, xp, s: int):
+    """The depthwise causal conv over a left-padded xp [B, kw-1+S, d_in]:
+    the reference's Python ``sum`` of taps, in its order."""
+    kw = p["conv_w"].shape[0]
+    return sum(xp[:, i:i + s, :] * p["conv_w"][i].to(xp.dtype) for i in range(kw))
+
+
+def _causal_conv4(p, x):
+    kw = p["conv_w"].shape[0]
+    pad = torch.zeros((x.shape[0], kw - 1, x.shape[-1]), dtype=x.dtype, device=x.device)
+    out = _conv_taps(p, torch.cat([pad, x], dim=1), x.shape[1])
+    return F.silu(out + p["conv_b"].to(x.dtype))
+
+
+def _mlstm_parallel(cfg, p, xr, cache):
+    """The parallel form over xr [B, S, d_in]: (out [B,S,H,hd], xc, the
+    final (conv, C, n, m) state or None)."""
+    dt = xr.dtype
+    b, s = xr.shape[0], xr.shape[1]
+    xc = _causal_conv4(p, xr)
+    q, k, v = _mlstm_qkv(p, xc, dt)
+    i_pre, log_f = _mlstm_gates(p, xc)
+    # D matrix: d[t,s] = exp(Σ_{r=s+1..t} log_f_r + i_s − m_t), s ≤ t
+    cum_f = torch.cumsum(log_f, dim=1)                           # [B,S,H]
+    lse = cum_f[:, :, None, :] - cum_f[:, None, :, :] + i_pre[:, None, :, :]
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=xr.device))
+    lse = torch.where(mask[None, :, :, None], lse, -math.inf)   # [B,T,S,H]
+    m = torch.amax(lse, dim=2, keepdim=True)                     # stabiliser
+    dmat = torch.exp(lse - m)                                    # [B,T,S,H]
+    scores = torch.einsum("bthk,bshk->bhts", q.to(torch.float32), k.to(torch.float32))
+    w = scores * torch.movedim(dmat, -1, 1)                      # [B,H,T,S]
+    denom = torch.maximum(torch.abs(torch.sum(w, dim=-1)),
+                          torch.exp(-m[:, :, 0, :]).transpose(1, 2))
+    out = torch.einsum("bhts,bshk->bthk", (w / denom[..., None]).to(dt), v)
+    if cache is None:
+        return out, xc, None
+    # Final (C, n, m) state for subsequent decode steps.
+    st_lse = cum_f[:, -1:, :] - cum_f + i_pre                    # [B,S,H]
+    m_state = torch.amax(st_lse, dim=1)                          # [B,H]
+    w_state = torch.exp(st_lse - m_state[:, None, :])            # [B,S,H]
+    k32, v32 = k.to(torch.float32), v.to(torch.float32)
+    c_state = torch.einsum("bshk,bshv->bhkv", w_state[..., None] * k32, v32)
+    n_state = torch.einsum("bsh,bshk->bhk", w_state, k32)
+    kw = p["conv_w"].shape[0]
+    pad = torch.zeros((b, kw - 1, xr.shape[-1]), dtype=dt, device=xr.device)
+    conv = torch.cat([pad, xr], dim=1)[:, -(kw - 1):, :].to(cache[0].dtype)
+    return out, xc, (conv, c_state, n_state, m_state)
+
+
+def _mlstm_step(p, xr, cache):
+    """One recurrent step from cache (conv, C, n, m): (out [B,1,H,hd], xc,
+    the new state)."""
+    dt = xr.dtype
+    conv_state, c_mem, n_mem, m_mem = cache
+    kw = p["conv_w"].shape[0]
+    xp = torch.cat([conv_state.to(dt), xr], dim=1)
+    xc = F.silu(_conv_taps(p, xp, 1) + p["conv_b"].to(dt))
+    q, k, v = _mlstm_qkv(p, xc, dt)                              # [B,1,H,hd]
+    i_pre, log_f = _mlstm_gates(p, xc)                           # [B,1,H]
+    i_t, f_t = i_pre[:, 0], log_f[:, 0]                          # [B,H]
+    m_new = torch.maximum(f_t + m_mem, i_t)
+    a = torch.exp(f_t + m_mem - m_new)[..., None]
+    bb = torch.exp(i_t - m_new)[..., None]
+    k0, v0, q0 = (t[:, 0].to(torch.float32) for t in (k, v, q))  # [B,H,hd]
+    c_new = a[..., None] * c_mem + bb[..., None] * torch.einsum("bhk,bhv->bhkv", k0, v0)
+    n_new = a * n_mem + bb * k0
+    num = torch.einsum("bhk,bhkv->bhv", q0, c_new)
+    den = torch.maximum(torch.abs(torch.sum(q0 * n_new, dim=-1)), torch.exp(-m_new))
+    out = (num / den[..., None]).to(dt)[:, None]                 # [B,1,H,hd]
+    return out, xc, (xp[:, -(kw - 1):, :].to(conv_state.dtype), c_new, n_new, m_new)
+
+
+def apply_mlstm(cfg, p, x, *, cache=None):
+    """x [B,S,d].  cache=(conv_state, C [B,H,hd,hd], n [B,H,hd], m [B,H]).
+
+    Returns (y [B,S,d], new_cache); cache=None -> no state returned."""
+    dt = x.dtype
+    d_in = cfg.d_model * cfg.mlstm_expand
+    xz = x @ p["up_proj"].to(dt)
+    xr, z = torch.chunk(xz, 2, dim=-1)
+    if cache is None or x.shape[1] > 1:
+        out, xc, new_cache = _mlstm_parallel(cfg, p, xr, cache)
+    else:
+        out, xc, new_cache = _mlstm_step(p, xr, cache)
+    out = out.reshape(x.shape[0], x.shape[1], d_in)
+    out = rmsnorm(out, p["out_norm"], cfg.norm_eps)
+    out = out + xc * p["skip_scale"].to(dt)
+    out = out * F.silu(z)
+    return out @ p["down_proj"].to(dt), new_cache
+
+
+def init_mlstm_cache(cfg, batch: int, dtype=torch.float32, *, device=None):
+    d_in = cfg.d_model * cfg.mlstm_expand
+    h = cfg.n_heads
+    hd = d_in // h
+    f32 = torch.float32
+    return (
+        torch.zeros((batch, 3, d_in), dtype=dtype, device=device),
+        torch.zeros((batch, h, hd, hd), dtype=f32, device=device),
+        torch.zeros((batch, h, hd), dtype=f32, device=device),
+        torch.full((batch, h), -1e30, dtype=f32, device=device),
+    )
+
+
+# --------------------------------------------------------------------------
+# sLSTM
+# --------------------------------------------------------------------------
+
+
+def slstm_defs(cfg) -> dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    hd = d // h
+    f = int(d * cfg.slstm_proj)
+    return {
+        "w_in": ((d, 4 * d), ("embed", "mlp"), "fan_in"),     # i,f,z,o pre-acts
+        "r_rec": ((h, hd, 4 * hd), ("heads", None, None), "fan_in"),  # block-diag recurrence
+        "bias": ((4 * d,), ("mlp",), "zeros"),
+        "out_norm": ((d,), ("embed",), "zeros"),
+        "up_gate": ((d, f), ("embed", "mlp"), "fan_in"),
+        "up_proj": ((d, f), ("embed", "mlp"), "fan_in"),
+        "down_proj": ((f, d), ("mlp", "embed"), "fan_in"),
+    }
+
+
+def _interleave(rec, d):
+    """[B,H,4hd] -> [B,4d] matching the i,f,z,o split layout."""
+    b = rec.shape[0]
+    return torch.cat([pt.reshape(b, -1) for pt in torch.chunk(rec, 4, dim=-1)], dim=-1)
+
+
+def _slstm_cell(cfg, p, carry, x_pre):
+    """One sLSTM step.  carry = (c, n, m, h_prev), each [B, d] f32 (m [B, H])."""
+    d = cfg.d_model
+    h_heads = cfg.n_heads
+    hd = d // h_heads
+    c, n, m, h_prev = carry
+    hp = h_prev.reshape(-1, h_heads, hd)
+    rec = torch.einsum("bhk,hkj->bhj", hp, p["r_rec"])          # [B,H,4hd]
+    pre = x_pre + _interleave(rec, d)
+    i_pre, f_pre, z_pre, o_pre = torch.chunk(pre, 4, dim=-1)    # [B,d]
+    log_f = -F.softplus(-f_pre)
+    i_h = i_pre.reshape(-1, h_heads, hd)
+    f_h = log_f.reshape(-1, h_heads, hd)
+    m_new = torch.amax(torch.maximum(f_h + m[..., None], i_h), dim=-1)  # per-head stabiliser
+    scale_f = torch.exp(f_h + m[..., None] - m_new[..., None]).reshape(-1, d)
+    scale_i = torch.exp(i_h - m_new[..., None]).reshape(-1, d)
+    c_new = scale_f * c + scale_i * torch.tanh(z_pre)
+    n_new = scale_f * n + scale_i
+    h_new = torch.sigmoid(o_pre) * c_new / torch.clamp(n_new, min=1e-6)
+    return (c_new, n_new, m_new, h_new)
+
+
+def apply_slstm(cfg, p, x, *, cache=None):
+    """x [B,S,d]; cache = (c, n, m, h) -> a cell step a token from the cache
+    (a zero state without one).  Returns (y [B,S,d], new_cache or None)."""
+    dt = x.dtype
+    x_pre = (x @ p["w_in"].to(dt)).to(torch.float32) + p["bias"]
+    carry = cache if cache is not None else init_slstm_cache(cfg, x.shape[0], device=x.device)
+    hs = []
+    for t in range(x.shape[1]):
+        carry = _slstm_cell(cfg, p, carry, x_pre[:, t])
+        hs.append(carry[3])
+    y = torch.stack(hs, dim=1).to(dt)                            # [B,S,d]
+    new_cache = carry if cache is not None else None
+
+    y = rmsnorm(y, p["out_norm"], cfg.norm_eps)
+    g = _gelu(y @ p["up_gate"].to(dt))
+    u = y @ p["up_proj"].to(dt)
+    return (g * u) @ p["down_proj"].to(dt), new_cache
+
+
+def init_slstm_cache(cfg, batch: int, *, device=None):
+    d = cfg.d_model
+    f32 = torch.float32
+    return (
+        torch.zeros((batch, d), dtype=f32, device=device),
+        torch.zeros((batch, d), dtype=f32, device=device),
+        torch.full((batch, cfg.n_heads), -1e30, dtype=f32, device=device),
+        torch.zeros((batch, d), dtype=f32, device=device),
+    )

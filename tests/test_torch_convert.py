@@ -131,3 +131,46 @@ def test_jax_fitted_readout_carried_across():
     got = apply_readout(st, w)
     assert w.shape == (3, 21, 1) and tuple(got.shape) == want.shape == (3, 120)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b", "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_lm_cache_and_encoder_carried_across(arch):
+    """A reference prefill's cache (Mamba's conv window and h, mLSTM's
+    (conv, C, n, m), sLSTM's (c, n, m, h), cross-attention's context k, v)
+    and a reference params tree with its encoder subtree, carried into the
+    port: the port's decode steps from that cache give the reference's
+    logits within 1e-5 (f32, smoke size)."""
+    import importlib.util
+    import pathlib
+
+    import jax
+
+    from repro.configs import smoke_config as jsmoke_config
+    from repro.models import decode_step as jdecode_step
+    from repro.models import prefill as jprefill
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode_step
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_convert", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg, jcfg = smoke_config(arch), jsmoke_config(arch)
+    params = cs.lm_numpy_params(cfg, 5)
+    assert ("encoder" in params) == bool(cfg.n_encoder_layers)
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = convert.lm_params_from_reference(params, device="cpu")
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab_size, (2, 9))
+    ctx = (jnp.asarray(rng.standard_normal((2, cfg.n_context_tokens, cfg.d_model),
+                                           dtype=np.float32))
+           if cfg.n_context_tokens else None)
+    _, jc = jprefill(jcfg, jp, jnp.asarray(toks[:, :6], jnp.int32), max_len=10, context=ctx)
+    tc = convert.lm_cache_from_reference(cfg, jc, device="cpu")
+    assert tc["pos"] == 6
+    for i in range(6, 9):
+        step = jnp.asarray(toks[:, i:i + 1], jnp.int32)
+        jl, jc = jdecode_step(jcfg, jp, jc, step)
+        tl, tc = decode_step(cfg, tp, tc, torch.as_tensor(toks[:, i:i + 1]))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5, rtol=0)

@@ -26,7 +26,9 @@ from call to call, at N on either side of its chunk and lane edges and
 rows off 16 bytes; the block copy bitwise on both its routes (TMA and
 SIMT), each case asserting the route it took; the LM's
 reservoir mixer on K1 bitwise its plain route; an LM's decode within the
-reference's 2e-4 / 2e-3 of its forward.
+reference's 2e-4 / 2e-3 of its forward.  The MoE, Mamba, mLSTM, sLSTM and
+cross-attention blocks and the archs built of them (smoke widths, f32)
+within 1e-5 of the same code on the CPU (cuBLAS sums in another order).
 """
 
 import dataclasses
@@ -757,3 +759,86 @@ def test_lm_decode_matches_forward_on_the_card(dev):
         _, cache = prefill(cfg, params, toks[:, :9], max_len=10)
         step, _ = decode_step(cfg, params, cache, toks[:, 9:])
         torch.testing.assert_close(step[:, 0], full[:, -1], atol=2e-4, rtol=2e-3)
+
+
+def _block_inputs(cfg, kind, seed):
+    """Params of one ``kind`` block of a smoke config (every leaf non-zero)
+    and an input [2, 9, d], on the CPU."""
+    from repro_torch.models import layers, mamba, moe, xlstm
+
+    defs = {"moe": moe.moe_defs, "mamba": mamba.mamba_defs, "mlstm": xlstm.mlstm_defs,
+            "slstm": xlstm.slstm_defs, "cross_attn": layers.cross_attn_defs}[kind](cfg)
+    g = torch.Generator().manual_seed(seed)
+    p = {name: torch.randn(shape, generator=g) / (shape[0] ** 0.5 if len(shape) >= 2 else 10.0)
+         for name, (shape, _axes, _init) in defs.items()}
+    x = torch.randn((2, 9, cfg.d_model), generator=g)
+    return p, x
+
+
+def _on(dev, tree):
+    if isinstance(tree, dict):
+        return {k: _on(dev, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_on(dev, v) for v in tree)
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("kind", ["moe", "mamba", "mlstm", "slstm", "cross_attn"])
+def test_lm_block_on_the_card_matches_the_cpu(dev, kind):
+    """Each block kind ported after the dense ones, smoke widths, f32: the
+    card's output (and, for the recurrent mixers, a prefill's state and one
+    decode step from it) within 1e-5 of the same module on the CPU."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import layers, mamba, moe, xlstm
+
+    arch = {"moe": "qwen3-moe-30b-a3b", "mamba": "jamba-v0.1-52b", "mlstm": "xlstm-1.3b",
+            "slstm": "xlstm-1.3b", "cross_attn": "llama-3.2-vision-11b"}[kind]
+    cfg = smoke_config(arch)
+    p, x = _block_inputs(cfg, kind, 7)
+
+    def run(d):
+        pd, xd = _on(d, p), x.to(d)
+        if kind == "moe":
+            return moe.apply_moe(cfg, pd, xd)
+        if kind == "cross_attn":
+            ctx = torch.randn((2, cfg.n_context_tokens, cfg.d_model),
+                              generator=torch.Generator().manual_seed(8)).to(d)
+            return (layers.apply_cross_attn(cfg, pd, xd,
+                                            context_kv=layers.context_kv(cfg, pd, ctx)),)
+        mod = mamba if kind == "mamba" else xlstm
+        init = getattr(mod, f"init_{kind}_cache")
+        apply = getattr(mod, f"apply_{kind}")
+        y, cache = apply(cfg, pd, xd[:, :8], cache=init(cfg, 2, device=d))
+        y1, cache = apply(cfg, pd, xd[:, 8:], cache=cache)
+        return (y, y1, *cache)
+
+    for got, want in zip(run(dev), run(torch.device("cpu")), strict=True):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-v0.1-52b", "xlstm-1.3b",
+                                  "llama-3.2-vision-11b", "seamless-m4t-medium"])
+def test_lm_archs_on_the_card_match_the_cpu_and_decode_as_they_forward(dev, arch):
+    """The archs ported after the dense ones (smoke widths, f32, the
+    encoder too): the card's forward within 1e-5 of the CPU's on the same
+    params, and its decode within the reference's 2e-4 / 2e-3 of its
+    forward."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+
+    cfg = smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    for blk, unit in zip(cfg.unit, params["units"], strict=True):
+        if blk.mixer == "cross_attn":
+            unit["mixer/gate"].fill_(0.5)
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 10), generator=g)
+    ctx = (torch.randn((2, cfg.n_context_tokens, cfg.d_model), generator=g)
+           if cfg.n_context_tokens else None)
+    want, _ = forward(cfg, params, toks, context=ctx)
+    pd, td, cd = _on(dev, params), toks.to(dev), None if ctx is None else ctx.to(dev)
+    full, _ = forward(cfg, pd, td, context=cd)
+    torch.testing.assert_close(full.cpu(), want, atol=1e-5, rtol=1e-5)
+    _, cache = prefill(cfg, pd, td[:, :9], max_len=10, context=cd)
+    step, _ = decode_step(cfg, pd, cache, td[:, 9:])
+    torch.testing.assert_close(step[:, 0], full[:, -1], atol=2e-4, rtol=2e-3)
