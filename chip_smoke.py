@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. device and build — the card's name and power limit (nvidia-smi), TF32
-   off, the four CUDA sources built with nvcc (in parallel) from
+   off, the five CUDA sources built with nvcc (in parallel) from
    ``src/repro_torch/kernels/csrc``;
 2. kernels vs their plain PyTorch versions on the card — the scan kernel
    for the five device models (f32 and bf16 states, per-lane masks,
@@ -17,7 +17,10 @@ Phases, each printing one JSON line:
    CMT cavity up to N = 100, then N = 900 and the largest N at K = 1):
    SiliconMR exact, bf16 states the f32 states rounded, resume at an uneven
    split bitwise;
-   MZISine above the chain kernel's node limit, which SiliconMR raises at); the
+   MZISine above the chain kernel's node limit, which SiliconMR raises at);
+   the adjoint scan K1ᵀ on its edge grid (N ∈ {1, 31, 32, 33, 256, 900} ×
+   B ∈ {1, 33, 64} × K ∈ {1, 2, 37} × beta 0 and 0.5, a non-zero gradient
+   of the final state), bitwise its plain version; the
    Gram kernel on the edges of its triangle
    grid (F at the 64-wide tile's edges and 901, C = 1 and 128, a ragged
    T, f32 and bf16 X, both thread layouts), G symmetric bitwise, a
@@ -130,7 +133,7 @@ Then the paper's comparison and the composed graphs
 
 Then the program contracts (``repro_torch.analysis``):
 
-21. ``contracts`` — the 19 registered entry points, each run once on the
+21. ``contracts`` — the 20 registered entry points, each run once on the
    card through K1-K3 under its rules (no state tensor, kernel calls per
    chunk, no float64, no silent bf16 upcast, no host sync but the named
    sites, the slab and the Gram folded in place, each call's shared memory
@@ -166,6 +169,21 @@ Then the LM serving path (``repro_torch.models``, ``runtime.steps``):
    streamed evaluation's bf16 chunk [64, 256, 900] and the session tick's
    [4096, 32, 64] (within 1e-6 of its plain version, relative to the sum's
    magnitude, bitwise from call to call, beside ``torch.baddbmm``).
+
+Then the LM training path (``repro_torch.launch.train``, ``runtime.trainer``,
+``runtime.steps.train_step``, ``optim``, ``data``):
+
+23. ``lm_training`` — reservoir_lm at full width with its config's bf16
+   activations over f32 params, 4 microbatches and remat "full", trained 10
+   steps of 32 × 512 tokens through ``launch.train.main`` (K1 96 and K1ᵀ 48
+   launches a step, launches == calls; the loss finite and falling), then
+   resumed from its checkpoint for 2 more; step ms, tokens/s, peak memory,
+   grad norms; one step profiled (the device's busy share, K1's and K1ᵀ's
+   share of it); every leaf's gradient of a 2-layer cut through K1 and K1ᵀ
+   against the plain route's; the f32 smoke train step against the JAX
+   package's losses and grad norms.  The kernels line then adds K1 at the
+   training forward's f32 states and K1ᵀ at the step's first backward,
+   both [24, 512, 256], and K1 at the materialized NARMA10 split.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -859,6 +877,46 @@ LM_SMOKE_SUMMARY = {
 }
 LM_SMOKE_SUMMARY["qwen3-moe-235b-a22b"] = LM_SMOKE_SUMMARY["qwen3-moe-30b-a3b"]
 
+# the lm_training phase (repro_torch.launch.train on the card): the paper's
+# reservoir_lm at full width with its config's bf16 activations over f32
+# params, 4 microbatches and remat "full", LM_TRAIN_STEPS steps of
+# LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens (8 sequences a microbatch: K1 and K1ᵀ
+# at [24, 512, 256], the prefill's shape), then LM_TRAIN_RESUMED more
+# resumed from its checkpoint under build/ (gitignored)
+LM_TRAIN_STEPS = 10
+LM_TRAIN_RESUMED = 2
+LM_TRAIN_BATCH = 32
+LM_TRAIN_SEQ = 512
+LM_TRAIN_CKPT = ROOT / "build" / "lm_train_ckpt"
+# (b) every leaf's gradient through K1 and K1ᵀ against the plain route's:
+# full width cut to 2 layers, B x S tokens, numpy weights (a non-zero
+# readout: the config's zero readout gives K1ᵀ an exactly zero gradient at
+# init, where a broken adjoint would pass)
+LM_TRAIN_GRAD_LAYERS = 2
+LM_TRAIN_GRAD_SHAPE = (2, 32)
+LM_TRAIN_GRAD_TOL = 1e-5            # of each leaf's largest |gradient|
+# (c) the f32 smoke train step on numpy weights from the JAX package's
+# state (lm_train_state), LM_TRAIN_SMOKE_STEPS steps of AdamW(LM_TRAIN_OPT)
+# on lm_train_batches: the JAX package's loss and grad norm a step,
+# recomputed by tests/test_torch_lm_train.py; the port on the CPU is within
+# 1e-6 of them
+LM_TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 2, "total_steps": 10}
+LM_TRAIN_SMOKE_SHAPE = (2, 16)
+LM_TRAIN_SMOKE_STEPS = 3
+LM_TRAIN_TOL = 2e-5
+LM_TRAIN_SMOKE = {"loss": (5.65335321, 5.68292475, 5.58096981),
+                  "grad_norm": (1.77798784, 1.72750413, 1.75281179)}
+# the adjoint scan's edge grid (phase_scan_grad_checks): N at the float4
+# group's and the warp's edges and the path widths, B at the 8-lane block's
+# edges, every K, beta 0 (the mixer's form) and 0.5 (TPA saturation)
+GRAD_EDGE_N = (1, 31, 32, 33, 256, 900)
+GRAD_EDGE_B = (1, 33, 64)
+GRAD_EDGE_K = (1, 2, 37)
+GRAD_EDGE_BETA = (0.0, 0.5)
+# f32 ops of one adjoint node step (dfr_scan_grad.cu, node<false>): u, the
+# compare and select, g + q, c·λ and its add, α·λ, γ·gp, m·gp and its add
+GRAD_OPS_PER_STEP = 10
+
 
 _T_START = time.perf_counter()
 
@@ -931,8 +989,9 @@ def chain_cycles(dev) -> dict:
     SiliconMR's chain step as the scan kernel computes it, ``f32_op`` one
     dependent f32 add, ``cmt_step`` the CMT cavity's chain step (the
     ``cmt_model()`` constants, n_substeps substeps), ``mg_step``
-    MackeyGlass's chain step (its mul and add); ``least_step`` is CHAIN_OPS
-    of ``f32_op``."""
+    MackeyGlass's chain step (its mul and add), ``grad_step`` the adjoint
+    scan's (K1ᵀ: its mul and add); ``least_step`` is CHAIN_OPS of
+    ``f32_op``."""
     import ctypes
 
     import numpy as np
@@ -954,14 +1013,15 @@ def chain_cycles(dev) -> dict:
     # the CMT form: u = j·m with a {0, 1} mask, its drive u + γ·s(t−τ)
     u_cmt = u * (np.arange(8) % 2)
     heads[2] = np.concatenate([u_cmt, u_cmt + 0.9 * rng.uniform(0, 0.5, 8), [0.1]])
-    heads[3] = heads[0]
+    heads[3] = heads[4] = heads[0]
     consts = {0: [0.632], 1: [0.632], 2: list(cmt_model().kernel_spec()[1]),
-              3: list(MackeyGlass().kernel_spec()[1])}
+              3: list(MackeyGlass().kernel_spec()[1]), 4: [0.632]}
     last = torch.empty(1, dtype=torch.float32, device=dev)
     cyc = torch.empty(1, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     res = {}
-    for form, name in ((0, "kernel_step"), (1, "f32_op"), (2, "cmt_step"), (3, "mg_step")):
+    for form, name in ((0, "kernel_step"), (1, "f32_op"), (2, "cmt_step"), (3, "mg_step"),
+                       (4, "grad_step")):
         p = consts[form] + [0.0] * (scan_ops.MAX_PARAMS - len(consts[form]))
         x = torch.as_tensor(np.concatenate([heads[form], p]), dtype=torch.float32, device=dev)
         runs = []
@@ -998,7 +1058,7 @@ def reset_counts() -> None:
     from repro_torch.kernels.readout_apply import ops as apply_ops
     from repro_torch.kernels.ridge_gram import ops as gram_ops
 
-    for wrapper in (scan_ops.dfr_scan, gram_ops.gram_accumulate_batched,
+    for wrapper in (scan_ops.dfr_scan, scan_ops.dfr_scan_grad, gram_ops.gram_accumulate_batched,
                     gram_ops.gram_accumulate_batched_into, copy_ops.block_copy,
                     apply_ops.readout_apply):
         wrapper.launches = wrapper.calls = 0
@@ -1111,6 +1171,58 @@ def summary_gap(a: dict, b: dict) -> float:
     import numpy as np
 
     return max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max()) for k in a)
+
+
+def lm_train_state(params: dict) -> dict:
+    """A train state in the JAX package's layout ({"params", "opt": {"m",
+    "v"}, "step"}) around numpy ``params``: zero f32 moments, step 0."""
+    import numpy as np
+
+    def zeros(node):
+        if isinstance(node, dict):
+            return {k: zeros(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(zeros(v) for v in node)
+        return np.zeros(node.shape, np.float32)
+
+    return {"params": params, "opt": {"m": zeros(params), "v": zeros(params)},
+            "step": np.zeros((), np.int32)}
+
+
+def lm_train_batches(cfg, n_steps: int, shape, seed: int) -> list[dict]:
+    """``n_steps`` batches {"tokens", "labels"} of ``shape`` [B, S], int32,
+    drawn with numpy at ``seed``: each a row of S + 1 tokens, shifted."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_steps):
+        toks = rng.integers(0, cfg.vocab_size, (shape[0], shape[1] + 1)).astype(np.int32)
+        out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return out
+
+
+def lm_smoke_train(dev) -> dict:
+    """reservoir_lm's smoke config (f32) trained LM_TRAIN_SMOKE_STEPS steps
+    on the card from the numpy weights: each step's loss and grad norm."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import train_step
+
+    cfg = smoke_config("reservoir_lm")
+    state = convert.train_state_from_reference(lm_train_state(lm_numpy_params(cfg, LM_SEED)),
+                                               device=dev)
+    out = {"loss": [], "grad_norm": []}
+    for batch in lm_train_batches(cfg, LM_TRAIN_SMOKE_STEPS, LM_TRAIN_SMOKE_SHAPE,
+                                  LM_TOKENS_SEED):
+        state, metrics = train_step(cfg, AdamWConfig(**LM_TRAIN_OPT), state,
+                                    {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        for k in out:
+            out[k].append(float(metrics[k]))
+    return out
 
 
 def phase_build(card: str) -> None:
@@ -1301,6 +1413,63 @@ def phase_scan_checks(dev) -> None:
               "max_err_vs_plain_by_form": grid, "mzi_above_node_limit": above,
               "bf16_is_f32_rounded_bitwise": True,
               "resume_bitwise": True, "seconds": time.perf_counter() - t0}})
+
+
+def phase_scan_grad_checks(dev) -> None:
+    """The adjoint scan K1ᵀ against its plain version on the edge grid of
+    its block layout (every N of GRAD_EDGE_N × B of GRAD_EDGE_B × K of
+    GRAD_EDGE_K × beta of GRAD_EDGE_BETA), from K1's own f32 states with a
+    non-zero gradient of the final state: dj and ds0 bitwise, one launch a
+    call; the forms it does not cover raise on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import MackeyGlass, SiliconMR
+    from repro_torch.kernels.dfr_scan import ops
+
+    t0 = time.perf_counter()
+    cases, worst = 0, 0.0
+    for n in GRAD_EDGE_N:
+        for b in GRAD_EDGE_B:
+            for k in GRAD_EDGE_K:
+                for beta in GRAD_EDGE_BETA:
+                    rng = np.random.default_rng(cases)
+                    model = SiliconMR(beta_tpa=beta)
+                    j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32,
+                                        device=dev)
+                    s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32,
+                                         device=dev)
+                    mask = torch.as_tensor(rng.choice((0.0, 1.0), n), dtype=torch.float32,
+                                           device=dev)
+                    states = ops.dfr_scan(model, j, mask, s0)
+                    g = torch.as_tensor(rng.standard_normal((b, k, n)), dtype=torch.float32,
+                                        device=dev)
+                    g_fin = torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32,
+                                            device=dev)
+                    what = f"K1ᵀ B={b} K={k} N={n} beta={beta}"
+                    before = ops.dfr_scan_grad.launches
+                    dj, ds0 = ops.dfr_scan_grad(model, j, mask, s0, states, g, g_fin)
+                    check(ops.dfr_scan_grad.launches == before + 1, f"{what}: not one launch")
+                    pj, ps = ops.dfr_scan_grad_plain(model, j, mask, s0, states, g, g_fin)
+                    worst = max(worst, max_err(dj, pj), max_err(ds0, ps))
+                    check(same_bits(dj, pj) and same_bits(ds0, ps),
+                          f"{what}: vs plain {max_err(dj, pj)}, {max_err(ds0, ps)}")
+                    cases += 1
+    j2, s2, st = (torch.zeros(shape, device=dev) for shape in ((2, 2), (2, 3), (2, 2, 3)))
+    raised = {}
+    for name, model, mask in (("MackeyGlass", MackeyGlass(), s2[0]),
+                              ("per-lane mask", SiliconMR(), s2)):
+        try:
+            ops.dfr_scan_grad(model, j2, mask, s2, st, st, s2)
+        except NotImplementedError as err:
+            raised[name] = str(err)
+        else:
+            check(False, f"K1ᵀ took {name}")
+    emit({"phase": "kernel_checks", "kernel": "dfr_scan_grad", "edge_grid": {
+              "N": GRAD_EDGE_N, "B": GRAD_EDGE_B, "K": GRAD_EDGE_K, "beta": GRAD_EDGE_BETA,
+              "cases": cases, "bitwise_vs_plain": True, "max_abs_err": worst,
+              "max_nodes": ops.max_grad_nodes(), "raised": raised,
+              "seconds": time.perf_counter() - t0}})
 
 
 def phase_gram_checks(dev) -> None:
@@ -2108,11 +2277,12 @@ def profile_ticks(server, n_ticks: int) -> dict:
     return profile_calls(server.step, n_ticks, "ticks")
 
 
-def profile_calls(fn, n_calls: int, what: str = "calls") -> dict:
+def profile_calls(fn, n_calls: int, what: str = "calls", shares=None) -> dict:
     """Device busy time of ``n_calls`` calls of ``fn`` (torch.profiler: the
     union of the kernel and copy intervals on the card) against their host
-    wall time, and the kernels by device time; the error if the profiler
-    fails here."""
+    wall time, and the kernels by device time; with ``shares`` ({label:
+    substring of a kernel's name}) also each label's device ms and share of
+    the busy time; the error if the profiler fails here."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2134,9 +2304,14 @@ def profile_calls(fn, n_calls: int, what: str = "calls") -> dict:
             end = max(end, stop)
             by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        return {what: n_calls, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-                "device_busy_share": busy_us / 1e3 / wall_ms, "device_events": len(spans),
-                "top_device_ms": top}
+        out = {what: n_calls, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+               "device_busy_share": busy_us / 1e3 / wall_ms, "device_events": len(spans),
+               "top_device_ms": top}
+        for label, part in (shares or {}).items():
+            ms = sum(v for k, v in by_name.items() if part in k)
+            out[f"{label}_device_ms"] = ms
+            out[f"{label}_share_of_busy"] = ms / (busy_us / 1e3)
+        return out
     except Exception as err:  # noqa: BLE001 — the profiler is untried on that machine
         return {"error": f"{type(err).__name__}: {err}"}
 
@@ -3065,7 +3240,7 @@ def phase_composed(dev, tasks, card: str) -> dict:
 
 # the contracts phase: the gate at the registry's shapes, the block-copy
 # fixture's tiles, and a long stream whose peak memory the card measures
-CONTRACT_ENTRIES = 19
+CONTRACT_ENTRIES = 20
 COPY_SHAPE = (2048, 1024)
 COPY_TILE = (32, 256)
 CONTRACT_LONG_K = 20000
@@ -3154,16 +3329,18 @@ def phase_contracts(dev, card: str) -> dict:
 
 @contextlib.contextmanager
 def plain_mixer():
-    """Route the LM's reservoir mixer through the scan kernel's plain
-    version (on the card's tensors) for the body of the ``with``."""
+    """Route the LM's reservoir mixer through the plain versions of the
+    scan kernel and of its adjoint (on the card's tensors) for the body of
+    the ``with``."""
     from repro_torch.core import layer as mixer
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
 
-    scan = mixer.dfr_scan
-    mixer.dfr_scan = scan_plain
+    scan, grad = mixer.dfr_scan, mixer.dfr_scan_grad
+    mixer.dfr_scan, mixer.dfr_scan_grad = scan_plain, scan_ops.dfr_scan_grad_plain
     try:
         yield
     finally:
-        mixer.dfr_scan = scan
+        mixer.dfr_scan, mixer.dfr_scan_grad = scan, grad
 
 
 def profile_decode(cfg, params, served: dict, n_steps: int = LM_PROFILE_STEPS) -> dict:
@@ -3588,6 +3765,197 @@ def phase_lm_serving(dev, card: str) -> dict:
     return lm_drive
 
 
+def phase_lm_training(dev, card: str) -> dict:
+    """The LM training path (``repro_torch.launch.train`` → ``runtime.trainer``
+    → ``runtime.steps.train_step`` → ``optim.adamw``) on the card:
+
+    (a) reservoir_lm at full width (12 layers, d 768, N 256, R 3, vocab
+        32000; bf16 activations over f32 params, 4 microbatches, remat
+        "full") trained LM_TRAIN_STEPS steps of LM_TRAIN_BATCH ×
+        LM_TRAIN_SEQ tokens through ``launch.train.main``: every loss finite
+        and the mean of the last 3 below the first; K1 launched 12 × 4 × 2
+        times a step (the remat runs each forward again in the backward) and
+        K1ᵀ 12 × 4, launches == calls; step ms p50/p90 (without step 0),
+        tokens/s, peak memory, grad norms; then ``main`` again to
+        LM_TRAIN_STEPS + LM_TRAIN_RESUMED, which resumes from the
+        checkpoint at step LM_TRAIN_STEPS and runs the rest;
+    (b) one more step of the same under ``torch.profiler``: the device's
+        busy share, and K1's and K1ᵀ's share of the busy time;
+    (c) every leaf's gradient through K1 and K1ᵀ against the plain route's
+        (both scans' plain versions, on the card), full width cut to 2
+        layers, 2 × 32 tokens on numpy weights: bitwise, else within
+        LM_TRAIN_GRAD_TOL of the leaf's largest |gradient|;
+    (d) the f32 smoke train step from the JAX package's numpy state, 3
+        steps: loss and grad norm within LM_TRAIN_TOL of LM_TRAIN_SMOKE.
+
+    Returns the inputs of the kernels line's training rows: K1's at layer
+    0's first training forward, K1ᵀ's at the step's first backward (layer
+    11, microbatch 0), and the launches a step."""
+    import io
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core import layer as mixer
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves_with_path
+    from repro_torch.runtime.steps import init_train_state, loss_fn, train_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config("reservoir_lm")
+    check(cfg.dtype == "bfloat16" and cfg.microbatches == 4 and cfg.remat == "full",
+          f"reservoir_lm trains in {cfg.dtype}, {cfg.microbatches} microbatches, "
+          f"remat {cfg.remat}")
+    per_step = {"dfr_scan": cfg.n_layers * cfg.microbatches * 2,
+                "dfr_scan_grad": cfg.n_layers * cfg.microbatches}
+    wrappers = {"dfr_scan": scan_ops.dfr_scan, "dfr_scan_grad": scan_ops.dfr_scan_grad}
+
+    def counts():
+        return {k: (w.launches, w.calls) for k, w in wrappers.items()}
+
+    # (a) full width through the launcher, then resumed from its checkpoint
+    shutil.rmtree(LM_TRAIN_CKPT, ignore_errors=True)
+    argv = ["--arch", "reservoir_lm", "--no-reduce", "--batch", str(LM_TRAIN_BATCH),
+            "--seq", str(LM_TRAIN_SEQ), "--device", "cuda",
+            "--checkpoint-dir", str(LM_TRAIN_CKPT)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        hist, run_s = wall(lambda: train.main(argv + ["--steps", str(LM_TRAIN_STEPS)]))
+    peak = torch.cuda.max_memory_allocated()
+    got = counts()
+    for k, want in per_step.items():
+        check(got[k] == (want * LM_TRAIN_STEPS,) * 2,
+              f"lm training: {k} (launches, calls) {got[k]}, want {want} a step")
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == LM_TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"lm training losses {losses}")
+    check(float(np.mean(losses[-3:])) < losses[0], f"lm training loss did not fall: {losses}")
+    step_ms = np.asarray([h["step_time_s"] for h in hist[1:]]) * 1e3
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    out = {"training": {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "reservoir_nodes": cfg.reservoir_nodes, "channels": mixer._n_channels(cfg),
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "microbatches": cfg.microbatches,
+        "remat": cfg.remat, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+        "steps": LM_TRAIN_STEPS, "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in hist], "lrs": [h["lr"] for h in hist],
+        "step0_ms": hist[0]["step_time_s"] * 1e3,
+        "step_ms_p50": float(np.percentile(step_ms, 50)),
+        "step_ms_p90": float(np.percentile(step_ms, 90)),
+        "tokens_per_s": tokens / float(np.percentile(step_ms, 50) / 1e3),
+        "peak_bytes": peak, "run_s": run_s,
+        "launches_calls": {k: list(v) for k, v in got.items()},
+        "launches_per_step": per_step, "main_last_line": printed.getvalue().strip()}}
+    reset_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        resumed, resume_s = wall(lambda: train.main(
+            argv + ["--steps", str(LM_TRAIN_STEPS + LM_TRAIN_RESUMED)]))
+    got = counts()
+    check([h["step"] for h in resumed] == list(range(LM_TRAIN_STEPS,
+                                                     LM_TRAIN_STEPS + LM_TRAIN_RESUMED)),
+          f"resumed run's steps {[h['step'] for h in resumed]}")
+    for k, want in per_step.items():
+        check(got[k] == (want * LM_TRAIN_RESUMED,) * 2,
+              f"resumed training: {k} (launches, calls) {got[k]}")
+    check(all(math.isfinite(h["loss"]) for h in resumed), "resumed losses")
+    out["resumed"] = {"from_step": LM_TRAIN_STEPS, "steps": len(resumed),
+                      "losses": [h["loss"] for h in resumed], "run_s": resume_s,
+                      "main_last_line": printed.getvalue().strip()}
+    shutil.rmtree(LM_TRAIN_CKPT, ignore_errors=True)
+
+    # (b) one step profiled, after one that records K1's and K1ᵀ's inputs
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+                      global_batch=LM_TRAIN_BATCH)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=LM_TRAIN_STEPS)
+    batch = train.batch_to_device(host_batch(data, 0), dev)
+    seen = {}
+    scan, grad = mixer.dfr_scan, mixer.dfr_scan_grad
+
+    def scan_spy(model, j, mask, s0, **kw):
+        if "k1" not in seen:
+            seen["k1"] = (model, j.detach().clone(), mask, s0.detach().clone())
+        return scan(model, j, mask, s0, **kw)
+
+    def grad_spy(model, *args):
+        if "k1t" not in seen:
+            seen["k1t"] = (model, *(a.detach().clone() for a in args))
+        return grad(model, *args)
+
+    mixer.dfr_scan, mixer.dfr_scan_grad = scan_spy, grad_spy
+    try:
+        train_step(cfg, opt, state, batch)
+    finally:
+        mixer.dfr_scan, mixer.dfr_scan_grad = scan, grad
+    out["profile_one_step"] = profile_calls(
+        lambda: train_step(cfg, opt, state, batch), 1, "steps",
+        shares={"k1": "dfr_scan_chain_kernel", "k1t": "dfr_scan_grad_kernel"})
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # (c) the kernel route's gradients against the plain route's
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_TRAIN_GRAD_LAYERS, microbatches=1)
+    params = convert.lm_params_from_reference(lm_numpy_params(cfg2, LM_SEED), device=dev)
+    named = tree_leaves_with_path(params)
+    leaves = [p.requires_grad_(True) for _, p in named]
+    b, sl = LM_TRAIN_GRAD_SHAPE
+    (toks,) = lm_train_batches(cfg2, 1, (b, sl), LM_TOKENS_SEED)
+    gbatch = {k: torch.as_tensor(v, device=dev) for k, v in toks.items()}
+
+    def grads():
+        loss, _ = loss_fn(cfg2, params, gbatch)
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    reset_counts()
+    g_kernel = grads()
+    got = counts()
+    want = {"dfr_scan": 2 * cfg2.n_layers, "dfr_scan_grad": cfg2.n_layers}
+    check(all(got[k] == (v, v) for k, v in want.items()),
+          f"gradient check: kernel route launches {got}, want {want}")
+    with plain_mixer():
+        g_plain, plain_s = wall(grads)
+    leaf_err, n_bitwise = {}, 0
+    for (path, _), gk, gp in zip(named, g_kernel, g_plain, strict=True):
+        if gk is None or gp is None:
+            check(gk is None and gp is None, f"{path}: a gradient on one route only")
+            continue
+        n_bitwise += same_bits(gk, gp)
+        rel = max_err(gk, gp) / max(float(gp.abs().max()), 1e-30)
+        leaf_err[path] = rel
+        check(rel <= LM_TRAIN_GRAD_TOL, f"{path}: kernel vs plain route gradient {rel}")
+    out["gradients_vs_plain_route"] = {
+        "layers": cfg2.n_layers, "shape_bs": [b, sl], "dtype": cfg2.dtype, "remat": cfg2.remat,
+        "leaves": len(leaf_err), "bitwise_leaves": n_bitwise,
+        "max_rel_err": max(leaf_err.values()), "tol": LM_TRAIN_GRAD_TOL,
+        "none_leaves": [p for (p, _), g in zip(named, g_kernel) if g is None],
+        "plain_s": plain_s}
+    del params, leaves, g_kernel, g_plain
+    torch.cuda.empty_cache()
+
+    # (d) the f32 smoke train step against the JAX package's
+    smoke = lm_smoke_train(dev)
+    gaps = {k: max(abs(a - b) for a, b in zip(smoke[k], LM_TRAIN_SMOKE[k], strict=True))
+            for k in smoke}
+    check(max(gaps.values()) <= LM_TRAIN_TOL, f"smoke train step vs the JAX package: {gaps}")
+    out["smoke_vs_reference"] = {"steps": LM_TRAIN_SMOKE_STEPS, "shape_bs":
+                                 list(LM_TRAIN_SMOKE_SHAPE), **smoke, "max_gap": gaps,
+                                 "tol": LM_TRAIN_TOL}
+    emit({"phase": "lm_training", "card": card, **out, "seconds": time.perf_counter() - t0})
+    return {"k1": seen["k1"], "k1t": seen["k1t"], "per_step": per_step,
+            "launches": {k: v * LM_TRAIN_STEPS for k, v in per_step.items()}}
+
+
 def phase_kernels_line(dev, narma, paths: dict) -> None:
     """Each kernel at the shapes of the path it rides, with that path's
     launch count: K1 at one streamed chunk (broadcast mask, N = 900) and in
@@ -3874,6 +4242,11 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                      "lanes_per_block": scan_ops.scan_layout(b, n, mask.ndim == 2).lanes,
                      "shape_bkn": [b, k, n]})
 
+    # the materialized NARMA10 path's train split, as Experiment.run launches
+    # it (twice a run: train and test)
+    split_row("dfr_scan_materialized", model, j_tr, exp.mask, paths["main"]["launches"][0],
+              "materialized NARMA10, one launch a split", SPLIT_CHECK_K, 0.0,
+              cycles["least_step"], SCAN_OPS_PER_STEP)
     # the CMT form at the cmt_main path's split; its chain bound counts the
     # CMT chain step as measured (chain_cycles "cmt_step")
     cmt_exp = paths["cmt"]["exp"]
@@ -3935,6 +4308,63 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
              lm["decode_launches"], f"lm_serving: reservoir_lm decode, one launch a layer a "
              f"step ({lm['decode_launches']} over {LM_SERVE_NEW - 1} steps)", chunk=1,
              model=lm["model"])
+
+    # the LM's training step (phase_lm_training): K1 emitting f32 states at
+    # layer 0's first forward, from zero, as the step launches it (12 layers
+    # x 4 microbatches x 2 a step: the remat runs each forward again), and
+    # K1ᵀ at the step's first backward (layer 11, microbatch 0; 12 x 4)
+    tr = paths["lm_training"]
+    model_t, j_t, mask_t, _ = tr["k1"]
+    split_row("dfr_scan_lm_train", model_t, j_t, mask_t, tr["launches"]["dfr_scan"],
+              f"lm_training: reservoir_lm train step, f32 states, {tr['per_step']['dfr_scan']} "
+              f"launches a step ({LM_TRAIN_STEPS} steps)", SPLIT_CHECK_K, 0.0,
+              cycles["least_step"], SCAN_OPS_PER_STEP)
+    rows[-1]["launches_per_step"] = tr["per_step"]["dfr_scan"]
+
+    def grad_row(name, args, launches, per_step, path):
+        """K1ᵀ at its path's shape: held bitwise to its plain version on the
+        first SPLIT_CHECK_K periods of the same inputs (whose time is
+        ``plain_ms``), timed at the full shape, with its byte bound and its
+        chain bound (K·N steps of its chain step, a mul and an add, at the
+        latency ``chain_cycles`` measures: ``grad_step``)."""
+        model, j, mask, s0, states, g, g_fin = args
+        b, k = j.shape
+        n = mask.shape[-1]
+        ck = SPLIT_CHECK_K
+        cut = (model, j[:, :ck].contiguous(), mask, s0, states[:, :ck].contiguous(),
+               g[:, :ck].contiguous(), g_fin)
+        dj, ds0 = scan_ops.dfr_scan_grad(*cut)
+        (pj, ps), plain_s = wall(lambda: scan_ops.dfr_scan_grad_plain(*cut))
+        err = max(max_err(dj, pj), max_err(ds0, ps))
+        check(same_bits(dj, pj) and same_bits(ds0, ps),
+              f"{name} vs plain on the first {ck} periods: {err}")
+        check(bool(torch.isfinite(scan_ops.dfr_scan_grad(*args)[0]).all()), f"{name}: dj")
+        # the gradient of the states and the f32 states read once, j, s0,
+        # g_fin and the mask; dj and ds0 written
+        bound, by = bound_ms(4 * (2 * b * k * n + 2 * b * k + 3 * b * n + n),
+                             GRAD_OPS_PER_STEP * b * k * n)
+        t = times(lambda: scan_ops.dfr_scan_grad(*args), 5, bound)
+        chain_bound = k * n * cycles["grad_step"] / (clocks["max"] * 1e3)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/dfr_scan_grad.cu",
+                     "replaces": "src/repro/core/layer.py:71",
+                     "replaces_note": "no TPU kernel: the gradient of the reference mixer's "
+                                      "lax.scan, which jax.grad differentiates; the port's "
+                                      "forward is K1",
+                     "launches": launches, "launches_per_step": per_step, "path": path,
+                     "max_abs_err": err, "bitwise_vs_plain": True, **t,
+                     "plain_ms": plain_s * 1e3, "plain_shape_bkn": [b, ck, n],
+                     "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "chain_bound_ms": chain_bound, "chain_bound_share": chain_bound / t["ms"],
+                     "chain_cycles_per_step": cycles,
+                     "cycles_per_node_at_max_clock": t["ms"] * clocks["max"] * 1e3 / (k * n),
+                     "sm_clock_mhz": clocks,
+                     "lanes_per_block": scan_ops.grad_layout(b, n).lanes, "shape_bkn": [b, k, n]})
+
+    grad_row("dfr_scan_grad_lm_train", tr["k1t"], tr["launches"]["dfr_scan_grad"],
+             tr["per_step"]["dfr_scan_grad"],
+             f"lm_training: reservoir_lm train step, {tr['per_step']['dfr_scan_grad']} launches "
+             f"a step ({LM_TRAIN_STEPS} steps)")
 
     def apply_row(name, x, w, launches, path):
         """The readout-apply kernel against its plain version (the widened
@@ -4100,6 +4530,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build(card)
     phase_scan_checks(dev)
+    phase_scan_grad_checks(dev)
     phase_gram_checks(dev)
     narma, chan = main_inputs(tasks, B_MAIN)
     main = phase_main_path(dev, narma, chan, card)
@@ -4122,10 +4553,12 @@ def main() -> int:
     composed = phase_composed(dev, tasks, card)
     contracts = phase_contracts(dev, card)
     lm = phase_lm_serving(dev, card)
+    lm_training = phase_lm_training(dev, card)
     phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm,
                                     "serving": serving, "cmt": cmt,
                                     "accelerator": accelerator, "figures": figures,
-                                    "composed": composed, "contracts": contracts, "lm": lm})
+                                    "composed": composed, "contracts": contracts, "lm": lm,
+                                    "lm_training": lm_training})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ arguments (seeded, on that device) and returns ``(Program, rules)``; the
 checker runs the program once there.  On the CPU the kernels run as their
 plain versions, on the card as themselves.
 
-The reference's ``reservoir_lm_train_step`` waits for the port of the LM
-stack (ROADMAP.md Queue 1, item 13).
+All 20 of the reference's entries are here.  ``reservoir_lm_train_step``
+states ``MaxKernelCalls`` where the reference states ``MaxPallasCalls(0)``:
+the port's mixer is a kernel, K1 once in the forward and its adjoint K1ᵀ
+once in the backward.
 
 Registering an entry: write a builder ``(device) -> (Program, rules)`` and
 decorate it with ``@register(name, description)``.  Keep shapes minimal:
@@ -369,6 +371,25 @@ def _session_step_faulted_kernel(device):
     # K1, K3 and the readout-apply kernel's prediction
     return prog, _session_rules() + (MaxKernelCalls(3), SmemBudget(),
                                      InPlaceHonored(fields=_SLAB, min_into_calls=1))
+
+
+@register("reservoir_lm_train_step",
+          "reservoir_lm train step (grad accumulation, the train state updated in place)")
+def _reservoir_lm_train_step(device):
+    from ..configs import smoke_config
+    from ..optim import AdamWConfig
+    from ..runtime.steps import init_train_state, train_step
+    cfg = smoke_config("reservoir_lm")
+    opt = AdamWConfig()
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    b, s = 2 * max(1, cfg.microbatches), 16
+    batch = {"tokens": torch.zeros((b, s), dtype=torch.int32, device=device),
+             "labels": torch.zeros((b, s), dtype=torch.int32, device=device)}
+    prog = Program(lambda st, bt: train_step(cfg, opt, st, bt), (state, batch),
+                   inplace_argnums=(0,), name="reservoir_lm_train_step")
+    # one layer, one microbatch, no remat: K1 once (forward), K1ᵀ once (backward)
+    return prog, (NoHostSync(), NoDtypeAbove("float32"), MaxKernelCalls(1, 1),
+                  InPlaceHonored())
 
 
 def seeded_violation_entry() -> EntryPoint:

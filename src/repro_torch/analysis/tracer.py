@@ -56,6 +56,7 @@ SYNC_DEBUG_MESSAGE = "called a synchronizing CUDA operation"
 # The kernels the wrappers count: name -> (module, wrapper).
 KERNELS = {
     "dfr_scan": ("repro_torch.kernels.dfr_scan.ops", "dfr_scan"),
+    "dfr_scan_grad": ("repro_torch.kernels.dfr_scan.ops", "dfr_scan_grad"),
     "ridge_gram": ("repro_torch.kernels.ridge_gram.ops", "gram_accumulate_batched"),
     "ridge_gram_into": ("repro_torch.kernels.ridge_gram.ops", "gram_accumulate_batched_into"),
     "block_copy": ("repro_torch.kernels.block_copy.ops", "block_copy"),

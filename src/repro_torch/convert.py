@@ -164,6 +164,23 @@ def lm_params_from_reference(params, *, device=None) -> dict:
     return walk(params)
 
 
+def train_state_from_reference(state, *, device=None) -> dict:
+    """The port's train state (``runtime.steps.init_train_state``' layout)
+    from a reference one (``repro.runtime.steps.init_train_state``, or a
+    reference step's output): params and the f32 moments ``opt.m``,
+    ``opt.v`` through ``lm_params_from_reference``, and ``step`` an int32
+    scalar tensor, all on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    missing = {"params", "opt", "step"} - set(state)
+    if missing:
+        raise TypeError(f"not a reference train state: no {sorted(missing)}")
+    return {"params": lm_params_from_reference(state["params"], device=dev),
+            "opt": {k: lm_params_from_reference(state["opt"][k], device=dev)
+                    for k in ("m", "v")},
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=dev)}
+
+
 _CACHE_LEAVES = {"attn": 2, "cross_attn": 2, "mamba": 2, "mlstm": 4, "slstm": 4}
 
 

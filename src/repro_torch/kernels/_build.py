@@ -32,7 +32,7 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("dfr_scan", "ridge_gram", "block_copy", "readout_apply")
+SOURCES = ("dfr_scan", "dfr_scan_grad", "ridge_gram", "block_copy", "readout_apply")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

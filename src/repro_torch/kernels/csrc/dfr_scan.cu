@@ -481,7 +481,8 @@ int dispatch(int model_id, const float* j, const float* mask, int per_lane, floa
 // chain<MR> computes it; form 1 one dependent __fadd_rn, the latency of one
 // f32 op (the least a SiliconMR step can take is three: mul, add, select);
 // form 2 the CMT cavity's chain step as chain<CMT> computes it; form 3
-// MackeyGlass's (mul, add) as chain<MG> computes it.
+// MackeyGlass's (mul, add) as chain<MG> computes it; form 4 the adjoint
+// scan's chain step (dfr_scan_grad.cu: lam = a + c * lam, a mul and an add).
 constexpr int kProbeUnroll = 8;
 
 template <int V>
@@ -511,6 +512,8 @@ __global__ void chain_probe_kernel(const float* in, float* out, long long* cycle
           s = chain<MR>(f[c], s, p);
         } else if constexpr (V == 3) {
           s = chain<MG>(f[c], s, p);
+        } else if constexpr (V == 4) {
+          s = __fadd_rn(f[c].a, __fmul_rn(f[c].u, s));
         } else {
           s = __fadd_rn(s, f[c].a);
         }
@@ -559,7 +562,7 @@ extern "C" int dfr_scan_launch(const void* j, const void* mask, int per_lane, vo
 // MackeyGlass forms' kernel_spec()); out[0] the last state; cycles[0] the
 // clock64() cycles of `steps` (a multiple of 8) steps of chain form `form`
 // (0 SiliconMR's step, 1 one f32 add, 2 the CMT step, 3 MackeyGlass's
-// step), one thread.
+// step, 4 the adjoint scan's step with c = u), one thread.
 extern "C" int dfr_scan_chain_probe(int form, const void* in, void* out, void* cycles, int steps,
                                     void* stream) {
   const auto* x = static_cast<const float*>(in);
@@ -574,6 +577,8 @@ extern "C" int dfr_scan_chain_probe(int form, const void* in, void* out, void* c
     chain_probe_kernel<2><<<1, 1, 0, s>>>(x, o, c, steps);
   } else if (form == 3) {
     chain_probe_kernel<3><<<1, 1, 0, s>>>(x, o, c, steps);
+  } else if (form == 4) {
+    chain_probe_kernel<4><<<1, 1, 0, s>>>(x, o, c, steps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,6 +25,13 @@ sublane tile and no padding.
 dtype; feeding it back as ``s0`` resumes the scan bit-exactly for f32
 input.  ``out_dtype`` (float32 or bfloat16) narrows only the emitted
 states; compute is f32 throughout.
+
+``dfr_scan_grad`` is the scan's gradient for SiliconMR with one mask, the
+adjoint scan K1ᵀ (``csrc/dfr_scan_grad.cu``; no TPU kernel stands behind
+it: the reference differentiates its ``lax.scan`` with ``jax.grad``).  It
+takes K1's f32 states and recomputes the branch bits from them; its plain
+version ``dfr_scan_grad_plain`` runs the kernel's ops in its order, so the
+two agree bitwise.  It counts ``launches`` and ``calls`` as K1 does.
 """
 
 from __future__ import annotations
@@ -198,3 +205,170 @@ def dfr_scan(model, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, *,
 dfr_scan.launches = 0   # kernel launches (plain-version calls are not counted)
 dfr_scan.calls = 0      # calls on either route that launch (or would launch) the kernel
 _COUNTERS = dfr_scan    # the counters' owner, should a test rebind the module's name
+
+
+# --------------------------------------------------------------------------
+# K1ᵀ: the adjoint scan (``kernels/csrc/dfr_scan_grad.cu``)
+# --------------------------------------------------------------------------
+
+_GRAD_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 4 \
+    + (ctypes.c_void_p,)
+
+
+def grad_constants(model) -> tuple[float, float, float, float]:
+    """(alpha, gamma, beta, 1 - alpha) in f32 of the forms the adjoint scan
+    covers: ``SiliconMR``, with or without TPA saturation.  Any other model
+    raises NotImplementedError."""
+    from ...core.nonlinear import SiliconMR, _one_minus_f32
+
+    if type(model) is not SiliconMR:
+        raise NotImplementedError(
+            f"the adjoint scan (K1ᵀ) covers SiliconMR only, not {type(model).__name__}")
+    _, (alpha, gamma, beta, _) = model.kernel_spec()
+    return alpha, gamma, beta, _one_minus_f32(alpha)
+
+
+def _grad_rows(lanes: int) -> int:
+    """Rows a block of the adjoint scan keeps: three state slots, two
+    gradient slots and the q row a lane, and the mask."""
+    return 6 * lanes + 1
+
+
+def max_grad_nodes() -> int:
+    """The largest N whose rows fit a block of the adjoint scan."""
+    cap = SMEM_PER_BLOCK // (4 * _grad_rows(LANES_PER_BLOCK))
+    return cap - (cap - 4) % 8
+
+
+def grad_layout(b: int, n_nodes: int) -> ScanLayout:
+    """The adjoint scan's block layout for B lanes of N nodes (K1's lanes a
+    block and row pitch); raises ValueError above ``max_grad_nodes()``."""
+    limit = max_grad_nodes()
+    if n_nodes > limit:
+        raise ValueError(f"the adjoint scan keeps a block's rows in shared memory: N = "
+                         f"{n_nodes} exceeds its limit of {limit} nodes")
+    stride = row_stride(n_nodes)
+    return ScanLayout(LANES_PER_BLOCK, -(-b // LANES_PER_BLOCK), stride,
+                      4 * stride * _grad_rows(LANES_PER_BLOCK))
+
+
+def grad_plan(b: int, n_nodes: int) -> dict:
+    """The adjoint scan's launch plan, read on either route (``_calls``)."""
+    stride = row_stride(n_nodes)
+    return {"smem_bytes": 4 * stride * _grad_rows(LANES_PER_BLOCK), "row_bytes": 4 * stride,
+            "multi_tile": b > LANES_PER_BLOCK}
+
+
+def dfr_scan_grad_plain(model, j, mask, s0, states, g_states, g_fin):
+    """Plain PyTorch version of the adjoint scan: (dj [B, K], ds0 [B, N]),
+    f32, from K1's f32 ``states`` [B, K, N] and the gradients of the states
+    ``g_states`` [B, K, N] and of the final state ``g_fin`` [B, N].  It
+    runs the kernel's ops in the kernel's order (each lane's chain backwards
+    over periods and nodes, dj summed over nodes N-1 -> 0 from 0), the
+    chain-free ones vectorised over lanes and nodes."""
+    alpha, gamma, beta, keep = grad_constants(model)
+    if mask.ndim != 1:
+        raise NotImplementedError("the adjoint scan takes one mask [N], not a per-lane mask")
+    f32 = torch.float32
+    j, mask, s0 = j.to(f32), mask.to(f32), s0.to(f32)
+    states, g_states, g_fin = states.to(f32), g_states.to(f32), g_fin.to(f32)
+    b, k_periods = j.shape
+    n = mask.shape[0]
+    dj = torch.empty((b, k_periods), dtype=f32, device=j.device)
+    q = g_fin.clone()
+    lam = torch.zeros(b, dtype=f32, device=j.device)
+    c_next = torch.ones(b, dtype=f32, device=j.device)
+    for k in reversed(range(k_periods)):
+        s_k = states[:, k]
+        s_km1 = states[:, k - 1] if k else s0
+        u = j[:, k, None] * mask
+        prev = torch.cat([s_km1[:, -1:], s_k[:, :-1]], dim=1)
+        c = torch.where(u > prev, 1.0, keep)
+        a = g_states[:, k] + q
+        lams = torch.empty_like(a)
+        for i in reversed(range(n)):
+            lam = a[:, i] + c_next * lam
+            lams[:, i] = lam
+            c_next = c[:, i]
+        gp = alpha * lams
+        if beta:
+            den = 1.0 + beta * (u + gamma * s_km1)
+            gp = gp / (den * den)
+        q = gamma * gp
+        terms = mask * gp
+        acc = torch.zeros(b, dtype=f32, device=j.device)
+        for i in reversed(range(n)):
+            acc = acc + terms[:, i]
+        dj[:, k] = acc
+    ds0 = q.clone()
+    ds0[:, -1] = q[:, -1] + c_next * lam
+    return dj, ds0
+
+
+def _launch_grad(model, j, mask, s0, states, g_states, g_fin):
+    alpha, gamma, beta, keep = grad_constants(model)
+    b, k_periods = j.shape
+    n_nodes = mask.shape[0]
+    layout = grad_layout(b, n_nodes)
+    dev = j.device
+    f32 = torch.float32
+    jt = j.to(f32).t().contiguous()
+    st = states.to(f32).permute(1, 2, 0).contiguous()
+    gt = g_states.to(f32).permute(1, 2, 0).contiguous()
+    s0t = s0.to(f32).t().contiguous()
+    gft = g_fin.to(f32).t().contiguous()
+    m = mask.to(f32).contiguous()
+    djt = torch.empty((k_periods, b), dtype=f32, device=dev)
+    ds0t = torch.empty((n_nodes, b), dtype=f32, device=dev)
+    fn = _build.entry("dfr_scan_grad", "dfr_scan_grad_launch", _GRAD_ARGTYPES)
+    err = _build.launch(fn, dev, jt.data_ptr(), m.data_ptr(), s0t.data_ptr(), st.data_ptr(),
+                        gt.data_ptr(), gft.data_ptr(), djt.data_ptr(), ds0t.data_ptr(), b,
+                        k_periods, n_nodes, *layout, alpha, gamma, beta, keep)
+    _build.check(err, "dfr_scan_grad")
+    dfr_scan_grad.launches += 1
+    return djt.t().contiguous(), ds0t.t().contiguous()
+
+
+def dfr_scan_grad(model, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor,
+                  states: torch.Tensor, g_states: torch.Tensor, g_fin: torch.Tensor):
+    """The gradient of ``dfr_scan(model, j, mask, s0, return_final=True)``
+    for SiliconMR and one mask [N]: (dj [B, K], ds0 [B, N]) f32 from K1's
+    f32 ``states`` [B, K, N] and the incoming gradients ``g_states``
+    [B, K, N] and ``g_fin`` [B, N].  A CUDA tensor launches K1ᵀ
+    (``csrc/dfr_scan_grad.cu``) or raises; a CPU tensor takes
+    ``dfr_scan_grad_plain``.  Other forms and per-lane masks raise
+    NotImplementedError on both routes."""
+    grad_constants(model)
+    if mask.ndim != 1:
+        raise NotImplementedError("the adjoint scan takes one mask [N], not a per-lane mask")
+    if j.ndim != 2:
+        raise ValueError(f"j must be [B, K], got {tuple(j.shape)}")
+    b, k_periods = j.shape
+    n_nodes = int(mask.shape[0])
+    want = {"s0": (s0, (b, n_nodes)), "states": (states, (b, k_periods, n_nodes)),
+            "g_states": (g_states, (b, k_periods, n_nodes)), "g_fin": (g_fin, (b, n_nodes))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match j {tuple(j.shape)} "
+                             f"and mask {tuple(mask.shape)}: want {shape}")
+        if t.device != j.device:
+            raise ValueError("every input of the adjoint scan must be on one device")
+    if states.dtype != torch.float32:
+        raise ValueError(f"the adjoint scan recomputes the branch bits from f32 states, "
+                         f"not {states.dtype}")
+    if j.device.type == "cuda":
+        run = _launch_grad
+    elif j.device.type == "cpu":
+        run = dfr_scan_grad_plain
+    else:
+        raise ValueError(f"dfr_scan_grad runs on cuda or cpu tensors, not {j.device}")
+    if not (b and k_periods):
+        ds0 = g_fin.to(torch.float32).clone()
+        return torch.zeros((b, k_periods), dtype=torch.float32, device=j.device), ds0
+    return _calls.call(_GRAD_COUNTERS, "dfr_scan_grad", grad_plan(b, n_nodes), run,
+                       model, j, mask, s0, states, g_states, g_fin)
+
+
+dfr_scan_grad.launches = 0   # K1ᵀ launches (plain-version calls are not counted)
+dfr_scan_grad.calls = 0      # calls on either route that launch (or would launch) K1ᵀ
+_GRAD_COUNTERS = dfr_scan_grad

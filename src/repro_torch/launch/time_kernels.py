@@ -22,10 +22,12 @@ finished its spin in both timed loops (else the device waited and the
 times count host time).  ``chip_smoke.py``'s kernels line times every row with
 it.
 
-The command times the block copy and the readout apply at the shapes of
-the paths they ride (the ``contracts`` fixture's [2048, 1024] f32 with a
-32 × 256 tile; the bf16 streamed evaluation's [64, 256, 900] and the
-serving tick's [4096, 32, 64] f32, C = 1), beside their byte bounds and
+The command times the block copy, the readout apply and the adjoint scan
+K1ᵀ at the shapes of the paths they ride (the ``contracts`` fixture's
+[2048, 1024] f32 with a 32 × 256 tile; the bf16 streamed evaluation's
+[64, 256, 900] and the serving tick's [4096, 32, 64] f32, C = 1; the LM
+train step's [24, 512, 256], where a checkout has K1ᵀ), beside their byte
+bounds and
 the PyTorch call that computes the same (``x.clone()``,
 ``torch.baddbmm`` on features already f32) and, for the readout, PyTorch's
 row sums of the features (``x.sum(-1)``: one read of the same bytes).  With ``--parent DIR`` (a
@@ -149,6 +151,7 @@ def _rows(reps: int) -> list[dict]:
                                              reps),
                      # one read of the features and nothing else: PyTorch's row sums
                      "read_floor": kernel_times(lambda: x.sum(-1), reps)})
+    rows += _adjoint_rows(dev, gen, reps)
     x = torch.randn((2048, 1024), generator=gen, device=dev)
     tile = (32, 256)
     out = copy_ops.block_copy(x, tile)
@@ -159,6 +162,33 @@ def _rows(reps: int) -> list[dict]:
                  **kernel_times(lambda: copy_ops.block_copy(x, tile), reps),
                  "library": kernel_times(lambda: x.clone(), reps)})
     return rows
+
+
+def _adjoint_rows(dev, gen, reps: int) -> list[dict]:
+    """K1ᵀ at the LM train step's [24, 512, 256] from K1's own f32 states
+    and a normal gradient of the states, where this checkout has it; its
+    outputs' checksums let two checkouts be compared."""
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+
+    if not hasattr(scan_ops, "dfr_scan_grad"):
+        return []
+    from repro_torch.core import SiliconMR, make_mask
+
+    b, k, n = 24, 512, 256
+    model = SiliconMR()
+    j = torch.rand((b, k), generator=gen, device=dev)
+    s0 = torch.zeros((b, n), device=dev)
+    mask = make_mask(n, seed=1, device=dev)
+    states = scan_ops.dfr_scan(model, j, mask, s0)
+    g = torch.randn((b, k, n), generator=gen, device=dev)
+    g_fin = torch.zeros((b, n), device=dev)
+    dj, ds0 = scan_ops.dfr_scan_grad(model, j, mask, s0, states, g, g_fin)
+    n_bytes = 4 * (2 * b * k * n + 2 * b * k + 3 * b * n + n)
+    return [{"name": "dfr_scan_grad", "shape": [b, k, n],
+             "dj_sum": float(dj.double().sum()), "ds0_sum": float(ds0.double().sum()),
+             "bound_ms": n_bytes / PEAK_HBM_BYTES * 1e3,
+             **kernel_times(lambda: scan_ops.dfr_scan_grad(model, j, mask, s0, states, g,
+                                                           g_fin), reps)}]
 
 
 def _launch_with(plan: dict, x, w, y):
@@ -215,6 +245,7 @@ def plan_variants(reps: int) -> list[dict]:
                         "dtype": str(dtype).removeprefix("torch."), **plan,
                         "chosen": all(chosen[k] == v for k, v in plan.items()),
                         **kernel_times(_launch_with(plan, x, w, y), reps)})
+    rows += _adjoint_rows(dev, gen, reps)
     x = torch.randn((2048, 1024), generator=gen, device=dev)
     tile = (32, 256)
     y = torch.empty_like(x)

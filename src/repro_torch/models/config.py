@@ -11,10 +11,11 @@ is a short heterogeneous pattern of blocks (e.g. Jamba's
 [mamba ×3, attn, mamba ×4] with MoE every 2nd layer); parameters are
 stacked over unit repeats, and the model loops over them.  The port runs
 every block kind and MLP kind below.  The fields for
-the JAX package's jit and cost-analysis knobs (``remat``,
-``analysis_unroll``, ``strategy``, ``microbatches``) are kept so a
-reference config carries across field for field; the serving path does
-not read them.
+the JAX package's jit and cost-analysis knobs (``analysis_unroll``,
+``strategy``) are kept so a reference config carries across field for
+field; nothing reads them.  Training reads ``remat`` (``models/model.py``)
+and ``microbatches`` (``runtime/steps.train_step``); the serving path
+reads neither.
 """
 
 from __future__ import annotations

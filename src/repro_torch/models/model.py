@@ -15,6 +15,15 @@ Three entry points:
   ``prefill``      tokens -> logits, filled cache         [serving]
   ``decode_step``  one token + cache -> logits, cache     [serving]
 
+Under grad, ``cfg.remat`` recomputes each unit in the backward, as the
+reference's ``_remat`` wraps its scanned unit step in ``jax.checkpoint``:
+``"full"`` checkpoints the unit whole, ``"dots"`` saves its matmul outputs
+without batch dims (``aten.mm``, ``aten.addmm``: the counterpart of
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, ``"none"``
+keeps every activation.  Losses and gradients are the same bits under all
+three; the recompute runs the mixer's K1 a second time.  Without grad
+(serving, evaluation) nothing is checkpointed.
+
 Caches are dicts ``{"pos": int, "units": tuple}``, one entry per unit
 position stacked over units, as in the reference; ``pos`` is a host int
 (the host drives the decode loop, so no step reads a position back from
@@ -27,9 +36,12 @@ in the context's dtype, as the reference stores them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core import layer as reservoir_layer
 from ..device import resolve_device, resolve_dtype
@@ -172,6 +184,29 @@ def _unit_params(units: tuple, u: int) -> tuple:
     return tuple({k: v[u] for k, v in pos.items()} for pos in units)
 
 
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """``fn`` under ``cfg.remat`` (see the module doc); ``fn`` itself when
+    grad is off or ``remat`` is ``"none"``."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, not {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+                             **kw)
+
+
 # --------------------------------------------------------------------------
 # Forward (train / eval)
 # --------------------------------------------------------------------------
@@ -187,13 +222,18 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, context=None):
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     if cfg.n_encoder_layers:
         context = encode(cfg, params, context)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for u in range(cfg.n_units):
-        unit_params = _unit_params(params["units"], u)
+
+    def unit_step(x, aux, unit_params):
         for pos, blk in enumerate(cfg.unit):
             x, _, a = _apply_block(cfg, blk, unit_params[pos], x, positions=positions,
                                    context=context)
             aux = aux + a
+        return x, aux
+
+    step = _remat(cfg, unit_step)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for u in range(cfg.n_units):
+        x, aux = step(x, aux, _unit_params(params["units"], u))
     x = layers.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return layers.logits_from_hidden(cfg, params["embed"], x), aux
 
@@ -211,9 +251,13 @@ def encode(cfg: ModelConfig, params: dict, frames):
     x = frames.to(resolve_dtype(cfg.dtype))
     positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
     enc = params["encoder"]
+
+    def unit_step(x, unit_params):
+        return _apply_block(enc_cfg, _ENCODER_BLOCK, unit_params[0], x, positions=positions)[0]
+
+    step = _remat(cfg, unit_step)
     for u in range(cfg.n_encoder_layers):
-        x, _, _ = _apply_block(enc_cfg, _ENCODER_BLOCK, _unit_params(enc["units"], u)[0], x,
-                               positions=positions)
+        x = step(x, _unit_params(enc["units"], u))
     return layers.rmsnorm(x, enc["final_norm"]["scale"], cfg.norm_eps)
 
 

@@ -1,9 +1,9 @@
-"""Runtime: the serving step functions (``steps``).
+"""Runtime: step functions (``steps``) and the fault-tolerant training
+driver (``trainer``).
 
-Port of ``repro.runtime``; the training step and the fault-tolerant
-trainer wait for ROADMAP.md Queue 1, item 13c.
+Port of ``repro.runtime``.
 """
 
-from . import steps
+from . import steps, trainer
 
-__all__ = ["steps"]
+__all__ = ["steps", "trainer"]

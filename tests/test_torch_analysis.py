@@ -295,9 +295,11 @@ def _port_names():
 
 
 def test_registry_names_are_the_references_but_the_lm_step():
+    """Every reference entry has its port, the LM train step included."""
     from repro.analysis.registry import entry_point_names as ref_names
-    assert len(_port_names()) == 19
-    assert set(ref_names()) - set(_port_names()) == {"reservoir_lm_train_step"}
+    assert len(_port_names()) == 20
+    assert set(ref_names()) - set(_port_names()) == set()
+    assert set(_port_names()) == set(ref_names())
 
 
 @pytest.mark.parametrize("name", _port_names())

@@ -26,7 +26,10 @@ from call to call, at N on either side of its chunk and lane edges and
 rows off 16 bytes; the block copy bitwise on both its routes (TMA and
 SIMT), each case asserting the route it took; the LM's
 reservoir mixer on K1 bitwise its plain route; an LM's decode within the
-reference's 2e-4 / 2e-3 of its forward.  The MoE, Mamba, mLSTM, sLSTM and
+reference's 2e-4 / 2e-3 of its forward.  The adjoint scan K1ᵀ bitwise its
+plain version; a reservoir_lm's gradients through K1 and K1ᵀ bitwise the
+plain route's; K1's f32 states cast to bf16 bitwise its bf16 states, so
+serving without grad and a forward with grad give the same logits.  The MoE, Mamba, mLSTM, sLSTM and
 cross-attention blocks and the archs built of them (smoke widths, f32)
 within 1e-5 of the same code on the CPU (cuBLAS sums in another order).
 """
@@ -842,3 +845,122 @@ def test_lm_archs_on_the_card_match_the_cpu_and_decode_as_they_forward(dev, arch
     _, cache = prefill(cfg, pd, td[:, :9], max_len=10, context=cd)
     step, _ = decode_step(cfg, pd, cache, td[:, 9:])
     torch.testing.assert_close(step[:, 0], full[:, -1], atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("beta", [0.0, 0.5])
+@pytest.mark.parametrize("b,k,n", [(1, 1, 1), (33, 2, 31), (64, 37, 33), (24, 16, 256),
+                                   (9, 3, 900)])
+def test_adjoint_scan_kernel_is_bitwise_its_plain_version(dev, b, k, n, beta):
+    """K1ᵀ against its plain version from K1's own f32 states, with a
+    non-zero gradient of the final state: dj and ds0 bitwise (the same
+    separately rounded ops in the same order), one launch a call."""
+    rng = np.random.default_rng(b * k + n)
+    model = SiliconMR(beta_tpa=beta)
+    j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32, device=dev)
+    s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32, device=dev)
+    mask = make_mask(n, seed=1, device=dev)
+    states = scan_ops.dfr_scan(model, j, mask, s0)
+    g = torch.as_tensor(rng.standard_normal((b, k, n)), dtype=torch.float32, device=dev)
+    g_fin = torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32, device=dev)
+    before = scan_ops.dfr_scan_grad.launches
+    dj, ds0 = scan_ops.dfr_scan_grad(model, j, mask, s0, states, g, g_fin)
+    assert scan_ops.dfr_scan_grad.launches == before + 1
+    pj, ps = scan_ops.dfr_scan_grad_plain(model, j, mask, s0, states, g, g_fin)
+    assert torch.equal(dj, pj) and torch.equal(ds0, ps)
+
+
+def test_adjoint_scan_raises_for_what_it_does_not_cover(dev):
+    z2, z3 = torch.zeros((2, 3), device=dev), torch.zeros((2, 2, 3), device=dev)
+    with pytest.raises(NotImplementedError, match="SiliconMR only"):
+        scan_ops.dfr_scan_grad(MackeyGlass(), z2[:, :2], z2[0], z2, z3, z3, z2)
+    with pytest.raises(NotImplementedError, match="per-lane"):
+        scan_ops.dfr_scan_grad(SiliconMR(), z2[:, :2], z2, z2, z3, z3, z2)
+    n = scan_ops.max_grad_nodes() + 1
+    z = torch.zeros((1, n), device=dev)
+    with pytest.raises(ValueError, match="exceeds its limit"):
+        scan_ops.dfr_scan_grad(SiliconMR(), z[:, :1], z[0], z, z[:, None], z[:, None], z)
+
+
+def _lm_grad_setup(dev, layers=2):
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.model import _block_defs
+
+    cfg = dataclasses.replace(get_config("reservoir_lm"), n_layers=layers, d_model=96,
+                              n_heads=4, n_kv_heads=4, head_dim=24, d_ff=192, vocab_size=300,
+                              reservoir_nodes=32, microbatches=1)
+    rng = np.random.default_rng(0)
+
+    def draw(defs, lead=()):
+        return {k: torch.as_tensor(rng.standard_normal((*lead, *shape), dtype=np.float32)
+                                   * np.float32(1 / np.sqrt(shape[0]) if len(shape) > 1
+                                                else 0.1), device=dev)
+                for k, (shape, _, _) in sorted(defs.items())}
+
+    params = {"embed": draw(lm_layers.embed_defs(cfg)),
+              "units": tuple(draw(_block_defs(cfg, blk), (cfg.n_units,)) for blk in cfg.unit),
+              "final_norm": draw(lm_layers.norm_defs(cfg))}
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 25)), device=dev)
+    return cfg, params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def test_lm_gradients_through_k1_and_its_adjoint_equal_the_plain_route(dev):
+    """Every leaf's gradient of a 2-layer reservoir_lm (bf16, remat full,
+    a non-zero readout) through K1 and K1ᵀ equals the one through both
+    scans' plain versions on the card, bitwise; K1 runs twice a layer (the
+    remat) and K1ᵀ once."""
+    from repro_torch.core import layer as mixer
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import loss_fn
+
+    cfg, params, batch = _lm_grad_setup(dev)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+
+    def grads():
+        loss, _ = loss_fn(cfg, params, batch)
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    k1, k1t = scan_ops.dfr_scan.launches, scan_ops.dfr_scan_grad.launches
+    got = grads()
+    assert scan_ops.dfr_scan.launches - k1 == 2 * cfg.n_layers
+    assert scan_ops.dfr_scan_grad.launches - k1t == cfg.n_layers
+
+    def scan_plain(model, j, mask, s0, *, return_final=False, out_dtype=None, **_):
+        states, fin = scan_ops.dfr_scan_plain(model, j, mask, s0, out_dtype=out_dtype)
+        return (states, fin) if return_final else states
+
+    real = mixer.dfr_scan, mixer.dfr_scan_grad
+    mixer.dfr_scan, mixer.dfr_scan_grad = scan_plain, scan_ops.dfr_scan_grad_plain
+    try:
+        want = grads()
+    finally:
+        mixer.dfr_scan, mixer.dfr_scan_grad = real
+    for a, b in zip(got, want, strict=True):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert sum(a is None for a in got) == len(cfg.unit)    # the detached w_in
+
+
+def test_no_grad_serving_is_unchanged_by_the_training_route(dev):
+    """Without grad the mixer launches K1 once a layer emitting bf16 as
+    before; with grad on, K1 emits f32 states inside the autograd Function
+    and their bf16 cast is bitwise K1's own bf16 states, so the logits are
+    the same bits either way."""
+    from repro_torch.models import forward
+
+    cfg, params, batch = _lm_grad_setup(dev)
+    before = scan_ops.dfr_scan.launches
+    with torch.no_grad():
+        served, _ = forward(cfg, params, batch["tokens"])
+    assert scan_ops.dfr_scan.launches - before == cfg.n_layers
+    for p in (p for unit in params["units"] for p in unit.values()):
+        p.requires_grad_(True)
+    trained, _ = forward(cfg, params, batch["tokens"])
+    assert trained.requires_grad and torch.equal(trained.detach(), served)
+
+
+def test_k1_f32_states_cast_to_bf16_are_its_bf16_states(dev):
+    j, s0 = _scan_inputs(dev, b=24, k=40, n=256)
+    mask = make_mask(256, seed=1, device=dev)
+    f32 = scan_ops.dfr_scan(SiliconMR(), j, mask, s0, out_dtype=torch.float32)
+    bf16 = scan_ops.dfr_scan(SiliconMR(), j, mask, s0, out_dtype=torch.bfloat16)
+    assert torch.equal(f32.to(torch.bfloat16), bf16)
