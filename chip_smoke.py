@@ -185,6 +185,24 @@ Then the LM training path (``repro_torch.launch.train``, ``runtime.trainer``,
    training forward's f32 states and K1ᵀ at the step's first backward,
    both [24, 512, 256], and K1 at the materialized NARMA10 split.
 
+Then the distribution code (``repro_torch.parallel``, ``launch.mesh``):
+
+24. ``parallel`` — two gloo ranks on the one card (NCCL refuses two ranks on
+   one device), spawned by ``launch.mesh.run_ranks``, run reservoir_lm at
+   full width (12 layers, d 768, N 256, vocab 32000, 4 microbatches, remat
+   "full"; f32 activations, so the gap to one process is f32 summation
+   order alone) for PAR_STEPS ZeRO-3 steps of PAR_BATCH from one state:
+   on the (2, 1) mesh (each microbatch's rows split over the two data
+   ranks, gradients summed over them) every loss and every param leaf
+   within twice the unsharded step's own spread under the same split of
+   its token sums (8 microbatches of one row), floored at LM_TRAIN_TOL
+   and PAR_PARAM_TOL of the leaf's largest; on the (1, 2) mesh (storage
+   sharding only) bitwise; K1 and K1ᵀ launches == calls on each rank; each
+   rank's step ms and the bytes a step moves by collective kind.  Then one
+   sharded step through NCCL at world 1, bitwise the unsharded step, and
+   NARMA10 (N = 900, B = 64) through ``Experiment`` over the two ranks'
+   (2, 1) mesh, NRMSE per instance within 1e-4 of one process.
+
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
 no CUDA device is available or the port's package is not beside it.
@@ -916,6 +934,26 @@ GRAD_EDGE_BETA = (0.0, 0.5)
 # f32 ops of one adjoint node step (dfr_scan_grad.cu, node<false>): u, the
 # compare and select, g + q, c·λ and its add, α·λ, γ·gp, m·gp and its add
 GRAD_OPS_PER_STEP = 10
+
+
+# the parallel phase (phase_parallel): reservoir_lm at full width in f32,
+# PAR_STEPS steps of PAR_BATCH (rows, tokens) = 4 microbatches of 2 rows,
+# one row a data rank on the (2, 1) mesh.  Sharding over "data" changes
+# only the order of f32 sums (each microbatch's token sums split in two,
+# then added across ranks), so the (2, 1) run is held to PAR_SPREAD_FACTOR
+# × the unsharded step's own spread under that split (the same steps at 8
+# microbatches of one row: the same per-row sums, added in another order),
+# leaf by leaf, floored at PAR_PARAM_TOL of the leaf's largest |param|;
+# losses likewise, floored at LM_TRAIN_TOL.  AdamW turns a gradient
+# element at round-off level into a move of about ±lr, so such elements
+# set both spreads.
+PAR_STEPS = 3
+PAR_BATCH = (8, 512)
+PAR_PARAM_TOL = 1e-5
+PAR_SPREAD_FACTOR = 2.0
+PAR_NRMSE_TOL = 1e-4
+PAR_DIR = ROOT / "build" / "parallel"
+PAR_TIMEOUT_S = 300
 
 
 _T_START = time.perf_counter()
@@ -3956,6 +3994,302 @@ def phase_lm_training(dev, card: str) -> dict:
             "launches": {k: v * LM_TRAIN_STEPS for k, v in per_step.items()}}
 
 
+def par_config():
+    """reservoir_lm at full width with f32 activations (the parallel phase)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("reservoir_lm"), dtype="float32")
+
+
+def par_batches(cfg) -> list[dict]:
+    """The token stream's first PAR_STEPS global batches (numpy)."""
+    from repro_torch.data import DataConfig, host_batch
+
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=PAR_BATCH[1],
+                      global_batch=PAR_BATCH[0])
+    return [host_batch(data, step) for step in range(PAR_STEPS)]
+
+
+def par_sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def par_device(dev_type: str):
+    """This rank's device (the one card, TF32 off as phase_build sets it)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device(dev_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def par_steps(cfg, state, batches, dev, mesh=None, record=None) -> dict:
+    """Train ``state`` over ``batches`` (under ``mesh`` when given): the
+    metrics and host ms of each step, and each step's K1/K1ᵀ (launches,
+    calls) and collectives (``record``: a list that takes one list of
+    events a step)."""
+    import torch
+
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.steps import train_step
+
+    opt = AdamWConfig(**LM_TRAIN_OPT)
+    out = {"metrics": [], "ms": [], "k1": [], "k1t": []}
+    for batch in batches:
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        reset_counts()
+        par_sync(dev)
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if mesh is not None:
+                stack.enter_context(sharding.use_mesh(mesh))
+                events = stack.enter_context(sharding.record_collectives())
+            state, metrics = train_step(cfg, opt, state, tb)
+            metrics = {k: float(v) for k, v in metrics.items()}
+        par_sync(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append(metrics)
+        out["k1"].append((scan_ops.dfr_scan.launches, scan_ops.dfr_scan.calls))
+        out["k1t"].append((scan_ops.dfr_scan_grad.launches, scan_ops.dfr_scan_grad.calls))
+        if record is not None:
+            record.append(list(events))
+    out["state"] = state
+    return out
+
+
+def par_rank(rank: int, cfg, dev_type: str, batches, narma, exp_cfg) -> dict:
+    """One rank of the parallel phase's two (gloo, the one card): the
+    sharded steps on the (2, 1) and (1, 2) meshes from the seeded state, the
+    gathered params of each written by rank 0 under PAR_DIR, and NARMA10
+    through ``Experiment`` under the (2, 1) mesh."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding
+    from repro_torch.pipeline import Experiment
+    from repro_torch.runtime.steps import init_train_state, state_pspecs
+
+    dev = par_device(dev_type)
+    out = {}
+    for shape in ((2, 1), (1, 2)):
+        name = f"mesh_{shape[0]}x{shape[1]}"
+        mesh = make_mesh(shape, ("data", "model"), device_type=dev.type)
+        specs = state_pspecs(cfg, mesh)
+        full = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        state = sharding.tree_shard(full, specs, mesh)
+        del full
+        events = []
+        run = par_steps(cfg, state, batches, dev, mesh=mesh, record=events)
+        params = sharding.tree_gather(run.pop("state")["params"], specs["params"], mesh)
+        if rank == 0:
+            PAR_DIR.mkdir(parents=True, exist_ok=True)
+            torch.save([t.cpu() for t in tree_leaves(params)], PAR_DIR / f"{name}.pt")
+        del params
+        run["collective_bytes_per_step"] = collective_bytes(events[-1])
+        run["collectives_per_step"] = len(events[-1])
+        out[name] = run
+    # NARMA10 over the two data ranks
+    exp_mesh = make_mesh((2, 1), ("data", "model"), device_type=dev.type)
+    exp = Experiment(exp_cfg, device=dev)
+    reset_counts()
+    par_sync(dev)
+    t0 = time.perf_counter()
+    with sharding.use_mesh(exp_mesh), sharding.record_collectives() as events:
+        res = exp.run(*narma)
+    run_s = time.perf_counter() - t0
+    out["experiment"] = {"nrmse": np.asarray(res.nrmse), "run_s": run_s,
+                         "launches": list(launch_counts()),
+                         "collective_bytes": collective_bytes(events)}
+    return out
+
+
+def par_nccl_rank(rank: int, cfg, dev_type: str, batches) -> dict:
+    """One sharded step through NCCL at world 1 (mesh (1, 1)): its params,
+    written under PAR_DIR, and metrics."""
+    import torch
+
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.steps import init_train_state, state_pspecs
+
+    dev = par_device(dev_type)
+    mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+    specs = state_pspecs(cfg, mesh)
+    state = sharding.tree_shard(
+        init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        specs, mesh)
+    events = []
+    run = par_steps(cfg, state, batches[:1], dev, mesh=mesh, record=events)
+    torch.save([t.cpu() for t in tree_leaves(run.pop("state")["params"])],
+               PAR_DIR / "nccl_world1.pt")
+    run["backend"] = torch.distributed.get_backend()
+    run["collective_bytes_per_step"] = collective_bytes(events[-1])
+    return run
+
+
+def phase_parallel(dev, narma, card: str) -> None:
+    """The sharded train step and the sharded Experiment on the card (see
+    the module doc, phase 24)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.model import meta_params
+    from repro_torch.optim.adamw import tree_leaves, tree_leaves_with_path
+    from repro_torch.pipeline import Experiment, ExperimentConfig
+    from repro_torch.runtime import steps
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = par_config()
+    check(cfg.n_layers == 12 and cfg.d_model == 768 and cfg.reservoir_nodes == 256 and
+          cfg.vocab_size == 32000 and cfg.microbatches == 4 and cfg.remat == "full",
+          f"the parallel phase's reservoir_lm: {cfg}")
+    batches = par_batches(cfg)
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    PAR_DIR.mkdir(parents=True, exist_ok=True)
+
+    # the unsharded step on the card (losses, params after step 1 and after
+    # the last), and its own spread under the (2, 1) mesh's split of the
+    # token sums: the same steps at 8 microbatches of one row, so each
+    # gradient's token sums split as each rank's do, then summed over all 8
+    def unsharded(microbatches: int):
+        run_cfg = dataclasses.replace(cfg, microbatches=microbatches)
+        state = steps.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                                       device=dev)
+        run = {"metrics": [], "ms": [], "k1": [], "k1t": []}
+        after_one = None
+        for i, batch in enumerate(batches):
+            one = par_steps(run_cfg, state, [batch], dev)
+            for k in run:
+                run[k] += one[k]
+            if i == 0:
+                after_one = [t.detach().clone() for t in tree_leaves(state["params"])]
+        return run, after_one, [t.detach() for t in tree_leaves(state["params"])]
+
+    ref, after_one, final = unsharded(cfg.microbatches)
+    split, _, final_split = unsharded(PAR_BATCH[0])
+    paths = [p for p, _ in tree_leaves_with_path(meta_params(cfg))]
+    per_step = {"dfr_scan": cfg.n_layers * cfg.microbatches * 2,
+                "dfr_scan_grad": cfg.n_layers * cfg.microbatches}
+    check(all(tuple(c) == (per_step["dfr_scan"],) * 2 for c in ref["k1"]) and
+          all(tuple(c) == (per_step["dfr_scan_grad"],) * 2 for c in ref["k1t"]),
+          f"parallel: the unsharded step's K1/K1ᵀ (launches, calls) {ref['k1']} {ref['k1t']}")
+    loss_spread = max(abs(a["loss"] - b["loss"])
+                      for a, b in zip(ref["metrics"], split["metrics"]))
+    loss_tol = max(LM_TRAIN_TOL, PAR_SPREAD_FACTOR * loss_spread)
+
+    def param_gaps(got):
+        """Each leaf against the unsharded step's: its largest gap within
+        PAR_SPREAD_FACTOR × the larger of the unsharded step's own spread and
+        PAR_PARAM_TOL of the leaf's largest |param|."""
+        worst, n_bitwise, over = 0.0, 0, 0
+        rel_l2 = 0.0
+        for path, g, w, r in zip(paths, got, final, final_split, strict=True):
+            g = g.to(dev)
+            n_bitwise += bool(torch.equal(g, w))
+            gap = float((g - w).abs().max())
+            floor = PAR_PARAM_TOL * float(w.abs().max())
+            tol = PAR_SPREAD_FACTOR * max(float((r - w).abs().max()), floor)
+            check(gap <= tol, f"parallel: {path} {gap} off the unsharded step, tolerance {tol}")
+            worst = max(worst, gap / tol)
+            over += int(((g - w).abs() > floor).sum())
+        return {"max_gap_over_tol": worst, "bitwise_leaves": n_bitwise, "leaves": len(paths),
+                "elements_over_floor": over, "spread_factor": PAR_SPREAD_FACTOR,
+                "floor": PAR_PARAM_TOL}
+
+    # NARMA10 in one process
+    exp_cfg = dataclasses.replace(ExperimentConfig.from_dfrc(main_point()),
+                                  state_method="kernel", readout_use_kernel=True)
+    one = Experiment(exp_cfg, device=dev).run(*narma)
+
+    ranks, ranks_s = wall(lambda: run_ranks(par_rank, 2, store_dir=str(PAR_DIR),
+                                            args=(cfg, dev.type, batches, narma, exp_cfg),
+                                            timeout=PAR_TIMEOUT_S, threads=None))
+    out = {"config": {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "reservoir_nodes": cfg.reservoir_nodes, "vocab": cfg.vocab_size,
+                      "dtype": cfg.dtype, "microbatches": cfg.microbatches,
+                      "remat": cfg.remat, "batch": list(PAR_BATCH), "steps": PAR_STEPS,
+                      "backend": "gloo", "ranks": 2},
+           "unsharded": {"losses": [m["loss"] for m in ref["metrics"]], "step_ms": ref["ms"],
+                         "one_row_microbatch_losses": [m["loss"] for m in split["metrics"]],
+                         "loss_tol": loss_tol},
+           "ranks_s": ranks_s}
+    for name in ("mesh_2x1", "mesh_1x2"):
+        got = torch.load(PAR_DIR / f"{name}.pt")
+        rec = {"by_rank": []}
+        for rank, r in enumerate(ranks):
+            run = r[name]
+            losses = [m["loss"] for m in run["metrics"]]
+            if name == "mesh_1x2":
+                check(run["metrics"] == ref["metrics"],
+                      f"parallel {name} rank {rank}: metrics {run['metrics']} are not the "
+                      f"unsharded step's {ref['metrics']}")
+            else:
+                gaps = [abs(a - b["loss"]) for a, b in zip(losses, ref["metrics"])]
+                check(max(gaps) <= loss_tol, f"parallel {name} rank {rank}: loss gaps {gaps}, "
+                                             f"tolerance {loss_tol}")
+            check(all(tuple(c) == (per_step["dfr_scan"],) * 2 for c in run["k1"]) and
+                  all(tuple(c) == (per_step["dfr_scan_grad"],) * 2 for c in run["k1t"]),
+                  f"parallel {name} rank {rank}: K1 {run['k1']} K1ᵀ {run['k1t']} "
+                  f"(launches, calls) a step, want {per_step}")
+            rec["by_rank"].append({
+                "losses": losses, "step_ms": run["ms"],
+                "step_ms_p50": float(np.percentile(run["ms"], 50)),
+                "k1_launches_calls": run["k1"][-1], "k1t_launches_calls": run["k1t"][-1],
+                "collective_bytes_per_step": run["collective_bytes_per_step"],
+                "collectives_per_step": run["collectives_per_step"]})
+        if name == "mesh_1x2":
+            same = all(torch.equal(g.to(dev), w) for g, w in zip(got, final, strict=True))
+            check(same, "parallel mesh_1x2: params are not bitwise the unsharded step's")
+            rec["params_bitwise"] = same
+        else:
+            rec["params"] = param_gaps(got)
+        out[name] = rec
+    del got
+    # NCCL at world 1
+    (nccl,) = run_ranks(par_nccl_rank, 1, store_dir=str(PAR_DIR), backend="nccl",
+                        args=(cfg, dev.type, batches), timeout=PAR_TIMEOUT_S, threads=None)
+    got = torch.load(PAR_DIR / "nccl_world1.pt")
+    same = all(torch.equal(g.to(dev), w) for g, w in zip(got, after_one, strict=True))
+    check(nccl["backend"] == "nccl" and same and nccl["metrics"][0] == ref["metrics"][0],
+          f"parallel: one NCCL step at world 1 is not bitwise the unsharded step "
+          f"({nccl['backend']}, params {same})")
+    out["nccl_world1"] = {"params_bitwise": same, "metrics_bitwise": True,
+                          "step_ms": nccl["ms"],
+                          "collective_bytes_per_step": nccl["collective_bytes_per_step"]}
+    # NARMA10 over two ranks
+    exp_out = []
+    for rank, r in enumerate(ranks):
+        e = r["experiment"]
+        gap = float(np.abs(e["nrmse"] - one.nrmse).max())
+        check(gap <= PAR_NRMSE_TOL, f"parallel experiment rank {rank}: NRMSE gap {gap}")
+        check(e["launches"] == [2, 1, 0], f"parallel experiment rank {rank}: launches "
+                                          f"(scan, gram, into) {e['launches']}")
+        exp_out.append({"max_nrmse_gap": gap, "run_s": e["run_s"], "launches": e["launches"],
+                        "collective_bytes": e["collective_bytes"]})
+    out["experiment"] = {"B": int(narma[0].shape[0]), "N": exp_cfg.n_nodes,
+                         "nrmse_mean": float(one.nrmse.mean()), "by_rank": exp_out,
+                         "tol": PAR_NRMSE_TOL}
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    emit({"phase": "parallel", "card": card, **out, "seconds": time.perf_counter() - t0})
+
+
 def phase_kernels_line(dev, narma, paths: dict) -> None:
     """Each kernel at the shapes of the path it rides, with that path's
     launch count: K1 at one streamed chunk (broadcast mask, N = 900) and in
@@ -4554,6 +4888,7 @@ def main() -> int:
     contracts = phase_contracts(dev, card)
     lm = phase_lm_serving(dev, card)
     lm_training = phase_lm_training(dev, card)
+    phase_parallel(dev, narma, card)
     phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm,
                                     "serving": serving, "cmt": cmt,
                                     "accelerator": accelerator, "figures": figures,

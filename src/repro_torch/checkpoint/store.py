@@ -12,14 +12,20 @@ checkpoint written by the reference's store restores here, and back.
   it and falls back to the previous checkpoint on a mismatch (torn
   writes, bit rot).
 * **Keep-k**: old checkpoints are removed after a successful write.
+* **Elastic re-shard**: checkpoints hold the *global* (unsharded) arrays.
+  ``save(..., sharding=(mesh, spec_tree))`` gathers a tree of local shards
+  (``parallel.sharding``) on every rank and writes it once, from rank 0;
+  ``restore(..., sharding=(mesh, spec_tree))`` reads the global arrays on
+  every rank and cuts this rank's block for whatever mesh the restarted job
+  has (the reference's ``sharding_tree``): a run saved on (2, 2) restores
+  onto (1, 4), or unsharded.
 
 A tree is any nesting of dicts, lists, tuples and NamedTuples whose leaves
 are tensors, numpy arrays or scalars; ``None`` holds no leaf.  Leaves are
 numbered in the reference's order: dict keys sorted, sequences in order.
 ``restore(..., device=...)`` puts the leaves that are tensors in the
-template on that device (the reference's ``sharding_tree`` re-lays them
-out for a mesh; re-sharding over several cards waits for the port of
-``parallel/``).
+template on that device (the unsharded case); with ``sharding`` each
+block goes to its template leaf's device.
 """
 
 from __future__ import annotations
@@ -100,15 +106,25 @@ class CheckpointStore:
         self._error: Exception | None = None
 
     # -- save -----------------------------------------------------------------
-    def save(self, step: int, tree) -> None:
-        self._write(step, [_to_host(x) for x in _flatten(tree)[0]])
+    def save(self, step: int, tree, *, sharding=None) -> None:
+        """Write ``tree`` as checkpoint ``step``.  With ``sharding=(mesh,
+        spec_tree)`` the tree's leaves are local shards: every rank must
+        call, the leaves are gathered, rank 0 writes, and every rank
+        returns once the checkpoint is in place."""
+        leaves = _host_leaves(tree, sharding)
+        if leaves is not None:
+            self._write(step, leaves)
+        _barrier(sharding)
 
-    def save_async(self, step: int, tree) -> None:
-        """Copy to host now; serialise in the background."""
+    def save_async(self, step: int, tree, *, sharding=None) -> None:
+        """Copy to host now (gathered first under ``sharding``: every rank
+        calls); serialise in the background, on rank 0 only when sharded."""
         self.wait()
         if self._error:
             raise self._error
-        host_leaves = [_to_host(x) for x in _flatten(tree)[0]]
+        host_leaves = _host_leaves(tree, sharding)
+        if host_leaves is None:
+            return
         self._thread = threading.Thread(target=self._write_guarded, args=(step, host_leaves))
         self._thread.start()
 
@@ -182,14 +198,17 @@ class CheckpointStore:
             leaves.append(np.load(path, allow_pickle=False))
         return leaves
 
-    def restore(self, tree_like, *, step: int | None = None, device=None):
+    def restore(self, tree_like, *, step: int | None = None, device=None, sharding=None):
         """Restore into the structure of ``tree_like``.
 
         Walks back through older checkpoints if the newest fails integrity.
         Leaves come back as numpy arrays; with ``device``, those whose
         counterpart in ``tree_like`` is a tensor come back as tensors on
-        ``device``.  Returns (step, tree) or (None, None) when nothing
-        restorable exists.
+        ``device``.  With ``sharding=(mesh, spec_tree)`` each such leaf
+        comes back as this rank's block under its spec, on its template
+        leaf's device (an elastic re-shard: the checkpoint holds global
+        arrays, whatever mesh wrote it).  Returns (step, tree) or (None,
+        None) when nothing restorable exists.
         """
         candidates = [step] if step is not None else list(reversed(self.all_steps()))
         like, structure = _flatten(tree_like)
@@ -200,8 +219,39 @@ class CheckpointStore:
             if len(leaves) != len(like):
                 raise ValueError(f"checkpoint step {s} holds {len(leaves)} leaves, the "
                                  f"template {len(like)}")
-            if device is not None:
+            if sharding is not None:
+                from ..parallel.sharding import shard, spec_leaves
+
+                mesh, specs = sharding[0], spec_leaves(sharding[1])
+                leaves = [shard(torch.from_numpy(lf).to(t.device), spec, mesh)
+                          if isinstance(t, torch.Tensor) else lf
+                          for lf, t, spec in zip(leaves, like, specs, strict=True)]
+            elif device is not None:
                 leaves = [torch.from_numpy(lf).to(device) if isinstance(t, torch.Tensor)
                           else lf for lf, t in zip(leaves, like)]
             return s, _unflatten(structure, leaves)
         return None, None
+
+
+def _host_leaves(tree, sharding):
+    """The host copies of ``tree``'s leaves to write, gathered first under
+    ``sharding``; None on a rank that does not write (all but rank 0)."""
+    leaves = _flatten(tree)[0]
+    if sharding is None:
+        return [_to_host(x) for x in leaves]
+    import torch.distributed as dist
+
+    from ..parallel.sharding import gather, spec_leaves
+
+    mesh, specs = sharding[0], spec_leaves(sharding[1])
+    full = [gather(x, spec, mesh) if isinstance(x, torch.Tensor) else x
+            for x, spec in zip(leaves, specs, strict=True)]
+    return [_to_host(x) for x in full] if dist.get_rank() == 0 else None
+
+
+def _barrier(sharding) -> None:
+    """Under ``sharding``, wait for every rank (rank 0 has written)."""
+    if sharding is not None:
+        import torch.distributed as dist
+
+        dist.barrier()

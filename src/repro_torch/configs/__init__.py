@@ -16,15 +16,17 @@ Shapes (assignment):
   long_500k    seq 524288, global_batch 1     (long-context decode)
 
 ``long_500k`` needs sub-quadratic sequence mixing -> only jamba / xlstm /
-reservoir_lm run it.  The reference's ``input_specs`` (JAX
-``ShapeDtypeStruct`` stand-ins for its dry run) has no counterpart yet: it
-waits for the dry run (ROADMAP.md Queue 1, item 13d).
+reservoir_lm run it.  ``input_specs(cfg, shape)`` gives stand-ins for every
+input of a shape as ``meta`` tensors (the reference's ``ShapeDtypeStruct``s:
+the same shapes and dtypes, no memory), for the dry run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from ..core import DFRCConfig, MackeyGlass, MZISine, SiliconMR
 
@@ -104,6 +106,48 @@ def smoke_config(arch: str):
     )
 
 
+# --------------------------------------------------------------------------
+# Input specs (meta-tensor stand-ins; no memory)
+# --------------------------------------------------------------------------
+
+
+def _context_spec(cfg, batch: int):
+    if not cfg.n_context_tokens:
+        return None
+    return torch.empty((batch, cfg.n_context_tokens, cfg.d_context or cfg.d_model),
+                       dtype=torch.float32, device="meta")
+
+
+def input_specs(cfg, shape: str) -> dict:
+    """Stand-ins for every input of ``shape``.  Keys match the step fns:
+
+      train:   {tokens, labels, context?}
+      prefill: {tokens, context?}
+      decode:  {tokens, cache}   (the cache of ``init_cache`` at seq_len)
+    """
+    info = SHAPES[shape]
+    b, s = info["batch"], info["seq"]
+
+    def tokens(shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    if info["kind"] in ("train", "prefill"):
+        specs = {"tokens": tokens((b, s))}
+        if info["kind"] == "train":
+            specs["labels"] = tokens((b, s))
+        ctx = _context_spec(cfg, b)
+        if ctx is not None:
+            specs["context"] = ctx
+        return specs
+    if info["kind"] == "decode":
+        from ..models import init_cache
+
+        return {"tokens": tokens((b, 1)),
+                "cache": init_cache(cfg, b, s, context_len=cfg.n_context_tokens,
+                                    device="meta")}
+    raise ValueError(shape)
+
+
 def dfrc_tasks() -> dict[str, dict[str, DFRCConfig]]:
     """Operating points per task: N per the paper's sensitivity analysis,
     washout 60 and the five-λ GCV grid everywhere; MackeyGlass takes ±1
@@ -133,5 +177,5 @@ def dfrc_tasks() -> dict[str, dict[str, DFRCConfig]]:
     }
 
 
-__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "dfrc_tasks", "get_config", "list_archs",
-           "runnable_cells", "smoke_config"]
+__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "dfrc_tasks", "get_config", "input_specs",
+           "list_archs", "runnable_cells", "smoke_config"]

@@ -32,6 +32,14 @@ it: the reference differentiates its ``lax.scan`` with ``jax.grad``).  It
 takes K1's f32 states and recomputes the branch bits from them; its plain
 version ``dfr_scan_grad_plain`` runs the kernel's ops in its order, so the
 two agree bitwise.  It counts ``launches`` and ``calls`` as K1 does.
+
+Both launches are also ``torch.library`` operators,
+``torch.ops.repro_torch.dfr_scan`` and ``dfr_scan_grad``, whose fakes
+give their outputs' shapes and dtypes: on ``meta`` tensors (the dry run,
+``launch/dryrun.py``) the wrappers go through them and run nothing, where
+the plain versions' Python loops would take minutes.  On CUDA tensors the
+wrappers call the launches directly, which skips the dispatcher's host
+cost a call; the operators' CUDA kernels are the same functions.
 """
 
 from __future__ import annotations
@@ -130,7 +138,8 @@ def dfr_scan_plain(model, j, mask, s0, *, out_dtype=None):
     return states.to(resolve_dtype(out_dtype) or j.dtype), fin.to(j.dtype)
 
 
-def _launch(model, j, mask, s0, out_dtype):
+def _op_args(model, out_dtype):
+    """(model id, constants, emit-bf16 flag) of a kernel call, validated."""
     spec = getattr(model, "kernel_spec", None)
     if spec is None:
         raise NotImplementedError(
@@ -143,9 +152,16 @@ def _launch(model, j, mask, s0, out_dtype):
                          f"{type(model).__name__} gives {len(params)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the scan kernel emits float32 or bfloat16, not {out_dtype}")
+    return model_id, [float(p) for p in params], out_dtype == torch.bfloat16
+
+
+def _scan_cuda(j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, model_id: int,
+               params: list[float], out_bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's launch: (states [B, K, N], final state [B, N] in j's dtype)."""
     b, k_periods = j.shape
     n_nodes = s0.shape[1]
     per_lane = mask.ndim == 2
+    out_dtype = torch.bfloat16 if out_bf16 else torch.float32
     # MZISine's kernel runs a thread a (node, lane) and keeps no rows
     layout = (ScanLayout(0, 0, 0, 0) if model_id == KERNEL_MZI_SINE
               else scan_layout(b, n_nodes, per_lane))
@@ -162,11 +178,37 @@ def _launch(model, j, mask, s0, out_dtype):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(jt.data_ptr(), mt.data_ptr(), int(per_lane), fin.data_ptr(),
-                     out.data_ptr(), int(out_dtype == torch.bfloat16), b,
+                     out.data_ptr(), int(out_bf16), b,
                      k_periods, n_nodes, *layout, model_id, consts, len(params), stream)
         _build.check(err, "dfr_scan")
         dfr_scan.launches += 1
     return out.permute(2, 0, 1).contiguous(), fin.t().to(j.dtype).contiguous()
+
+
+# K1 as an operator, ``torch.ops.repro_torch.dfr_scan``: its CUDA kernel is
+# ``_scan_cuda``; on ``meta`` tensors its fake gives the shapes (the dry run).
+_scan_op = torch.library.custom_op("repro_torch::dfr_scan", _scan_cuda, mutates_args=(),
+                                   device_types="cuda")
+
+
+@_scan_op.register_fake
+def _(j, mask, s0, model_id, params, out_bf16):
+    b, k_periods = j.shape
+    out_dtype = torch.bfloat16 if out_bf16 else torch.float32
+    return (j.new_empty((b, k_periods, s0.shape[1]), dtype=out_dtype),
+            s0.new_empty(s0.shape, dtype=j.dtype))
+
+
+def _launch(model, j, mask, s0, out_dtype):
+    """K1 on CUDA tensors (its launch, called directly: the operator's
+    dispatch would cost every call host time), its operator's fake shapes
+    on ``meta``.  Raises before anything is allocated for a model the
+    kernel has no form of, an f16 output or an N above the node limit."""
+    model_id, params, out_bf16 = _op_args(model, out_dtype)
+    if model_id != KERNEL_MZI_SINE:
+        scan_layout(j.shape[0], s0.shape[1], mask.ndim == 2)
+    run = _scan_cuda if j.device.type == "cuda" else _scan_op
+    return run(j, mask, s0, model_id, params, out_bf16)
 
 
 def dfr_scan(model, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, *,
@@ -187,7 +229,7 @@ def dfr_scan(model, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, *,
     if mask.device != j.device or s0.device != j.device:
         raise ValueError("j, mask and s0 must be on one device")
     out_dtype = resolve_dtype(out_dtype) or j.dtype
-    if j.device.type == "cuda":
+    if j.device.type in ("cuda", "meta"):
         run = _launch
     elif j.device.type == "cpu":
         run = dfr_scan_plain
@@ -305,8 +347,10 @@ def dfr_scan_grad_plain(model, j, mask, s0, states, g_states, g_fin):
     return dj, ds0
 
 
-def _launch_grad(model, j, mask, s0, states, g_states, g_fin):
-    alpha, gamma, beta, keep = grad_constants(model)
+def _grad_cuda(j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, states: torch.Tensor,
+               g_states: torch.Tensor, g_fin: torch.Tensor, alpha: float, gamma: float,
+               beta: float, keep: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1ᵀ's launch: (dj [B, K], ds0 [B, N]) f32."""
     b, k_periods = j.shape
     n_nodes = mask.shape[0]
     layout = grad_layout(b, n_nodes)
@@ -327,6 +371,25 @@ def _launch_grad(model, j, mask, s0, states, g_states, g_fin):
     _build.check(err, "dfr_scan_grad")
     dfr_scan_grad.launches += 1
     return djt.t().contiguous(), ds0t.t().contiguous()
+
+
+# K1ᵀ as an operator, ``torch.ops.repro_torch.dfr_scan_grad``: its CUDA
+# kernel is ``_grad_cuda``; on ``meta`` tensors its fake gives the shapes.
+_grad_op = torch.library.custom_op("repro_torch::dfr_scan_grad", _grad_cuda, mutates_args=(),
+                                   device_types="cuda")
+
+
+@_grad_op.register_fake
+def _(j, mask, s0, states, g_states, g_fin, alpha, gamma, beta, keep):
+    return (j.new_empty(j.shape, dtype=torch.float32),
+            s0.new_empty(s0.shape, dtype=torch.float32))
+
+
+def _launch_grad(model, j, mask, s0, states, g_states, g_fin):
+    """K1ᵀ on CUDA tensors (its launch, called directly), its operator's
+    fake shapes on ``meta``."""
+    run = _grad_cuda if j.device.type == "cuda" else _grad_op
+    return run(j, mask, s0, states, g_states, g_fin, *grad_constants(model))
 
 
 def dfr_scan_grad(model, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor,
@@ -356,7 +419,7 @@ def dfr_scan_grad(model, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor,
     if states.dtype != torch.float32:
         raise ValueError(f"the adjoint scan recomputes the branch bits from f32 states, "
                          f"not {states.dtype}")
-    if j.device.type == "cuda":
+    if j.device.type in ("cuda", "meta"):
         run = _launch_grad
     elif j.device.type == "cpu":
         run = dfr_scan_grad_plain

@@ -1,17 +1,24 @@
-"""Training launcher: state on one device + the fault-tolerant driver.
+"""Training launcher: mesh + sharded state + the fault-tolerant driver.
 
-Port of ``repro/launch/train.py``.  Runs a training job on one card (or
-the CPU): the reference's mesh and sharded state wait for the port of
-``parallel/`` (ROADMAP.md Queue 1, item 13d), so ``--production-mesh``
-raises.  The params are drawn from a ``torch.Generator`` seeded with
-``--seed``; the batches come from the synthetic token stream of
-``data.pipeline`` (numpy, deterministic in (seed, step)), copied to the
-device each step.  Example:
+Port of ``repro/launch/train.py``.  One process runs a training job on one
+card (or the CPU).  Launched on several ranks (``torchrun``'s environment:
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``)
+it trains on the debug mesh, (1, WORLD_SIZE) ("data", "model"), or with
+``--production-mesh`` on the 16 × 16 pod mesh, which needs exactly 256
+ranks (``launch.mesh.make_mesh`` raises otherwise).  The backend is NCCL
+for ranks on cards, gloo on the CPU or with ``--backend gloo``.  Every
+rank draws the params from a ``torch.Generator`` seeded with ``--seed``
+and keeps its shard of them (``runtime.steps.state_pspecs``); the batches
+come from the synthetic token stream of ``data.pipeline`` (numpy,
+deterministic in (seed, step)), the global batch on every rank, copied to
+its device each step (the step cuts the rank's rows).  Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch reservoir_lm \\
       --steps 200 --batch 8 --seq 256 --d-model 256 --layers 4          # on cuda
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 \\
       --batch 2 --seq 16 --d-model 64 --layers 1 --vocab 128
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --device cpu --steps 4 --batch 4 --seq 16 --d-model 64 --layers 1 --vocab 128
 
 ``--no-reduce`` trains the arch's own config (reservoir_lm: 12 layers,
 d 768, bf16 activations over f32 params, 4 microbatches, remat "full").
@@ -22,17 +29,22 @@ The last line printed is the reference's:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
+import os
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config
 from ..data.pipeline import DataConfig
 from ..device import resolve_device
 from ..optim import AdamWConfig
-from ..runtime.steps import init_train_state, train_step
+from ..parallel import sharding
+from ..runtime.steps import init_train_state, state_pspecs, train_step
 from ..runtime.trainer import TrainLoopConfig, run_training
+from .mesh import make_debug_mesh, make_production_mesh
 
 
 def reduced_config(cfg, args):
@@ -72,6 +84,14 @@ def batch_to_device(batch: dict, dev: torch.device) -> dict:
     return out
 
 
+def _rank_device(dev: torch.device) -> torch.device:
+    """This rank's card (``LOCAL_RANK`` over the cards), or ``dev``."""
+    if dev.type != "cuda":
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="reservoir_lm")
@@ -87,14 +107,15 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend of a multi-rank launch "
+                         "(default: nccl on cuda, gloo on cpu)")
     ap.add_argument("--no-reduce", action="store_true",
                     help="use the full assigned config (cluster scale)")
-    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the 16 x 16 pod mesh: needs WORLD_SIZE 256")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh needs the port of parallel/ and "
-                                  "launch/mesh.py (ROADMAP.md Queue 1, item 13d)")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
     dev = resolve_device(args.device)
@@ -107,12 +128,52 @@ def main(argv=None):
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch, seed=args.seed)
 
+    world = dist.get_world_size() if dist.is_initialized() else \
+        int(os.environ.get("WORLD_SIZE", "1"))
+    if args.production_mesh and world != 256:
+        raise ValueError(f"--production-mesh trains on the 16 x 16 mesh and needs 256 ranks; "
+                         f"WORLD_SIZE is {world}")
+    mesh = None
+    own_group = False
+    rank = 0
+    if world > 1 or args.production_mesh:
+        dev = _rank_device(dev)
+        if not dist.is_initialized():
+            dist.init_process_group(args.backend or ("nccl" if dev.type == "cuda" else "gloo"),
+                                    rank=int(os.environ.get("RANK", "0")), world_size=world,
+                                    device_id=dev if dev.type == "cuda" else None)
+            own_group = True
+        mesh = (make_production_mesh(device_type=dev.type) if args.production_mesh
+                else make_debug_mesh(device_type=dev.type))
+        rank = dist.get_rank()
+    try:
+        history, flagged = _train(cfg, opt_cfg, data_cfg, args, dev, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+    first = [h["loss"] for h in history[:5]]
+    last = [h["loss"] for h in history[-5:]]
+    if rank == 0:
+        print(f"arch={cfg.name} steps={len(history)} "
+              f"loss {sum(first)/len(first):.4f} -> {sum(last)/len(last):.4f} "
+              f"stragglers={flagged}")
+    return history
+
+
+def _train(cfg, opt_cfg, data_cfg, args, dev, mesh):
+    """The training loop on ``dev``, sharded over ``mesh`` when one is given:
+    (history, stragglers flagged)."""
+    specs = None if mesh is None else state_pspecs(cfg, mesh)
+
     def step_fn(state, batch):
-        return train_step(cfg, opt_cfg, state, batch_to_device(batch, dev))
+        with sharding.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            return train_step(cfg, opt_cfg, state, batch_to_device(batch, dev))
 
     def init_fn():
-        return init_train_state(cfg, torch.Generator(device=dev).manual_seed(args.seed),
-                                device=dev)
+        state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                                 device=dev)
+        return state if mesh is None else sharding.tree_shard(state, specs, mesh)
 
     state, history, watchdog = run_training(
         step_fn=step_fn,
@@ -124,14 +185,9 @@ def main(argv=None):
             checkpoint_dir=args.checkpoint_dir,
         ),
         device=dev,
+        state_sharding=None if mesh is None else (mesh, specs),
     )
-
-    first = [h["loss"] for h in history[:5]]
-    last = [h["loss"] for h in history[-5:]]
-    print(f"arch={cfg.name} steps={len(history)} "
-          f"loss {sum(first)/len(first):.4f} -> {sum(last)/len(last):.4f} "
-          f"stragglers={len(watchdog.flagged)}")
-    return history
+    return history, len(watchdog.flagged)
 
 
 if __name__ == "__main__":

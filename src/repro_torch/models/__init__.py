@@ -2,13 +2,14 @@
 
 Port of ``repro.models``: the serving path of every block kind (``attn``,
 ``cross_attn``, ``mamba``, ``mlstm``, ``slstm``, ``reservoir``), the dense
-and MoE MLPs and the encoder.  ``param_logical_axes`` waits for the port of
-``parallel/`` (ROADMAP.md Queue 1, item 13d).
+and MoE MLPs and the encoder, and ``param_logical_axes`` for the sharding
+rules of ``parallel/``.
 """
 
 from .config import BlockSpec, ModelConfig
 from .losses import lm_loss
-from .model import decode_step, forward, init_cache, init_params, prefill
+from .model import (decode_step, forward, init_cache, init_params, param_logical_axes,
+                    prefill)
 
 __all__ = [
     "BlockSpec",
@@ -18,5 +19,6 @@ __all__ = [
     "init_cache",
     "init_params",
     "lm_loss",
+    "param_logical_axes",
     "prefill",
 ]

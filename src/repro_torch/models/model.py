@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -126,6 +126,65 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
             "units": stacked_unit((_ENCODER_BLOCK,), cfg.n_encoder_layers),
             "final_norm": layers.init_from_defs(layers.norm_defs(cfg), generator, device=dev)}
     return params
+
+
+class LeafDef(NamedTuple):
+    """One param leaf's full shape and logical axes."""
+
+    shape: tuple
+    axes: tuple
+
+
+def map_param_defs(fn, cfg: ModelConfig):
+    """``init_params``'s structure with ``fn(LeafDef)`` a leaf, from the
+    defs alone (nothing is drawn).  Stacked unit leaves are [n_units, ...]
+    with a leading ``"layers"`` axis, as in the reference's
+    ``param_logical_axes``."""
+
+    def tree(defs, lead=(), lead_axes=()):
+        return {name: fn(LeafDef((*lead, *shape), (*lead_axes, *axes)))
+                for name, (shape, axes, _init) in defs.items()}
+
+    def stacked_unit(unit, n_repeats):
+        return tuple(tree(_block_defs(cfg, blk), (n_repeats,), ("layers",)) for blk in unit)
+
+    out: dict[str, Any] = {"embed": tree(layers.embed_defs(cfg)),
+                           "units": stacked_unit(cfg.unit, cfg.n_units),
+                           "final_norm": tree(layers.norm_defs(cfg))}
+    if cfg.n_encoder_layers:
+        out["encoder"] = {"units": stacked_unit((_ENCODER_BLOCK,), cfg.n_encoder_layers),
+                          "final_norm": tree(layers.norm_defs(cfg))}
+    return out
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    """Same tree structure as init_params, with logical-axis tuples as leaves.
+
+    Stacked unit leaves get a leading ``"layers"`` axis entry (never sharded).
+    """
+    return map_param_defs(lambda leaf: leaf.axes, cfg)
+
+
+def meta_params(cfg: ModelConfig) -> dict:
+    """``init_params``'s tree as f32 ``meta`` tensors: shapes, no data."""
+    return map_param_defs(lambda leaf: torch.empty(leaf.shape, device="meta"), cfg)
+
+
+def activation_axes(cfg=None) -> tuple[str, ...]:
+    """The mesh axes [B, ...] activations shard their batch over."""
+    return ("pod", "data", "model") if cfg is not None and cfg.strategy == "zero3" \
+        else ("pod", "data")
+
+
+def _shard_activations(x, cfg=None):
+    """Anchor [B, ...] activations: under an active mesh, this rank's rows
+    of the batch over ``activation_axes(cfg)`` (the rank's block of the
+    reference's sharding constraint); ``x`` itself without a mesh.  The
+    port's forward takes the rows it is given: the train step anchors each
+    microbatch here, once."""
+    from ..parallel.sharding import maybe_shard
+
+    return maybe_shard(x, activation_axes(cfg))
 
 
 # --------------------------------------------------------------------------

@@ -7,12 +7,24 @@ scratch row C that the combine weighs by zero (Switch/GShard drop).  The
 position of a slot in its expert's queue is a per-group one-hot running
 count, as in the reference (not a sort).
 
-The port takes the reference's single-device route always
-(``_moe_dense_tokens`` → ``_moe_block_dense``): every expert's FFN runs
-densely over the whole [B, E, C+1, d] capacity buffer.  The reference's
-expert-parallel ``_moe_block_sharded`` takes a mesh and waits for the port
-of ``parallel/`` (ROADMAP.md Queue 1, item 13d).  Returns the Switch
-load-balance aux loss beside the output, as the reference does.
+Two routes, chosen as the reference chooses them:
+
+* ``_moe_dense_tokens`` → ``_moe_block_dense`` (no mesh, or a mesh whose
+  model axis does not divide the experts): every expert's FFN runs
+  densely over the whole [B, E, C+1, d] capacity buffer;
+* ``_moe_block_sharded`` (expert parallelism under an active mesh with a
+  "model" axis that divides E): each model rank runs its E/tp experts on
+  the buffer of its rows, combines its own experts' slots per token, sums
+  the k slots, and one token-sized all-reduce over "model" completes the
+  combine (``repro/models/moe.py:87-125``).  Its backward sums the
+  inputs' gradients over "model" (each rank's reach only its own experts'
+  slots, so the sum adds disjoint blocks to zeros).  The expert weights
+  arrive whole: the train step gathers every param over its spec's axes
+  (the reference gathers them over "data" inside the block).
+
+Returns the Switch load-balance aux loss beside the output, as the
+reference does.  Under a mesh each rank's aux is its own rows' (the
+reference's is the global batch's; ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
@@ -71,6 +83,72 @@ def _moe_block_dense(cfg, buf, params, flat_e, safe_pos, w, cap):
     return _combine_local(out, flat_e, safe_pos, w, 0, cfg.n_experts, cap)
 
 
+class _SumOverModel(torch.autograd.Function):
+    """All-reduce over "model" forward; the gradient passes as it is (the
+    loss downstream is the same on every model rank)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        from ..parallel import sharding
+
+        return sharding.all_reduce(y.clone(), "model", mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient is summed over "model" (each rank's
+    reaches only its own experts' slots)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel import sharding
+
+        return sharding.all_reduce(g.contiguous().clone(), "model", ctx.mesh), None
+
+
+def _moe_block_sharded(cfg, mesh, buf, params, flat_e, safe_pos, w, cap):
+    """Expert-parallel route: this model rank's E/tp experts, their FFN,
+    the combine of their slots, the k slots summed, then the all-reduce
+    over "model": y [G, S, d]."""
+    from ..parallel import sharding
+
+    tp = sharding.axis_sizes(mesh)["model"]
+    e_loc = cfg.n_experts // tp
+    j = sharding.coordinate(mesh, "model")
+    buf, w = _CopyToModel.apply(buf, mesh), _CopyToModel.apply(w, mesh)
+    wg, wu, wo = (_CopyToModel.apply(params[k], mesh) for k in ("wi_gate", "wi_up", "wo"))
+    own = slice(j * e_loc, (j + 1) * e_loc)
+    out_e = _expert_ffn(cfg, buf[:, own], wg[own], wu[own], wo[own])
+    y = _combine_local(out_e, flat_e, safe_pos, w, j * e_loc, e_loc, cap)
+    # Sum the k slots per token BEFORE the all-reduce: the wire then carries
+    # [G, S, d] (token-sized) instead of [G, S·k, d].
+    g_loc, sk, dd = y.shape
+    y = torch.sum(y.reshape(g_loc, sk // cfg.top_k, cfg.top_k, dd), dim=2)
+    return _SumOverModel.apply(y, mesh)
+
+
+def _sharded_usable(cfg, mesh) -> bool:
+    """The reference's test for the expert-parallel route: an active mesh
+    with a "model" axis that divides the experts.  (The reference also asks
+    the batch axes to divide the groups, for its shard_map; the port's
+    buffer holds this rank's rows already.)  The model ranks must hold the
+    same rows, which zero3's split of the batch over "model" breaks."""
+    if mesh is None or cfg.strategy == "zero3":
+        return False
+    from ..parallel import sharding
+
+    tp = sharding.axis_sizes(mesh).get("model", 0)
+    return bool(tp) and cfg.n_experts % tp == 0
+
+
 def _moe_dense_tokens(cfg, buf, params, flat_e, safe_pos, w, cap):
     """The dense route, token-major [B, S, d]."""
     slots = _moe_block_dense(cfg, buf, params, flat_e, safe_pos, w, cap)
@@ -121,4 +199,9 @@ def apply_moe(cfg, p, x):
 
     # -- expert FFNs + combine ---------------------------------------------------
     w = (top_p.reshape(b, s * k) * keep).to(dt)
+    from ..parallel.sharding import active_mesh
+
+    mesh = active_mesh()
+    if _sharded_usable(cfg, mesh):
+        return _moe_block_sharded(cfg, mesh, buf, p, flat_e, safe_pos, w, cap), aux
     return _moe_dense_tokens(cfg, buf, p, flat_e, safe_pos, w, cap), aux

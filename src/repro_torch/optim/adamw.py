@@ -107,11 +107,16 @@ def _decay_mask(path: str) -> bool:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, opt_state: dict, grads: list, step: torch.Tensor):
+def apply_updates(cfg: AdamWConfig, params, opt_state: dict, grads: list, step: torch.Tensor,
+                  *, gnorm: torch.Tensor | None = None):
     """One AdamW step, in place: ``params`` and ``opt_state``'s moments are
     updated where they lie.  ``grads`` is a list in ``tree_leaves(params)``
-    order (a ``None`` entry is a zero gradient).  Returns the metrics
-    ``{"grad_norm", "lr"}`` as device scalars."""
+    order (a ``None`` entry is a zero gradient).  ``gnorm`` is the global
+    norm the clip takes (default: that of ``grads``; a sharded step passes
+    the full gradient's, its ``params`` and ``grads`` being one rank's
+    shards: the update is elementwise, so a shard's is the full update's
+    block).  Returns the metrics ``{"grad_norm", "lr"}`` as device
+    scalars."""
     named = tree_leaves_with_path(params)
     flat_m, flat_v = tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])
     if not len(named) == len(grads) == len(flat_m) == len(flat_v):
@@ -119,7 +124,8 @@ def apply_updates(cfg: AdamWConfig, params, opt_state: dict, grads: list, step: 
                          f"{len(flat_v)} moments")
     grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) if g is None else g
              for (_, p), g in zip(named, grads)]
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

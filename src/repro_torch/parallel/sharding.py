@@ -1,0 +1,481 @@
+"""Logical-axis -> mesh-axis sharding rules, and the collectives that move
+shards (DESIGN.md §5).
+
+Port of ``repro/parallel/sharding.py``.  The rules are the reference's,
+pure functions of the mesh's axis sizes, so they take a shape-only
+``AbstractMesh`` (the tests and the dry run use one) as well as a
+``torch.distributed.device_mesh.DeviceMesh`` (a real run):
+
+  fsdp_tp     hybrid ZeRO-3 × tensor parallel: "embed"-class dims shard over
+              the data axis, "heads"/"mlp"/"vocab" dims over the model axis.
+              Any rule whose mesh axis does not divide the dim falls back to
+              replication (e.g. 8 kv heads on a 16-way model axis).
+  fsdp        as fsdp_tp, plus: when nothing took the model axis, the
+              largest eligible dim also shards over "model" (full ZeRO-3
+              over data×model): starcoder2 (24 H) and xlstm (4 H).
+  fsdp_tp_ep  fsdp_tp with the "expert" axis on "model" (expert parallelism).
+
+Batch shards over ("pod", "data") everywhere; long_500k (batch 1) shards
+the KV-cache sequence axis over "data" instead.
+
+Where the reference lays a global array out over devices (GSPMD), the port
+stores each leaf as this rank's **local shard**, a plain tensor: the scan
+kernels are ctypes launches that no DTensor sharding rule knows.  A spec
+``P`` names, per dim, no axis, one axis or a tuple of axes; a dim whose
+entry names several axes is cut row-major over them in the entry's order,
+which is JAX's device order.  ``shard`` and ``gather`` are the only way
+between a full tensor and its shard.
+
+Every collective of the port goes through this module (``gather``,
+``all_reduce``, ``all_gather``, ``send``/``recv``, ``broadcast``), on the
+tensors where they lie: nothing is copied to the host on the way (gloo
+stages CUDA tensors itself), and no single-process fallback stands in for
+a mesh.  Each one is recorded as (kind, result bytes, group size) for the
+recorders ``record_collectives`` opens, which is how the dry run counts
+the bytes a step moves.
+
+``use_mesh`` / ``active_mesh`` stand for the reference's ``compat.use_mesh``
+/ ``get_abstract_mesh``; ``maybe_shard`` is a no-op when no mesh is
+active, and only then: under a mesh it returns this rank's block.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+# Candidate mesh axes per logical axis, in preference order.
+_TABLE = {
+    "vocab": ("model",),
+    "embed": ("data",),
+    "heads": ("model",),
+    "kv": ("model",),
+    "mlp": ("model",),
+    "expert": ("model",),
+    "ctx": ("data",),
+    "hd": (),
+    "layers": (),
+    "nodes": (),
+    None: (),
+}
+
+# Logical axes eligible for the pure-FSDP fallback shard over "model".
+_FSDP_FALLBACK = ("embed", "vocab", "mlp", "ctx")
+
+BATCH_AXES = ("pod", "data")
+
+
+class P(tuple):
+    """A partition spec: one entry a dim, each ``None``, an axis name or a
+    tuple of axis names (the reference's ``PartitionSpec``).  Dims past
+    the last entry are not sharded."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The axis names one spec entry names, in order."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+class AbstractMesh:
+    """A shape-only mesh: axis names and sizes, no ranks (the reference's
+    ``compat.abstract_mesh``)."""
+
+    def __init__(self, axis_sizes, axis_names):
+        axis_sizes, axis_names = tuple(int(s) for s in axis_sizes), tuple(axis_names)
+        if len(axis_sizes) != len(axis_names):
+            raise ValueError(f"{axis_sizes=} vs {axis_names=}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, axis_sizes))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or an ``AbstractMesh``."""
+    if isinstance(mesh, DeviceMesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(mesh.shape)
+
+
+def _axis_size(mesh, name) -> int:
+    return axis_sizes(mesh).get(name, 0)
+
+
+# --------------------------------------------------------------------------
+# The active mesh
+# --------------------------------------------------------------------------
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the active mesh for the dynamic extent."""
+    token = _ACTIVE.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active_mesh():
+    """The active mesh, or ``None`` when there is none."""
+    return _ACTIVE.get()
+
+
+# --------------------------------------------------------------------------
+# Param, batch and cache specs
+# --------------------------------------------------------------------------
+
+
+def spec_for(axes: tuple, shape: tuple, mesh, strategy: str) -> P:
+    """PartitionSpec for one param leaf given its logical axes and shape."""
+    used: set[str] = set()
+    entries: list = []
+    for dim, logical in zip(shape, axes):
+        chosen = None
+        for cand in _TABLE.get(logical, ()):
+            size = _axis_size(mesh, cand)
+            if size and cand not in used and dim % size == 0:
+                chosen = cand
+                used.add(cand)
+                break
+        entries.append(chosen)
+
+    if strategy in ("fsdp", "zero3") and "model" not in used:
+        # Full ZeRO-3: fold "model" into the largest eligible dim.
+        best = None
+        for i, (dim, logical) in enumerate(zip(shape, axes)):
+            if logical in _FSDP_FALLBACK and dim % _axis_size(mesh, "model") == 0:
+                if best is None or dim > shape[best]:
+                    best = i
+        if best is not None:
+            prev = entries[best]
+            entries[best] = (prev, "model") if isinstance(prev, str) else "model"
+    return P(*entries)
+
+
+def param_pspecs(cfg, mesh):
+    """PartitionSpec tree matching ``init_params(cfg, ...)``'s structure,
+    from the param defs' shapes and logical axes (nothing is drawn)."""
+    from ..models.model import map_param_defs
+
+    return map_param_defs(lambda leaf: spec_for(leaf.axes, leaf.shape, mesh, cfg.strategy),
+                          cfg)
+
+
+def batch_axes(mesh, *, strategy: str = "fsdp_tp", batch: int | None = None) -> tuple:
+    """Mesh axes the batch dim shards over.
+
+    zero3 spreads the batch over every axis that divides it (the model axis
+    carries data parallelism instead of TP)."""
+    cands = ("pod", "data", "model") if strategy == "zero3" else BATCH_AXES
+    sizes = axis_sizes(mesh)
+    axes: list[str] = []
+    size = 1
+    for a in cands:
+        if a not in sizes:
+            continue
+        if batch is not None and batch % (size * sizes[a]):
+            continue
+        axes.append(a)
+        size *= sizes[a]
+    return tuple(axes)
+
+
+def batch_pspec(mesh, rank: int = 2, *, strategy: str = "fsdp_tp",
+                batch: int | None = None) -> P:
+    return P(batch_axes(mesh, strategy=strategy, batch=batch), *([None] * (rank - 1)))
+
+
+def data_pspecs(cfg, mesh, specs: dict) -> dict:
+    """Specs for a train/prefill input-spec dict (tokens/labels/context)."""
+    out = {}
+    for k, v in specs.items():
+        if k == "cache":
+            out[k] = cache_pspecs(cfg, mesh, v)
+        else:
+            out[k] = batch_pspec(mesh, rank=len(v.shape), strategy=cfg.strategy,
+                                 batch=v.shape[0])
+    return out
+
+
+def cache_pspecs(cfg, mesh, cache_shapes):
+    """Specs mirroring ``init_cache``'s structure (``{"pos", "units"}``).
+
+    Batch shards over ("pod","data") when it divides; otherwise (long_500k,
+    batch 1) the attention-cache *sequence* axis shards over "data" and
+    recurrent-state inner dims shard over "model" where divisible.  The
+    port's cache has the reference's leaves, dims and dtypes, one unit
+    position's tuple each (the reservoir's ``s_last`` is stored, and
+    derived from ``s_prev`` on use), so the reference's per-kind specs map
+    leaf for leaf.
+    """
+    sizes = axis_sizes(mesh)
+    b_axes = batch_axes(mesh)
+    b_size = math.prod(sizes[a] for a in b_axes)
+    kinds = [blk.mixer for blk in cfg.unit]
+
+    batch = None
+    for unit_cache in cache_shapes["units"]:
+        batch = unit_cache[0].shape[1]
+        break
+    shard_batch = batch is not None and batch % b_size == 0
+
+    def b_ax():
+        return b_axes if shard_batch else None
+
+    model = sizes.get("model", 0)
+
+    def inner_ax(d):
+        return "model" if (model and d % model == 0) else None
+
+    units_specs = []
+    for kind, unit_cache in zip(kinds, cache_shapes["units"]):
+        if kind in ("attn", "cross_attn"):
+            k_sh = unit_cache[0].shape  # [U, B, S, KV, hd]
+            kv_ax = "model" if (model and k_sh[3] % model == 0) else None
+            s_axes = []
+            if not shard_batch:
+                s_axes.append("data")
+            if kv_ax is None and model:
+                s_axes.append("model")
+            s_div = math.prod(sizes[a] for a in s_axes) if s_axes else 1
+            s_entry = tuple(s_axes) if (s_axes and k_sh[2] % s_div == 0) else None
+            spec = P(None, b_ax(), s_entry, kv_ax, None)
+            units_specs.append((spec, spec))
+        elif kind == "mamba":
+            conv_sh, h_sh = unit_cache[0].shape, unit_cache[1].shape
+            units_specs.append((P(None, b_ax(), None, inner_ax(conv_sh[3])),
+                                P(None, b_ax(), inner_ax(h_sh[2]), None)))
+        elif kind == "mlstm":
+            conv_sh, c_sh, n_sh, _m_sh = (u.shape for u in unit_cache)
+            units_specs.append((P(None, b_ax(), None, inner_ax(conv_sh[3])),
+                                P(None, b_ax(), None, inner_ax(c_sh[3]), None),
+                                P(None, b_ax(), None, inner_ax(n_sh[3])),
+                                P(None, b_ax(), None)))
+        elif kind == "slstm":
+            units_specs.append((P(None, b_ax(), inner_ax(unit_cache[0].shape[2])),
+                                P(None, b_ax(), inner_ax(unit_cache[1].shape[2])),
+                                P(None, b_ax(), None),
+                                P(None, b_ax(), inner_ax(unit_cache[3].shape[2]))))
+        elif kind == "reservoir":
+            units_specs.append((P(None, b_ax(), None, None), P(None, b_ax(), None)))
+        else:
+            raise ValueError(kind)
+    return {"pos": P(), "units": tuple(units_specs)}
+
+
+def fit_spec(mesh, shape, *entries) -> P:
+    """``entries`` as a spec for an array of ``shape`` on ``mesh``: each
+    dim keeps, in order, the axes of its entry that the mesh has and whose
+    running product divides the dim (the rule of ``batch_axes(batch=...)``);
+    the dim is replicated over the rest."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for dim, entry in zip(shape, entries):
+        kept, size = [], 1
+        for a in entry_axes(entry):
+            if a in sizes and dim % (size * sizes[a]) == 0:
+                kept.append(a)
+                size *= sizes[a]
+        out.append(tuple(kept) if kept else None)
+    return P(*out)
+
+
+def maybe_shard(x, *spec_entries):
+    """``x`` when no mesh is active; under a mesh, this rank's block of the
+    full tensor ``x`` under ``fit_spec(mesh, x.shape, *spec_entries)``."""
+    mesh = active_mesh()
+    if mesh is None:
+        return x
+    return shard(x, fit_spec(mesh, x.shape, *spec_entries), mesh)
+
+
+# --------------------------------------------------------------------------
+# Shards
+# --------------------------------------------------------------------------
+
+
+def _coords(mesh) -> dict[str, int]:
+    """This rank's coordinate along each axis of a ``DeviceMesh``."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"shards and collectives need a DeviceMesh, not {mesh!r}")
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def shard_count(entry, mesh) -> int:
+    """How many blocks one spec entry cuts its dim into."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in entry_axes(entry))
+
+
+def shard(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """This rank's block of ``full`` under ``spec``: a tensor of its own
+    (never a view into ``full``), so the full tensor can be freed."""
+    coords = _coords(mesh)
+    sizes = axis_sizes(mesh)
+    out = full
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        idx = 0
+        for a in axes:                                # row-major, the entry's order
+            idx = idx * sizes[a] + coords[a]
+        n = shard_count(entry, mesh)
+        if full.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(full.shape)} does not divide into {n} "
+                             f"blocks under {spec}")
+        step = full.shape[dim] // n
+        out = out.narrow(dim, idx * step, step)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def gather(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """The full tensor from every rank's block under ``spec``: an
+    all-gather over each sharded dim's axes, the last axis of an entry
+    first (so the blocks land in the entry's row-major order)."""
+    out = local
+    for dim, entry in enumerate(spec):
+        for a in reversed(entry_axes(entry)):
+            out = all_gather(out, a, mesh, dim=dim)
+    return out
+
+
+def tree_shard(tree, spec_tree, mesh):
+    """``shard`` over a tree of tensors and its spec tree (``None`` holds
+    no leaf)."""
+    return _tree_zip(lambda t, s: shard(t, s, mesh), tree, spec_tree)
+
+
+def tree_gather(tree, spec_tree, mesh):
+    return _tree_zip(lambda t, s: gather(t, s, mesh), tree, spec_tree)
+
+
+def spec_leaves(spec_tree) -> list:
+    """The specs of a spec tree in the reference's leaf order (dict keys
+    sorted, sequences in order; a ``P`` is one leaf), to pair with
+    ``optim.adamw.tree_leaves`` of the tree it describes."""
+    if spec_tree is None:
+        return []
+    if isinstance(spec_tree, dict):
+        return [s for k in sorted(spec_tree) for s in spec_leaves(spec_tree[k])]
+    if isinstance(spec_tree, (list, tuple)) and not isinstance(spec_tree, P):
+        return [s for item in spec_tree for s in spec_leaves(item)]
+    return [spec_tree]
+
+
+def _tree_zip(fn, tree, spec_tree):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_zip(fn, v, spec_tree[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return type(tree)(_tree_zip(fn, v, s) for v, s in zip(tree, spec_tree, strict=True))
+    return fn(tree, spec_tree)
+
+
+# --------------------------------------------------------------------------
+# Recording collectives
+# --------------------------------------------------------------------------
+
+_RECORDERS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_collectives",
+                                                            default=())
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Collect every collective issued in the extent as a dict
+    ``{"kind", "bytes", "group"}``: ``bytes`` is the result's size on this
+    rank (the reference's HLO result-shape convention), ``group`` the
+    number of ranks taking part."""
+    events: list[dict] = []
+    token = _RECORDERS.set(_RECORDERS.get() + (events,))
+    try:
+        yield events
+    finally:
+        _RECORDERS.reset(token)
+
+
+def _record(kind: str, n_bytes: int, group_size: int) -> None:
+    for events in _RECORDERS.get():
+        events.append({"kind": kind, "bytes": n_bytes, "group": group_size})
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def all_reduce(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """Sum ``x`` in place over the ranks of ``axes`` (a name or a tuple),
+    one all-reduce an axis; returns ``x``."""
+    for a in entry_axes(axes):
+        g = mesh.get_group(a)
+        _record("all-reduce", _nbytes(x), g.size())
+        dist.all_reduce(x, group=g)
+    return x
+
+
+def all_gather(x: torch.Tensor, axis: str, mesh, *, dim: int = 0) -> torch.Tensor:
+    """The blocks ``x`` of every rank of ``axis``, concatenated along
+    ``dim`` in rank order."""
+    g = mesh.get_group(axis)
+    n = g.size()
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    _record("all-gather", n * _nbytes(x), n)
+    dist.all_gather(parts, x, group=g)
+    return torch.cat(parts, dim=dim)
+
+
+def broadcast(x: torch.Tensor, axis: str, mesh, *, src: int) -> torch.Tensor:
+    """``x`` of the rank at coordinate ``src`` of ``axis``, in place on
+    every rank of the axis."""
+    g = mesh.get_group(axis)
+    _record("broadcast", _nbytes(x), g.size())
+    dist.broadcast(x, src=dist.get_global_rank(g, src), group=g)
+    return x
+
+
+def send_recv(send: torch.Tensor | None, recv: torch.Tensor | None, axis: str, mesh, *,
+              to: int | None, frm: int | None) -> None:
+    """Send ``send`` to coordinate ``to`` of ``axis`` and receive ``recv``
+    from coordinate ``frm``, both posted before either is waited on (a
+    pipeline's collective permute)."""
+    g = mesh.get_group(axis)
+    works = []
+    if send is not None:
+        _record("collective-permute", _nbytes(send), 2)
+        works.append(dist.isend(send.contiguous(), dst=dist.get_global_rank(g, to), group=g))
+    if recv is not None:
+        works.append(dist.irecv(recv, src=dist.get_global_rank(g, frm), group=g))
+    for w in works:
+        w.wait()
+
+
+def coordinate(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis``."""
+    return _coords(mesh)[axis]
+
+
+__all__ = ["AbstractMesh", "BATCH_AXES", "P", "active_mesh", "all_gather", "all_reduce",
+           "axis_sizes", "batch_axes", "batch_pspec", "broadcast", "cache_pspecs",
+           "coordinate", "data_pspecs", "entry_axes", "fit_spec", "gather",
+           "maybe_shard", "param_pspecs", "record_collectives", "send_recv", "shard",
+           "shard_count", "spec_for", "spec_leaves", "tree_gather", "tree_shard",
+           "use_mesh"]

@@ -29,6 +29,16 @@ device: it cannot reproduce ``jax.random``'s bits, so runs with sampled
 noise agree with the reference in distribution, and runs with
 ``state_noise_rel=0`` or diagonal noise agree to f32 round-off.
 
+Under an active mesh (``parallel.sharding.use_mesh``) the instance axis
+splits over the mesh's data axes (the reference's ``maybe_shard`` of the
+drive and the states, ``repro/pipeline/experiment.py:407-408, 481-482``):
+each rank runs its block of instances through the input layer's outputs,
+the reservoir, the fit and the evaluation, and the results are gathered,
+so every rank returns the whole batch's.  Sampled digitiser noise is drawn
+at the whole batch's shape and cut, so a run over a mesh draws what one
+process draws.  WDM ensembles, composed graphs and ``dev_params`` do not
+take a mesh yet (ROADMAP.md Queue 1 item 13e).
+
 ``Experiment.run(..., dev_params=...)`` sweeps the device's operating
 point over the batch lanes (``devices.cmt.CMTSweepParams``, leaves scalar
 or [B]) on the ``ref``/``fast`` state paths, materialized or streamed
@@ -52,6 +62,7 @@ from ..core.reservoir import generate_channel_states, generate_states
 from ..core.tasks import SYMBOLS
 from ..device import host_values, resolve_device
 from ..kernels.readout_apply import readout_apply, readout_apply_plain
+from ..parallel import sharding
 from .ridge import (_chunk_axis, _row_mask, _shared_chunk_states_fn, apply_readout,
                     composed_chunk_states_fn, fit_ridge_batched, fit_ridge_streaming,
                     fit_ridge_streaming_composed, fit_ridge_streaming_shared,
@@ -237,14 +248,26 @@ def _input_layer(cfg: ExperimentConfig, tr_in: torch.Tensor, te_in: torch.Tensor
             sample_and_hold((te_in - lo) * scale * cfg.input_gain))
 
 
-def _add_state_noise(cfg: ExperimentConfig, st_fit: torch.Tensor) -> torch.Tensor:
-    """Digitiser noise: N(0, (rel · std of each instance's states)²)."""
+def _add_state_noise(cfg: ExperimentConfig, st_fit: torch.Tensor, *,
+                     cut=None) -> torch.Tensor:
+    """Digitiser noise: N(0, (rel · std of each instance's states)²).  With
+    ``cut=(spec, mesh)`` ``st_fit`` is this rank's block of instances: the
+    noise is drawn at the whole batch's shape and the block cut from it.
+    Each instance's std is its own reduction, one call an instance: the
+    order of a batched reduction's f32 sums depends on the batch's size on
+    the card, and an instance's noise scale would then depend on the
+    instances beside it (a rank's block against the whole batch)."""
     if not cfg.state_noise_rel:
         return st_fit
-    sigma = cfg.state_noise_rel * torch.std(st_fit, dim=(1, 2), keepdim=True, correction=0)
+    sigma = cfg.state_noise_rel * torch.stack(
+        [torch.std(inst, correction=0) for inst in st_fit])[:, None, None]
     gen = torch.Generator(device=st_fit.device).manual_seed(cfg.noise_seed)
-    noise = torch.randn(st_fit.shape, generator=gen, dtype=st_fit.dtype,
-                        device=st_fit.device)
+    shape = st_fit.shape
+    if cut is not None:
+        shape = (shape[0] * sharding.shard_count(cut[0][0], cut[1]), *shape[1:])
+    noise = torch.randn(shape, generator=gen, dtype=st_fit.dtype, device=st_fit.device)
+    if cut is not None:
+        noise = sharding.shard(noise, *cut)
     return st_fit + sigma * noise
 
 
@@ -407,6 +430,26 @@ def _run_pipeline(cfg: ExperimentConfig, mask, tr_in, tr_tg, te_in, te_tg, *,
     dev = tr_in.device
     with stage("input_layer", dev):
         j_tr, j_te = _input_layer(cfg, tr_in, te_in)
+    mesh = sharding.active_mesh()
+    if mesh is not None:
+        if wdm or dev_params is not None or cfg.topology is not None:
+            raise NotImplementedError("under a mesh the pipeline splits a single delay loop's "
+                                      "instances; WDM, composed graphs and dev_params do "
+                                      "not take one yet")
+        # the instance axis over the data axes: this rank's block, then gathered
+        cut = (sharding.fit_spec(mesh, j_tr.shape, sharding.BATCH_AXES), mesh)
+        out = _run_from_drive(cfg, mask, *(sharding.shard(t, *cut)
+                                           for t in (j_tr, tr_tg, j_te, te_tg)), cut=cut)
+        return tuple(None if t is None else sharding.gather(t, *cut) for t in out)
+    return _run_from_drive(cfg, mask, j_tr, tr_tg, j_te, te_tg, wdm=wdm, shared=shared,
+                           dev_params=dev_params)
+
+
+def _run_from_drive(cfg, mask, j_tr, tr_tg, j_te, te_tg, *, wdm=False, shared=False,
+                    dev_params=None, cut=None):
+    """The pipeline from the drive on: reservoir, fit, evaluation (``cut``:
+    this rank's block of instances, see ``_add_state_noise``)."""
+    dev = j_tr.device
     if cfg.stream_chunk_k is not None:
         return _run_streaming(cfg, mask, j_tr, tr_tg, j_te, te_tg, wdm=wdm, shared=shared,
                               dev_params=dev_params)
@@ -417,7 +460,7 @@ def _run_pipeline(cfg: ExperimentConfig, mask, tr_in, tr_tg, te_in, te_tg, *,
         st_te = _gen_states(cfg, mask, j_te, wdm=wdm, s0=s_carry, dev_params=dev_params)
     w = cfg.washout
     with stage("noise", dev):
-        st_fit = _add_state_noise(cfg, st_tr[:, w:])
+        st_fit = _add_state_noise(cfg, st_tr[:, w:], cut=cut)
     w_fit, lam_idx = fit_ridge_batched(st_fit, tr_tg[:, w:], lambdas=cfg.ridge_l2,
                                        use_kernel=cfg.readout_use_kernel,
                                        block_t=cfg.readout_block_t, device=dev)

@@ -51,15 +51,25 @@ def gram(x: torch.Tensor, y: torch.Tensor, *, use_kernel: bool = False):
     """(G = XᵀX [F, F], c = Xᵀy [F, C]) in f32 from X [T, F], y [T, C].
 
     ``use_kernel=True`` goes through the Gram op (the CUDA kernel on CUDA
-    tensors, its plain version on CPU tensors); else two matmuls.
+    tensors, its plain version on CPU tensors); else two matmuls, which
+    under an active mesh split the sample axis over the data axes (the
+    reference's ``maybe_shard``): each rank reduces its rows, and G and c
+    are summed over those axes.
     """
     if use_kernel:
         from ..kernels.ridge_gram import ops as gram_ops
 
         return gram_ops.gram_accumulate(x, y)
     from ..kernels.ridge_gram.ref import gram_ref
+    from ..parallel import sharding
 
-    return gram_ref(x, y)
+    mesh = sharding.active_mesh()
+    if mesh is None:
+        return gram_ref(x, y)
+    spec = sharding.fit_spec(mesh, x.shape, sharding.BATCH_AXES)
+    g, c = gram_ref(sharding.shard(x, spec, mesh), sharding.shard(y, spec, mesh))
+    axes = sharding.entry_axes(spec[0])
+    return sharding.all_reduce(g, axes, mesh), sharding.all_reduce(c, axes, mesh)
 
 
 def _pick(ws: torch.Tensor, gcvs: torch.Tensor):

@@ -15,12 +15,16 @@ Port of ``repro/runtime/trainer.py``, the control loop a training job runs
   * **Straggler watchdog**: flags steps exceeding ``straggler_factor`` ×
     the rolling median step time (the hook point is ``on_straggler``).
 
+  * **Elastic re-shard**: checkpoints hold global arrays; with
+    ``state_sharding=(mesh, spec_tree)`` (the state of local shards a
+    sharded step trains) every save gathers the state and writes it once,
+    and a restart on a different mesh re-lays it out
+    (``checkpoint/store.py``).
+
 The one host sync a step is the read of its metrics (the reference's
 ``device_get``), which also surfaces an asynchronous device failure inside
-the retry.  Checkpoints are the port's ``CheckpointStore``, restored onto
-``device`` (the reference re-lays them out over a mesh with
-``sharding_tree``; that waits for ``parallel/``, ROADMAP.md Queue 1 item
-13d).
+the retry.  Without ``state_sharding`` checkpoints are restored onto
+``device``.
 """
 
 from __future__ import annotations
@@ -85,6 +89,7 @@ def run_training(
     data_cfg: DataConfig,
     loop_cfg: TrainLoopConfig,
     device=None,                  # where restored leaves go (None: numpy leaves)
+    state_sharding=None,          # (mesh, spec tree) of a sharded state
     on_metrics=None,
     on_straggler=None,
 ):
@@ -93,7 +98,7 @@ def run_training(
 
     state = init_state_fn()
     start_step = 0
-    restored_step, restored = store.restore(state, device=device)
+    restored_step, restored = store.restore(state, device=device, sharding=state_sharding)
     if restored is not None:
         state, start_step = restored, restored_step
         log.info("restored checkpoint at step %d", start_step)
@@ -133,9 +138,9 @@ def run_training(
 
             step += 1
             if loop_cfg.checkpoint_every and step % loop_cfg.checkpoint_every == 0:
-                store.save_async(step, state)
+                store.save_async(step, state, sharding=state_sharding)
         store.wait()
-        store.save(loop_cfg.total_steps, state)
+        store.save(loop_cfg.total_steps, state, sharding=state_sharding)
     finally:
         prefetch.close()
     return state, history, watchdog

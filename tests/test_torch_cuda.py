@@ -964,3 +964,84 @@ def test_k1_f32_states_cast_to_bf16_are_its_bf16_states(dev):
     f32 = scan_ops.dfr_scan(SiliconMR(), j, mask, s0, out_dtype=torch.float32)
     bf16 = scan_ops.dfr_scan(SiliconMR(), j, mask, s0, out_dtype=torch.bfloat16)
     assert torch.equal(f32.to(torch.bfloat16), bf16)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K1ᵀ as operators; the sharded train step on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_scan_operators_are_bitwise_their_plain_versions(dev, out_dtype):
+    """``torch.ops.repro_torch.dfr_scan`` / ``dfr_scan_grad`` (the kernels
+    bound as operators, with fake shapes for the dry run) on the card give
+    the plain versions' bits, and their fakes the real outputs' shapes and
+    dtypes."""
+    model = SiliconMR(beta_tpa=0.5)
+    j, s0 = _scan_inputs(dev, b=33, k=37, n=33)
+    mask = make_mask(s0.shape[1], seed=1, device=dev)
+    model_id, params, out_bf16 = scan_ops._op_args(model, out_dtype)
+    states, fin = torch.ops.repro_torch.dfr_scan(j, mask, s0, model_id, params, out_bf16)
+    want_states, want_fin = scan_ops.dfr_scan_plain(model, j, mask, s0, out_dtype=out_dtype)
+    assert torch.equal(states, want_states) and torch.equal(fin, want_fin)
+    st32, _ = torch.ops.repro_torch.dfr_scan(j, mask, s0, model_id, params, False)
+    g_states = torch.randn_like(st32)
+    g_fin = torch.randn_like(s0)
+    dj, ds0 = torch.ops.repro_torch.dfr_scan_grad(j, mask, s0, st32, g_states, g_fin,
+                                                  *scan_ops.grad_constants(model))
+    want_dj, want_ds0 = scan_ops.dfr_scan_grad_plain(model, j, mask, s0, st32, g_states, g_fin)
+    assert torch.equal(dj, want_dj) and torch.equal(ds0, want_ds0)
+    torch.library.opcheck(torch.ops.repro_torch.dfr_scan.default,
+                          (j, mask, s0, model_id, params, out_bf16),
+                          test_utils=("test_schema", "test_faketensor"))
+    torch.library.opcheck(torch.ops.repro_torch.dfr_scan_grad.default,
+                          (j, mask, s0, st32, g_states, g_fin,
+                           *scan_ops.grad_constants(model)),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+def _card_sharded_rank(rank):
+    """Three steps of reservoir_lm's smoke config on a (1, 2) mesh over two
+    gloo ranks on the one card, each rank also running the unsharded step in
+    its own process: (params, moments and metrics bitwise, K1/K1ᵀ
+    (launches, calls))."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime import steps
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(smoke_config("reservoir_lm"), microbatches=2)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    mesh = make_mesh((1, 2), ("data", "model"), device_type="cuda")
+    plain = steps.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    full = steps.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = sharding.tree_shard(full, steps.state_pspecs(cfg, mesh), mesh)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    same = True
+    for _ in range(3):
+        toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen, device=dev,
+                             dtype=torch.int32)
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+        scan_ops.dfr_scan.launches = scan_ops.dfr_scan.calls = 0
+        with sharding.use_mesh(mesh):
+            state, m = steps.train_step(cfg, opt, state, batch)
+        counts = (scan_ops.dfr_scan.launches, scan_ops.dfr_scan.calls)
+        plain, pm = steps.train_step(cfg, opt, plain, batch)
+        same &= all(torch.equal(m[k], pm[k]) for k in m)
+    specs = steps.state_pspecs(cfg, mesh)
+    got = sharding.tree_gather(state, specs, mesh)
+    for a, b in zip(tree_leaves(got), tree_leaves(plain), strict=True):
+        same &= torch.equal(a, b)
+    return same, counts
+
+
+def test_sharded_step_on_1x2_is_bitwise_the_unsharded_step_on_the_card(dev, tmp_path):
+    from repro_torch.launch.mesh import run_ranks
+
+    for same, (launches, calls) in run_ranks(_card_sharded_rank, 2, store_dir=str(tmp_path),
+                                             timeout=300, threads=None):
+        assert same
+        assert launches == calls > 0

@@ -161,10 +161,17 @@ def test_quantize_all_zero_block_and_error_state():
 
 
 def test_compressed_psum_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="13d"):
+    """It reduces over an axis of the active mesh, and raises without one or
+    on a mesh without that axis (its run over four ranks against the
+    reference: tests/test_torch_parallel.py)."""
+    from repro_torch.parallel import sharding
+
+    with pytest.raises(ValueError, match="activate a mesh"):
         compression.compressed_psum(torch.zeros(3), torch.zeros(3), "pod")
-    with pytest.raises(NotImplementedError, match="13d"):
-        compression.tree_compressed_psum({"a": torch.zeros(3)}, {"a": torch.zeros(3)}, "pod")
+    with sharding.use_mesh(sharding.AbstractMesh((2, 2), ("data", "model"))):
+        with pytest.raises(ValueError, match="'pod'"):
+            compression.tree_compressed_psum({"a": torch.zeros(3)}, {"a": torch.zeros(3)},
+                                             "pod")
 
 
 def test_apply_updates_rejects_mismatched_trees():

@@ -117,7 +117,10 @@ def test_launcher_reduced_config_is_the_references():
 
 
 def test_launcher_refuses_the_production_mesh_and_a_missing_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="13d"):
+    """``--production-mesh`` needs 256 ranks: on one process it raises
+    before it starts a process group (tests/test_torch_parallel.py runs it
+    on two ranks)."""
+    with pytest.raises(ValueError, match="needs 256 ranks; WORLD_SIZE is 1"):
         train.main(TINY + ["--production-mesh", "--checkpoint-dir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
