@@ -202,6 +202,20 @@ Then the distribution code (``repro_torch.parallel``, ``launch.mesh``):
    sharded step through NCCL at world 1, bitwise the unsharded step, and
    NARMA10 (N = 900, B = 64) through ``Experiment`` over the two ranks'
    (2, 1) mesh, NRMSE per instance within 1e-4 of one process.
+25. ``parallel_serving`` — sharded serving (``runtime.steps.serve_prefill``
+   / ``serve_decode`` under a mesh: each rank its param blocks, its rows,
+   its cache blocks, tensor-parallel over "model") on two gloo ranks of the
+   one card: reservoir_lm at full width and depth in f32 on (1, 2) and on
+   (2, 1), and on (2, 1) at batch 1 (the long-context layout), granite-8b
+   at full width cut to PSERVE_GRANITE_LAYERS layers in f32 on (1, 2);
+   each a prefill of PSERVE_BATCH then PSERVE_DECODES decode steps fed the
+   unsharded run's greedy ids.  Each rank's logits within twice one
+   process's own row-split spread (``row_split_spread``, floored at
+   PSERVE_TOL_FLOOR) of the unsharded port's; every rank's greedy ids
+   identical (``launch.serve.gathered_ids``); K1 launches == calls ==
+   12 a step on each rank.  Each rank's prefill ms, decode ms p50 and the
+   wire bytes of a decode step by collective kind.  Then the same through
+   NCCL at world 1 on the (1, 1) mesh, bitwise the unsharded serve.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -954,6 +968,20 @@ PAR_SPREAD_FACTOR = 2.0
 PAR_NRMSE_TOL = 1e-4
 PAR_DIR = ROOT / "build" / "parallel"
 PAR_TIMEOUT_S = 300
+
+
+# the parallel serving phase (phase_parallel_serving): f32 throughout, so a
+# rank's gap to one process is f32 summation order alone (tensor-parallel
+# partial sums, another GEMM shape); it is held to twice one process's own
+# row-split spread, floored at the CPU tests' logit tolerance, since a
+# row-split spread of f32 GEMMs may well be 0 on the card.
+PSERVE_BATCH = (8, 512)
+PSERVE_DECODES = 16
+PSERVE_GRANITE_LAYERS = 4
+PSERVE_SEED = 0
+PSERVE_TOL_FLOOR = 1e-5
+PSERVE_DIR = ROOT / "build" / "parallel_serving"
+PSERVE_TIMEOUT_S = 300
 
 
 _T_START = time.perf_counter()
@@ -4290,6 +4318,242 @@ def phase_parallel(dev, narma, card: str) -> None:
     emit({"phase": "parallel", "card": card, **out, "seconds": time.perf_counter() - t0})
 
 
+def pserve_configs() -> dict:
+    """The parallel serving phase's configs: reservoir_lm at full width and
+    depth, granite-8b at full width cut to PSERVE_GRANITE_LAYERS layers,
+    both f32."""
+    from repro_torch.configs import get_config
+
+    granite = get_config("granite-8b")
+    return {"reservoir_lm": dataclasses.replace(get_config("reservoir_lm"), dtype="float32"),
+            "granite-8b": dataclasses.replace(granite, dtype="float32",
+                                              n_layers=PSERVE_GRANITE_LAYERS)}
+
+
+def pserve_cases() -> tuple:
+    """(name, arch, mesh shape, batch) of the phase's sharded runs."""
+    b = PSERVE_BATCH[0]
+    return (("reservoir_lm_1x2", "reservoir_lm", (1, 2), b),
+            ("reservoir_lm_2x1", "reservoir_lm", (2, 1), b),
+            ("reservoir_lm_2x1_batch1", "reservoir_lm", (2, 1), 1),
+            ("granite-8b_1x2", "granite-8b", (1, 2), b))
+
+
+def pserve_params(cfg, dev):
+    """The phase's params of ``cfg``, drawn on ``dev`` from PSERVE_SEED."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(PSERVE_SEED), device=dev)
+
+
+def pserve_run(cfg, params, prompts, dev, decodes: int, *, feed=None, batch=None) -> dict:
+    """Serve ``prompts`` (under the active mesh, if any: this rank's blocks
+    and rows of a batch of ``batch``): a prefill, then ``decodes`` decode
+    steps fed the columns of ``feed`` (None: greedy).  Returns the logits
+    of each step (host), the greedy ids [B, 1 + decodes],
+    prefill ms, each decode step's ms, K1's (launches, calls) of each step,
+    and the collectives of the last decode step."""
+    import torch
+
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.steps import serve_decode, serve_prefill
+
+    max_len = prompts.shape[1] + decodes
+    out = {"logits": [], "decode_ms": [], "k1": []}
+    ids = []
+    with torch.no_grad():
+        reset_counts()
+        par_sync(dev)
+        t0 = time.perf_counter()
+        logit, cache = serve_prefill(cfg, params, prompts, max_len=max_len, batch=batch)
+        par_sync(dev)
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["k1"].append((scan_ops.dfr_scan.launches, scan_ops.dfr_scan.calls))
+        for i in range(decodes + 1):
+            out["logits"].append(logit.cpu())
+            ids.append(torch.argmax(logit, dim=-1)[:, None])
+            if i == decodes:
+                break
+            tok = ids[-1] if feed is None else feed[:, i:i + 1]
+            reset_counts()
+            par_sync(dev)
+            t0 = time.perf_counter()
+            with sharding.record_collectives() as events:
+                logit, cache = serve_decode(cfg, params, cache, tok)
+            par_sync(dev)
+            out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["k1"].append((scan_ops.dfr_scan.launches, scan_ops.dfr_scan.calls))
+    out["ids"] = torch.cat(ids, dim=1)
+    out["events"] = [dict(e) for e in events]
+    return out
+
+
+def pserve_rank(rank: int, dev_type: str, cfgs: dict, cases: tuple, prompts: dict,
+                feeds: dict, decodes: int) -> dict:
+    """One rank of the parallel serving phase's two (gloo, the one card):
+    each case (``pserve_cases``) from the seeded params of its config in
+    ``cfgs``, cut by ``param_pspecs``, its rows of the prompts and of the
+    feed; a short warm serve first.  Every rank's greedy ids gathered and
+    checked identical."""
+    import torch
+
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import gathered_ids
+    from repro_torch.parallel import sharding
+
+    dev = par_device(dev_type)
+    out = {}
+    for name, arch, shape, batch in cases:
+        cfg = cfgs[arch]
+        mesh = make_mesh(shape, ("data", "model"), device_type=dev.type)
+        params = sharding.tree_shard(pserve_params(cfg, dev), sharding.param_pspecs(cfg, mesh),
+                                     mesh)
+        rows = sharding.serve_rows(torch.as_tensor(prompts[arch][:batch], device=dev), mesh)
+        feed = sharding.serve_rows(torch.as_tensor(feeds[(arch, batch)], device=dev), mesh)
+        with sharding.use_mesh(mesh):
+            pserve_run(cfg, params, rows[:, :16], dev, 2, feed=feed, batch=batch)  # warm
+            run = pserve_run(cfg, params, rows, dev, decodes, feed=feed, batch=batch)
+        run["ids"] = gathered_ids(run["ids"], batch, mesh)
+        run["decode_collective_bytes"] = collective_bytes(run["events"])
+        run["decode_collectives"] = len(run.pop("events"))
+        out[name] = run
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def pserve_nccl_rank(rank: int, dev_type: str, cfg, prompts, feed, decodes: int) -> dict:
+    """``cfg`` served through NCCL at world 1 on the (1, 1) mesh, after a
+    short warm serve."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import gathered_ids
+    from repro_torch.parallel import sharding
+
+    dev = par_device(dev_type)
+    mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+    params = sharding.tree_shard(pserve_params(cfg, dev), sharding.param_pspecs(cfg, mesh),
+                                 mesh)
+    prompts, feed = torch.as_tensor(prompts, device=dev), torch.as_tensor(feed, device=dev)
+    with sharding.use_mesh(mesh):
+        pserve_run(cfg, params, prompts[:, :16], dev, 2, feed=feed, batch=prompts.shape[0])
+        run = pserve_run(cfg, params, prompts, dev, decodes, feed=feed, batch=prompts.shape[0])
+    run["ids"] = gathered_ids(run["ids"], prompts.shape[0], mesh)
+    run["backend"] = torch.distributed.get_backend()
+    run.pop("events")
+    return run
+
+
+def phase_parallel_serving(dev, card: str) -> None:
+    """Sharded serving on the card (see the module doc, phase 25)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfgs, cases = pserve_configs(), pserve_cases()
+    res, granite = cfgs["reservoir_lm"], cfgs["granite-8b"]
+    check(res.n_layers == 12 and res.d_model == 768 and res.reservoir_nodes == 256 and
+          res.vocab_size == 32000 and granite.d_model == 4096 and granite.n_heads == 32 and
+          granite.n_kv_heads == 8 and granite.d_ff == 14336 and granite.vocab_size == 49152,
+          f"the parallel serving phase's configs: {cfgs}")
+    shutil.rmtree(PSERVE_DIR, ignore_errors=True)
+    PSERVE_DIR.mkdir(parents=True, exist_ok=True)
+
+    # one process: each arch's greedy serve (its ids feed the ranks) and its
+    # own row-split spread
+    prompts, feeds, ref, tol = {}, {}, {}, {}
+    for arch, cfg in cfgs.items():
+        prompts[arch] = lm_tokens(cfg, PSERVE_BATCH, PSERVE_SEED)
+        params = pserve_params(cfg, dev)
+        toks = torch.as_tensor(prompts[arch], device=dev)
+        with torch.no_grad():
+            spread = row_split_spread(cfg, params, toks)
+        tol[arch] = {"row_split_spread": spread, "tol": max(2 * spread, PSERVE_TOL_FLOOR)}
+        for batch in sorted({b for _, a, _, b in cases if a == arch}):
+            pserve_run(cfg, params, toks[:batch, :16], dev, 2)                    # warm
+            run = pserve_run(cfg, params, toks[:batch], dev, PSERVE_DECODES)
+            feeds[(arch, batch)] = run["ids"][:, :PSERVE_DECODES].cpu().numpy()
+            ref[(arch, batch)] = run
+        del params
+        torch.cuda.empty_cache()
+    per_step = res.n_layers
+    for batch in {b for _, a, _, b in cases if a == "reservoir_lm"}:
+        k1 = ref[("reservoir_lm", batch)]["k1"]
+        check(all(tuple(c) == (per_step, per_step) for c in k1),
+              f"parallel serving: the unsharded serve's K1 (launches, calls) {k1}")
+
+    ranks, ranks_s = wall(lambda: run_ranks(pserve_rank, 2, store_dir=str(PSERVE_DIR),
+                                            args=(dev.type, cfgs, cases, prompts, feeds,
+                                                  PSERVE_DECODES),
+                                            timeout=PSERVE_TIMEOUT_S, threads=None))
+    out = {"configs": {arch: {"layers": c.n_layers, "d_model": c.d_model,
+                              "vocab": c.vocab_size, "dtype": c.dtype}
+                       for arch, c in cfgs.items()},
+           "batch": list(PSERVE_BATCH), "decode_steps": PSERVE_DECODES, "backend": "gloo",
+           "ranks": 2, "tol": tol, "ranks_s": ranks_s, "unsharded": {}}
+    for (arch, batch), run in ref.items():
+        out["unsharded"][f"{arch}_batch{batch}"] = {
+            "prefill_ms": run["prefill_ms"],
+            "decode_ms_p50": float(np.percentile(run["decode_ms"], 50))}
+    for name, arch, shape, batch in cases:
+        want = ref[(arch, batch)]
+        rec = {"mesh": list(shape), "batch": batch, "by_rank": []}
+        ids0 = torch.as_tensor(ranks[0][name]["ids"])
+        for rank, r in enumerate(ranks):
+            run = r[name]
+            d = rank // shape[1]
+            rows = slice(0, batch) if batch % shape[0] else \
+                slice(d * batch // shape[0], (d + 1) * batch // shape[0])
+            gap = max(float((torch.as_tensor(g) - w[rows]).abs().max())
+                      for g, w in zip(run["logits"], want["logits"], strict=True))
+            check(gap <= tol[arch]["tol"], f"parallel serving {name} rank {rank}: logits "
+                                           f"{gap} off one process's, tolerance {tol[arch]}")
+            check(torch.equal(torch.as_tensor(run["ids"]), ids0),
+                  f"parallel serving {name}: the ranks' greedy ids differ")
+            if arch == "reservoir_lm":
+                check(all(tuple(c) == (per_step, per_step) for c in run["k1"]),
+                      f"parallel serving {name} rank {rank}: K1 (launches, calls) "
+                      f"{run['k1']}, want {per_step} each a step")
+            rec["by_rank"].append({
+                "max_logit_gap": gap, "prefill_ms": run["prefill_ms"],
+                "decode_ms_p50": float(np.percentile(run["decode_ms"], 50)),
+                "k1_launches_calls_per_step": list(run["k1"][-1]),
+                "decode_collective_bytes": run["decode_collective_bytes"],
+                "decode_collectives": run["decode_collectives"]})
+        rec["ids_share_equal_unsharded"] = float((ids0 == want["ids"].cpu()).float().mean())
+        out[name] = rec
+    # NCCL at world 1
+    one = ref[("reservoir_lm", PSERVE_BATCH[0])]
+    (nccl,) = run_ranks(pserve_nccl_rank, 1, store_dir=str(PSERVE_DIR), backend="nccl",
+                        args=(dev.type, res, prompts["reservoir_lm"],
+                              feeds[("reservoir_lm", PSERVE_BATCH[0])], PSERVE_DECODES),
+                        timeout=PSERVE_TIMEOUT_S, threads=None)
+    same = all(torch.equal(torch.as_tensor(g), w)
+               for g, w in zip(nccl["logits"], one["logits"], strict=True))
+    check(nccl["backend"] == "nccl" and same and
+          torch.equal(torch.as_tensor(nccl["ids"]), one["ids"].cpu()),
+          f"parallel serving: NCCL at world 1 is not bitwise the unsharded serve "
+          f"({nccl['backend']}, logits {same})")
+    check(all(tuple(c) == (per_step, per_step) for c in nccl["k1"]),
+          f"parallel serving NCCL: K1 (launches, calls) {nccl['k1']}")
+    out["nccl_world1"] = {"logits_bitwise": same, "ids_bitwise": True,
+                          "prefill_ms": nccl["prefill_ms"],
+                          "decode_ms_p50": float(np.percentile(nccl["decode_ms"], 50))}
+    shutil.rmtree(PSERVE_DIR, ignore_errors=True)
+    emit({"phase": "parallel_serving", "card": card, **out,
+          "seconds": time.perf_counter() - t0})
+
+
 def phase_kernels_line(dev, narma, paths: dict) -> None:
     """Each kernel at the shapes of the path it rides, with that path's
     launch count: K1 at one streamed chunk (broadcast mask, N = 900) and in
@@ -4889,6 +5153,7 @@ def main() -> int:
     lm = phase_lm_serving(dev, card)
     lm_training = phase_lm_training(dev, card)
     phase_parallel(dev, narma, card)
+    phase_parallel_serving(dev, card)
     phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm,
                                     "serving": serving, "cmt": cmt,
                                     "accelerator": accelerator, "figures": figures,

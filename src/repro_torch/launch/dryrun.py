@@ -26,10 +26,11 @@ devices.  For each cell it
 ``temp_bytes`` (XLA's scratch) has no counterpart without a compiler and
 is written as null.  The scan kernels K1 and K1ᵀ run on ``meta`` through
 their operators' fake shape functions (``kernels/dfr_scan/ops.py``).
-Serving (prefill, decode) is not sharded in the port yet (ROADMAP.md
-Queue 1 item 13e): its dry run gathers the params, takes the rank's rows
-of the batch where the batch axes divide it, and runs the unsharded
-serving step on them.
+The serving cells (prefill, decode) run the sharded serving steps: the
+rank's param blocks under ``param_pspecs``, its rows of the batch where
+the batch axes divide it (else every row: long_500k), and for decode its
+cache blocks under ``cache_pspecs``; a prefill allocates its cache blocks
+itself.  ``collective_axes`` counts the collectives by kind and mesh axis.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k --mesh pod
@@ -129,14 +130,6 @@ def _meta_state(cfg) -> dict:
             "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
-def _cut_cache(cache, spec, mesh):
-    """The cache's units' batch dim (dim 1) cut by ``spec``'s batch entry."""
-    unit_spec = sharding.P(None, spec[0])
-    return {"pos": cache["pos"],
-            "units": tuple(tuple(sharding.shard(leaf, unit_spec, mesh) for leaf in entry)
-                           for entry in cache["units"])}
-
-
 def build_step(cfg, shape: str, mesh, specs=None):
     """Returns (step fn, args) for one rank of ``mesh``: ``fn(*args)`` runs
     the cell's step under the mesh.  ``specs`` overrides the shape's input
@@ -155,29 +148,29 @@ def build_step(cfg, shape: str, mesh, specs=None):
 
         return step, (state, specs)
 
-    pspecs = sharding.param_pspecs(cfg, mesh)
-    params = sharding.tree_shard(meta_params(cfg), pspecs, mesh)
-
-    # serving takes this rank's rows, where the batch axes divide the batch
-    spec = sharding.fit_spec(mesh, specs["tokens"].shape, ("pod", "data"))
-    tokens = sharding.shard(specs["tokens"], spec, mesh)
+    params = sharding.tree_shard(meta_params(cfg), sharding.param_pspecs(cfg, mesh), mesh)
+    batch = specs["tokens"].shape[0]
+    tokens = sharding.serve_rows(specs["tokens"], mesh)
 
     if kind == "prefill":
         def step(params, tokens, context=None):
             with sharding.use_mesh(mesh), torch.no_grad():
-                full = sharding.tree_gather(params, pspecs, mesh)
-                return serve_prefill(cfg, full, tokens, context)
+                return serve_prefill(cfg, params, tokens, context, batch=batch)
 
         return step, (params, tokens) + (
-            (sharding.shard(specs["context"], spec, mesh),) if "context" in specs else ())
+            (sharding.serve_rows(specs["context"], mesh),) if "context" in specs else ())
 
     if kind == "decode":
+        full = specs["cache"]
+        cache_specs = sharding.cache_pspecs(cfg, mesh, full)
+        cache = {"pos": full["pos"], "specs": cache_specs,
+                 "units": sharding.tree_shard(full["units"], cache_specs["units"], mesh)}
+
         def step(params, cache, tokens):
             with sharding.use_mesh(mesh), torch.no_grad():
-                full = sharding.tree_gather(params, pspecs, mesh)
-                return serve_decode(cfg, full, cache, tokens)
+                return serve_decode(cfg, params, cache, tokens)
 
-        return step, (params, _cut_cache(specs["cache"], spec, mesh), tokens)
+        return step, (params, cache, tokens)
 
     raise ValueError(kind)
 
@@ -208,11 +201,15 @@ def measure(cfg, shape: str, mesh_name: str, specs=None) -> dict:
         with sharding.record_collectives() as events, FlopCounterMode(display=False) as fc:
             out = fn(*args)
         seconds = time.perf_counter() - t0
+        axes: dict[str, dict[str, int]] = {}
+        for ev in events:
+            by_axis = axes.setdefault(ev["kind"], {})
+            by_axis[str(ev["axis"])] = by_axis.get(str(ev["axis"]), 0) + 1
         return {"n_devices": int(mesh.size()), "flops": float(fc.get_total_flops()),
                 "memory": {"argument_bytes": tree_bytes(args), "output_bytes": tree_bytes(out),
                            "temp_bytes": None},
-                "collectives": collective_bytes(events), "events": len(events),
-                "seconds": seconds}
+                "collectives": collective_bytes(events), "collective_axes": axes,
+                "events": len(events), "seconds": seconds}
 
 
 def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
@@ -227,6 +224,7 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, force: bool = False,
     m = measure(cfg, shape, mesh_name)
     rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "n_devices": m["n_devices"],
            "flops": m["flops"], "memory": m["memory"], "collectives": m["collectives"],
+           "collective_axes": m["collective_axes"],
            "model_params": cfg.param_count(), "active_params": cfg.active_param_count(),
            "seconds": {"run": round(m["seconds"], 2)}}
     out_path.write_text(json.dumps(rec, indent=1))

@@ -60,6 +60,44 @@ def make_debug_mesh(n_devices: int | None = None, *, device_type: str = "cuda"):
     return make_mesh((1, n), ("data", "model"), device_type=device_type)
 
 
+def rank_device(dev: torch.device) -> torch.device:
+    """This rank's card (``LOCAL_RANK`` over the cards), or ``dev``."""
+    if dev.type != "cuda":
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def launch_mesh(dev: torch.device, *, backend: str | None = None,
+                production: bool = False):
+    """A launcher's mesh: (mesh or None, this rank's device, whether the
+    caller owns the process group and must destroy it).
+
+    One process (``WORLD_SIZE`` 1, no group) runs without a mesh.  On
+    several ranks (an initialised group, or ``torchrun``'s environment:
+    ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/
+    ``MASTER_PORT``) the group is initialised if it is not (``backend``:
+    NCCL for ranks on cards, gloo on the CPU), and the mesh is the debug
+    mesh, or with ``production`` the 16 × 16 pod mesh, which needs exactly
+    256 ranks."""
+    world = dist.get_world_size() if dist.is_initialized() else \
+        int(os.environ.get("WORLD_SIZE", "1"))
+    if production and world != 256:
+        raise ValueError(f"the production mesh is 16 x 16 and needs 256 ranks; WORLD_SIZE "
+                         f"is {world}")
+    if world == 1 and not production:
+        return None, dev, False
+    dev = rank_device(dev)
+    own_group = not dist.is_initialized()
+    if own_group:
+        dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
+                                rank=int(os.environ.get("RANK", "0")), world_size=world,
+                                device_id=dev if dev.type == "cuda" else None)
+    mesh = (make_production_mesh(device_type=dev.type) if production
+            else make_debug_mesh(device_type=dev.type))
+    return mesh, dev, own_group
+
+
 # --------------------------------------------------------------------------
 # Local multi-rank runs
 # --------------------------------------------------------------------------
@@ -141,4 +179,5 @@ def run_ranks(fn, world_size: int, *, store_dir: str, backend: str = "gloo", arg
     return [got[r] for r in range(world_size)]
 
 
-__all__ = ["make_debug_mesh", "make_mesh", "make_production_mesh", "run_ranks"]
+__all__ = ["launch_mesh", "make_debug_mesh", "make_mesh", "make_production_mesh",
+           "rank_device", "run_ranks"]

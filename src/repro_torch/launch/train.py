@@ -32,7 +32,6 @@ import argparse
 import contextlib
 import dataclasses
 import logging
-import os
 
 import torch
 import torch.distributed as dist
@@ -44,7 +43,7 @@ from ..optim import AdamWConfig
 from ..parallel import sharding
 from ..runtime.steps import init_train_state, state_pspecs, train_step
 from ..runtime.trainer import TrainLoopConfig, run_training
-from .mesh import make_debug_mesh, make_production_mesh
+from .mesh import launch_mesh
 
 
 def reduced_config(cfg, args):
@@ -84,14 +83,6 @@ def batch_to_device(batch: dict, dev: torch.device) -> dict:
     return out
 
 
-def _rank_device(dev: torch.device) -> torch.device:
-    """This rank's card (``LOCAL_RANK`` over the cards), or ``dev``."""
-    if dev.type != "cuda":
-        return dev
-    local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
-    return torch.device("cuda", local % torch.cuda.device_count())
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="reservoir_lm")
@@ -128,24 +119,9 @@ def main(argv=None):
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch, seed=args.seed)
 
-    world = dist.get_world_size() if dist.is_initialized() else \
-        int(os.environ.get("WORLD_SIZE", "1"))
-    if args.production_mesh and world != 256:
-        raise ValueError(f"--production-mesh trains on the 16 x 16 mesh and needs 256 ranks; "
-                         f"WORLD_SIZE is {world}")
-    mesh = None
-    own_group = False
-    rank = 0
-    if world > 1 or args.production_mesh:
-        dev = _rank_device(dev)
-        if not dist.is_initialized():
-            dist.init_process_group(args.backend or ("nccl" if dev.type == "cuda" else "gloo"),
-                                    rank=int(os.environ.get("RANK", "0")), world_size=world,
-                                    device_id=dev if dev.type == "cuda" else None)
-            own_group = True
-        mesh = (make_production_mesh(device_type=dev.type) if args.production_mesh
-                else make_debug_mesh(device_type=dev.type))
-        rank = dist.get_rank()
+    mesh, dev, own_group = launch_mesh(dev, backend=args.backend,
+                                       production=args.production_mesh)
+    rank = 0 if mesh is None else dist.get_rank()
     try:
         history, flagged = _train(cfg, opt_cfg, data_cfg, args, dev, mesh)
     finally:

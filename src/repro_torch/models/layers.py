@@ -18,11 +18,23 @@ TPU kernel there).  Two differences of the framework, kept small:
 
 Cross-attention (the VLM and encoder-decoder families) attends to a
 context's k, v computed once (``context_kv``) through a tanh-gated residual.
+
+Under a serving plan (``plan``: ``parallel.sharding.ServePlan``) the blocks
+run tensor-parallel over "model" on the leaves as the plan hands them over,
+and tell a block of this rank from a whole leaf by its shape: q heads and
+kv heads column-parallel, the out projection row-parallel and its partial
+sums all-reduced; the dense MLP likewise; the embedding vocab-parallel (a
+rank looks up the tokens of its rows, zeros elsewhere, and the all-reduce
+adds one non-zero a token: exact) and the logits' vocab columns all-gathered.
+A KV cache cut along its sequence (``seq``: ``SeqSlice``) is attended in
+pieces, each rank's partial softmax over its slice combined over the
+slice's axes.  Without a plan every function is as before.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -214,12 +226,8 @@ def _sdpa_chunked(cfg, q, k, v, *, causal: bool, q_offset: int = 0, chunk: int =
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
-def apply_attn(cfg, p, x, *, positions, cache=None, causal=True):
-    """Self-attention.  With ``cache=(k_buf, v_buf, index)`` (``index`` a
-    host int) writes k, v into the buffers in place at ``index`` and
-    attends over the whole buffer.  Returns (out, new_cache); raises if the
-    write would run past the buffer.
-    """
+def _qkv(cfg, p, x, positions):
+    """q, k, v [B, S, heads, hd] of x, qk-normed and rotated."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
@@ -228,35 +236,73 @@ def apply_attn(cfg, p, x, *, positions, cache=None, causal=True):
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _check_room(idx: int, s: int, length: int) -> None:
+    if idx + s > length:
+        raise ValueError(f"KV cache of {length} positions cannot take {s} more "
+                         f"at position {idx} (the reference clamps the write; the port "
+                         "raises)")
+
+
+def apply_attn(cfg, p, x, *, positions, cache=None, causal=True, plan=None, seq=None):
+    """Self-attention.  With ``cache=(k_buf, v_buf, index)`` (``index`` a
+    host int) writes k, v into the buffers in place at ``index`` and
+    attends over the whole buffer.  Returns (out, new_cache); raises if the
+    write would run past the buffer.
+
+    Under a serving plan (module doc) the buffers are this rank's cache
+    block and ``seq`` the slice of the sequence they hold (None: all of
+    it).  A sequence-cut cache takes each new position on the rank whose
+    slice holds it; a prefill (from position 0) attends over the k, v it
+    just computed, a later step over every rank's slice (``_sdpa_sliced``).
+    """
+    dt = x.dtype
+    q, k, v = _qkv(cfg, p, x, positions)
 
     new_cache = None
-    if cache is not None:
+    if cache is None:
+        out = _sdpa_heads(cfg, plan, q, k, v, causal=causal)
+    elif seq is None or not seq.axes:
         k_buf, v_buf, idx = cache
         s = x.shape[1]
-        if idx + s > k_buf.shape[1]:
-            raise ValueError(f"KV cache of {k_buf.shape[1]} positions cannot take {s} more "
-                             f"at position {idx} (the reference clamps the write; the port "
-                             "raises)")
+        _check_room(idx, s, k_buf.shape[1])
         k_buf[:, idx:idx + s] = k.to(k_buf.dtype)
         v_buf[:, idx:idx + s] = v.to(v_buf.dtype)
         new_cache = (k_buf, v_buf, idx + s)
-        out = _sdpa(cfg, q, k_buf.to(dt), v_buf.to(dt), causal=causal, q_offset=idx)
+        out = _sdpa_heads(cfg, plan, q, k_buf.to(dt), v_buf.to(dt), causal=causal,
+                          q_offset=idx)
     else:
-        out = _sdpa(cfg, q, k, v, causal=causal)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
-    return y, new_cache
+        k_buf, v_buf, idx = cache
+        s, span = x.shape[1], k_buf.shape[1]
+        _check_room(idx, s, span * math.prod(plan.sizes[a] for a in seq.axes))
+        lo, hi = max(idx, seq.offset), min(idx + s, seq.offset + span)
+        if lo < hi:
+            k_buf[:, lo - seq.offset:hi - seq.offset] = k[:, lo - idx:hi - idx].to(k_buf.dtype)
+            v_buf[:, lo - seq.offset:hi - seq.offset] = v[:, lo - idx:hi - idx].to(v_buf.dtype)
+        new_cache = (k_buf, v_buf, idx + s)
+        if idx == 0:
+            out = _sdpa_heads(cfg, plan, q, k, v, causal=causal)
+        else:
+            out = _sdpa_sliced(cfg, plan, q, k_buf.to(dt), v_buf.to(dt), seq, causal=causal,
+                               q_offset=idx)
+    return _out_proj(cfg, p, out, plan), new_cache
 
 
-def apply_cross_attn(cfg, p, x, *, context_kv):
+def apply_cross_attn(cfg, p, x, *, context_kv, plan=None, seq=None):
     """Cross-attention to a precomputed (k, v) of the context (image patches /
-    encoder frames).  Tanh-gated residual contribution."""
+    encoder frames).  Tanh-gated residual contribution.  Under a serving
+    plan ``context_kv`` is this rank's cache block (its slice ``seq`` of
+    the context positions) or, at prefill, the whole context's k, v."""
     dt = x.dtype
     k, v = context_kv
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    out = _sdpa(cfg, q, k.to(dt), v.to(dt), causal=False)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    if seq is not None and seq.axes:
+        out = _sdpa_sliced(cfg, plan, q, k.to(dt), v.to(dt), seq, causal=False)
+    else:
+        out = _sdpa_heads(cfg, plan, q, k.to(dt), v.to(dt), causal=False)
+    y = _out_proj(cfg, p, out, plan)
     return torch.tanh(p["gate"].to(torch.float32)).to(dt) * y
 
 
@@ -267,6 +313,83 @@ def context_kv(cfg, p, context):
     k = torch.einsum("btd,dhk->bthk", context, p["wk"].to(dt))
     v = torch.einsum("btd,dhk->bthk", context, p["wv"].to(dt))
     return k, v
+
+
+# --------------------------------------------------------------------------
+# Attention on this rank's heads and cache block (serving plan)
+# --------------------------------------------------------------------------
+
+
+class SeqSlice(NamedTuple):
+    """The slice of a KV cache's sequence a rank holds: the mesh axes the
+    sequence is cut over (row-major) and the absolute position of the
+    slice's first slot."""
+
+    axes: tuple
+    offset: int
+
+
+def _out_proj(cfg, p, out, plan):
+    """out [B, S, heads, hd] @ wo; a block of the heads' rows is summed over
+    "model"."""
+    wo = p["wo"]
+    y = torch.einsum("bshk,hkd->bsd", out, wo.to(out.dtype))
+    if plan is not None and wo.shape[0] < cfg.n_heads:
+        plan.sum_model(y)
+    return y
+
+
+def _sdpa_heads(cfg, plan, q, k, v, *, causal: bool, q_offset: int = 0):
+    """``_sdpa`` for this rank's q heads: where k, v hold every kv head and
+    q a block of the heads, the kv heads that block's heads group over."""
+    hq, kvh = q.shape[2], k.shape[2]
+    if hq < cfg.n_heads and kvh == cfg.n_kv_heads:
+        g = cfg.n_heads // cfg.n_kv_heads
+        if hq % g and g % hq:
+            raise NotImplementedError(f"{hq} q heads a rank do not group over whole kv heads "
+                                      f"({cfg.n_heads} heads, {cfg.n_kv_heads} kv heads)")
+        q0 = plan.tp_rank * hq
+        lo, hi = q0 // g, (q0 + hq - 1) // g + 1
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    return _sdpa(cfg, q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _sdpa_sliced(cfg, plan, q, k, v, seq: SeqSlice, *, causal: bool, q_offset: int = 0):
+    """Attention of q over the keys of every rank's slice of a sequence-cut
+    cache, k, v [B, L_local, KV, hd] this rank's slice.  Where the slices
+    are cut over "model" and q holds a block of the heads, the heads are
+    all-gathered first (every rank's slice needs every head) and each rank
+    keeps its own after the combine.  Each rank takes the max, the sum of
+    exponentials and the weighted v of its slice (a slice wholly past the
+    query weighs zero, not NaN); the max is all-reduced over the slice's
+    axes, each piece rescaled to it, and the sums all-reduced."""
+    b, sq, hq, dh = q.shape
+    gathered = "model" in seq.axes and hq < cfg.n_heads
+    if gathered:
+        q = plan.gather_model(q, dim=2)
+    h, kvh = q.shape[2], k.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(b, sq, kvh, h // kvh, dh)
+    logits = _chunk_logits(cfg, qg, k, dh)                       # [b,kv,g,sq,L]
+    if causal:
+        mask = (_positions(sq, q_offset, q.device)[:, None]
+                >= _positions(k.shape[1], seq.offset, q.device)[None, :])
+        logits = torch.where(mask[None, None, None], logits, -math.inf)
+    mx = torch.amax(logits, dim=-1)
+    safe_mx = torch.where(torch.isneginf(mx), 0.0, mx)
+    p = torch.exp(logits - safe_mx[..., None])
+    den = torch.sum(p, dim=-1)
+    acc = torch.einsum("bkgst,btkd->bkgsd", p.to(v.dtype), v).to(f32)
+    top = plan.reduce(mx.clone(), seq.axes, op="max")
+    scale = torch.where(torch.isneginf(mx), 0.0, torch.exp(mx - top))
+    both = torch.cat([(acc * scale[..., None]).flatten(), (den * scale).flatten()])
+    plan.reduce(both, seq.axes)
+    acc, den = both[:acc.numel()].view_as(acc), both[acc.numel():].view_as(den)
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    out = torch.movedim(out, 3, 1).reshape(b, sq, h, dh).to(q.dtype)
+    if gathered:
+        out = out[:, :, plan.tp_rank * hq:(plan.tp_rank + 1) * hq]
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -288,12 +411,17 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(cfg, p, x):
+def apply_mlp(cfg, p, x, *, plan=None):
+    """The gated MLP; under a serving plan a block of its columns
+    (``wi_*``) and rows (``wo``), the partial sums added over "model"."""
     dt = x.dtype
     act = F.silu if cfg.mlp_act == "silu" else _gelu
     g = act(x @ p["wi_gate"].to(dt))
     u = x @ p["wi_up"].to(dt)
-    return (g * u) @ p["wo"].to(dt)
+    y = (g * u) @ p["wo"].to(dt)
+    if plan is not None and p["wo"].shape[0] < cfg.d_ff:
+        plan.sum_model(y)
+    return y
 
 
 # --------------------------------------------------------------------------
@@ -308,15 +436,31 @@ def embed_defs(cfg) -> dict:
     return defs
 
 
-def embed_tokens(cfg, p, tokens):
-    x = p["embedding"][tokens].to(resolve_dtype(cfg.dtype))
-    return x * math.sqrt(cfg.d_model)
+def embed_tokens(cfg, p, tokens, *, plan=None):
+    """Token embeddings; under a serving plan a block of the vocab rows:
+    this rank's rows looked up, zeros elsewhere, summed over "model"."""
+    table = p["embedding"]
+    if plan is None or table.shape[0] == cfg.vocab_size:
+        x = table[tokens]
+    else:
+        rows = table.shape[0]
+        local = tokens - plan.tp_rank * rows
+        own = (local >= 0) & (local < rows)
+        x = plan.sum_model(torch.where(own[..., None], table[local.clamp(0, rows - 1)], 0.0))
+    return x.to(resolve_dtype(cfg.dtype)) * math.sqrt(cfg.d_model)
 
 
-def logits_from_hidden(cfg, p, x):
+def logits_from_hidden(cfg, p, x, *, plan=None):
+    """Logits [B, S, V] of hidden states x [B, S, d].  Under a serving plan
+    only the last position's [B, 1, V], a block of the vocab columns a rank
+    all-gathered over "model"."""
     dt = x.dtype
     table = p["lm_head"].to(dt) if "lm_head" in p else p["embedding"].to(dt).T
-    return (x @ table).to(resolve_dtype(cfg.logit_dtype))
+    logits = (x @ table).to(resolve_dtype(cfg.logit_dtype))
+    if plan is None:
+        return logits
+    logits = logits[:, -1:]
+    return plan.gather_model(logits, dim=-1) if table.shape[1] < cfg.vocab_size else logits
 
 
 def norm_defs(cfg, name: str = "scale") -> dict:

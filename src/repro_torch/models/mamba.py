@@ -9,6 +9,14 @@ runs the same composition as a log-depth doubling scan over S (⌈log₂ S⌉
 steps of whole-tensor ops), whose first component ∏dA folds the initial
 state h0 in exactly as the reference does.  Sums associate in another
 tree, so values agree to f32 round-off.  Decode is the same path at S = 1.
+
+Under a serving plan the block is channel-parallel over ``d_in``: the conv,
+``dt_proj``, ``dt_bias``, ``a_log``, ``d_skip``, the scan and the cache
+blocks (conv window and h) are this rank's channels; ``x_proj`` and
+``out_proj`` are row-parallel, their partial sums added over "model".
+``in_proj``'s sharded dim is the concatenation [x | z], so a contiguous
+block of it does not hold x and z of the same channels: its product is
+all-gathered over "model" and each rank keeps x and z of its own channels.
 """
 
 from __future__ import annotations
@@ -51,15 +59,18 @@ def mamba_defs(cfg) -> dict:
     }
 
 
-def _ssm_inputs(cfg, p, xc):
+def _ssm_inputs(cfg, p, xc, plan=None):
     """Per-step discretised (dA, dB·x, C).
 
     xc [B, S, d_in] (post-conv, post-silu) -> dA [B,S,d_in,N], dBx same,
-    c [B,S,N], all f32.
+    c [B,S,N], all f32.  Under a serving plan xc is this rank's channels,
+    and ``x_proj``'s partial sums are added over "model".
     """
     n = cfg.mamba_d_state
     r = _dt_rank(cfg)
     proj = xc @ p["x_proj"].to(xc.dtype)                         # [B,S,r+2N]
+    if plan is not None and xc.shape[-1] < cfg.d_model * cfg.mamba_expand:
+        plan.sum_model(proj)
     dt_in, b_ssm, c_ssm = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus((dt_in @ p["dt_proj"].to(xc.dtype)).to(torch.float32) + p["dt_bias"])
     a = -torch.exp(p["a_log"])                                   # [d_in, N] f32
@@ -79,15 +90,22 @@ def scan_affine(a, b):
     return a, b
 
 
-def apply_mamba(cfg, p, x, *, cache=None):
+def apply_mamba(cfg, p, x, *, cache=None, plan=None):
     """x [B, S, d]; cache=(conv_state [B, d_conv-1, d_in], h [B, d_in, N]).
 
     Returns (y [B, S, d], new_cache); cache=None -> no state returned.
+    Under a serving plan (module doc) d_in is this rank's channels.
     """
     dt_ = x.dtype
     d_in = cfg.d_model * cfg.mamba_expand
     xz = x @ p["in_proj"].to(dt_)
+    if plan is not None and xz.shape[-1] < 2 * d_in:
+        xz = plan.gather_model(xz, dim=-1)
     xr, z = torch.chunk(xz, 2, dim=-1)                           # [B,S,d_in] each
+    if plan is not None and p["conv_b"].shape[0] < d_in:
+        d_in = p["conv_b"].shape[0]
+        own = slice(plan.tp_rank * d_in, (plan.tp_rank + 1) * d_in)
+        xr, z = xr[..., own], z[..., own]
 
     # -- causal depthwise conv --------------------------------------------------
     kw = cfg.mamba_d_conv
@@ -101,7 +119,7 @@ def apply_mamba(cfg, p, x, *, cache=None):
     xc = sum(xp[:, i:i + s, :] * p["conv_w"][i].to(dt_) for i in range(kw))
     xc = F.silu(xc + p["conv_b"].to(dt_))
 
-    da, dbx, c_ssm = _ssm_inputs(cfg, p, xc)
+    da, dbx, c_ssm = _ssm_inputs(cfg, p, xc, plan)
     cum_a, hs = scan_affine(da, dbx)
     if cache is None:
         new_cache = None
@@ -112,12 +130,19 @@ def apply_mamba(cfg, p, x, *, cache=None):
     y = torch.einsum("bsdn,bsn->bsd", hs, c_ssm).to(dt_)
     y = y + xc * p["d_skip"].to(dt_)
     y = y * F.silu(z)
-    return y @ p["out_proj"].to(dt_), new_cache
+    out = y @ p["out_proj"].to(dt_)
+    if plan is not None and p["out_proj"].shape[0] < cfg.d_model * cfg.mamba_expand:
+        plan.sum_model(out)
+    return out, new_cache
+
+
+def mamba_cache_defs(cfg, batch: int, dtype=torch.float32) -> tuple:
+    """The cache's buffers as (shape, dtype, fill): conv window, h."""
+    d_in = cfg.d_model * cfg.mamba_expand
+    return (((batch, cfg.mamba_d_conv - 1, d_in), dtype, 0.0),
+            ((batch, d_in, cfg.mamba_d_state), torch.float32, 0.0))
 
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.float32, *, device=None):
-    d_in = cfg.d_model * cfg.mamba_expand
-    return (
-        torch.zeros((batch, cfg.mamba_d_conv - 1, d_in), dtype=dtype, device=device),
-        torch.zeros((batch, d_in, cfg.mamba_d_state), dtype=torch.float32, device=device),
-    )
+    return tuple(torch.full(shape, fill, dtype=dt, device=device)
+                 for shape, dt, fill in mamba_cache_defs(cfg, batch, dtype))

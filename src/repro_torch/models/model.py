@@ -31,6 +31,19 @@ the device).  Prefill and decode update the cache's buffers in place and
 return the same buffers: the reference's server donates them.  A
 cross-attention entry holds the context's k, v, computed once at prefill
 in the context's dtype, as the reference stores them.
+
+Serving under a mesh takes the plan explicitly (``plan``: a
+``parallel.sharding.ServePlan``; nothing here reads the active mesh, so a
+train step's forward under ``use_mesh`` with whole params is untouched).
+The params are this rank's stored blocks (``param_pspecs``); each block
+gathers the leaves it uses at entry (``ServePlan.leaves``) and runs
+tensor-parallel over "model" (``layers``, ``moe``, ``mamba``); the cache
+holds this rank's blocks under ``cache_pspecs``, allocated as such
+(``init_cache(plan=...)``), its spec tree under ``"specs"``.  The mLSTM /
+sLSTM and reservoir blocks run whole on the rank's rows (the recurrent
+caches gathered over "model" for the step and cut back after; K1 a layer a
+step on the rank's B_local·R lanes), and the logits are the last
+position's, every vocab column on every "model" rank.
 """
 
 from __future__ import annotations
@@ -192,12 +205,15 @@ def _shard_activations(x, cfg=None):
 # --------------------------------------------------------------------------
 
 
-def _apply_block(cfg, blk, p, x, *, positions, context=None, cache=None):
+def _apply_block(cfg, blk, p, x, *, positions, context=None, cache=None, plan=None,
+                 seq=None):
     """Pre-norm mixer + residual, pre-norm MLP + residual.
 
     Returns (x, new_cache, aux).  ``cache`` is the mixer state for this block
     (None in a plain forward); a cross-attention block's cache is its
-    context's (k, v), else it computes them from ``context``.
+    context's (k, v), else it computes them from ``context``.  ``plan``: a
+    serving plan (``p`` this rank's leaves as the plan hands them over),
+    ``seq`` the sequence slice an attention cache block holds.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.rmsnorm(x, p["norm_mixer"], cfg.norm_eps)
@@ -205,7 +221,7 @@ def _apply_block(cfg, blk, p, x, *, positions, context=None, cache=None):
     new_cache = None
     if blk.mixer == "attn":
         y, new_cache = layers.apply_attn(cfg, mp, h, positions=positions,
-                                         cache=cache, causal=cfg.causal)
+                                         cache=cache, causal=cfg.causal, plan=plan, seq=seq)
     elif blk.mixer == "cross_attn":
         if cache is not None:
             ctx_kv = new_cache = cache        # computed at prefill
@@ -213,9 +229,9 @@ def _apply_block(cfg, blk, p, x, *, positions, context=None, cache=None):
             raise ValueError(f"{cfg.name}: a cross-attention block needs a context")
         else:
             ctx_kv = layers.context_kv(cfg, mp, context)
-        y = layers.apply_cross_attn(cfg, mp, h, context_kv=ctx_kv)
+        y = layers.apply_cross_attn(cfg, mp, h, context_kv=ctx_kv, plan=plan, seq=seq)
     elif blk.mixer == "mamba":
-        y, new_cache = mamba.apply_mamba(cfg, mp, h, cache=cache)
+        y, new_cache = mamba.apply_mamba(cfg, mp, h, cache=cache, plan=plan)
     elif blk.mixer == "mlstm":
         y, new_cache = xlstm.apply_mlstm(cfg, mp, h, cache=cache)
     elif blk.mixer == "slstm":
@@ -229,9 +245,9 @@ def _apply_block(cfg, blk, p, x, *, positions, context=None, cache=None):
     if blk.mlp != "none":
         h = layers.rmsnorm(x, p["norm_mlp"], cfg.norm_eps)
         if blk.mlp == "dense":
-            y = layers.apply_mlp(cfg, _split(p, "mlp"), h)
+            y = layers.apply_mlp(cfg, _split(p, "mlp"), h, plan=plan)
         elif blk.mlp == "moe":
-            y, aux = moe.apply_moe(cfg, _split(p, "mlp"), h)
+            y, aux = moe.apply_moe(cfg, _split(p, "mlp"), h, plan=plan)
         else:
             raise ValueError(blk.mlp)
         x = x + y
@@ -301,9 +317,10 @@ def _encoder_view(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, causal=False, unit=())
 
 
-def encode(cfg: ModelConfig, params: dict, frames):
+def encode(cfg: ModelConfig, params: dict, frames, *, plan=None):
     """Bidirectional encoder over stub frame embeddings [B, T, d], in
-    ``cfg.dtype``."""
+    ``cfg.dtype``; under a serving plan on this rank's blocks (module
+    doc)."""
     if frames is None:
         raise ValueError(f"{cfg.name}: the encoder needs context frames")
     enc_cfg = _encoder_view(cfg)
@@ -312,12 +329,18 @@ def encode(cfg: ModelConfig, params: dict, frames):
     enc = params["encoder"]
 
     def unit_step(x, unit_params):
-        return _apply_block(enc_cfg, _ENCODER_BLOCK, unit_params[0], x, positions=positions)[0]
+        return _apply_block(enc_cfg, _ENCODER_BLOCK, unit_params[0], x, positions=positions,
+                            plan=plan)[0]
 
     step = _remat(cfg, unit_step)
     for u in range(cfg.n_encoder_layers):
-        x = step(x, _unit_params(enc["units"], u))
-    return layers.rmsnorm(x, enc["final_norm"]["scale"], cfg.norm_eps)
+        if plan is None:
+            x = step(x, _unit_params(enc["units"], u))
+        else:
+            x = step(x, (plan.leaves(enc["units"][0], ("encoder", "units", 0), index=u),))
+    norm = enc["final_norm"] if plan is None else plan.leaves(enc["final_norm"],
+                                                              ("encoder", "final_norm"))
+    return layers.rmsnorm(x, norm["scale"], cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------
@@ -325,39 +348,56 @@ def encode(cfg: ModelConfig, params: dict, frames):
 # --------------------------------------------------------------------------
 
 
-def _stacked(leaves: tuple, u: int) -> tuple:
-    return tuple(a.expand(u, *a.shape).clone() for a in leaves)
-
-
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, context_len: int = 0,
-               device=None) -> dict:
-    """Stacked per-unit-position cache (zeros; ``pos`` tracks the fill) on
-    ``device`` (default ``cuda``).  Buffer dtypes are the reference's:
-    attention and cross-attention k, v in ``cfg.dtype``, the recurrent
-    states (and the Mamba / mLSTM conv windows) f32."""
-    dev = resolve_device(device)
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int, context_len: int = 0) -> tuple:
+    """Each unit position's stacked cache buffers as (shape, dtype, fill):
+    attention and cross-attention k, v [n_units, B, length, KV, hd] in
+    ``cfg.dtype``, the recurrent states (and the Mamba / mLSTM conv
+    windows) f32, as the reference's."""
     u = cfg.n_units
-    kv_dt = resolve_dtype(cfg.dtype)
-    cache_units = []
+    out = []
     for blk in cfg.unit:
         if blk.mixer in ("attn", "cross_attn"):
             length = max_len if blk.mixer == "attn" else context_len
-            shape = (u, batch, length, cfg.n_kv_heads, cfg.head_dim)
-            cache_units.append((torch.zeros(shape, dtype=kv_dt, device=dev),
-                                torch.zeros(shape, dtype=kv_dt, device=dev)))
+            kv = ((batch, length, cfg.n_kv_heads, cfg.head_dim), resolve_dtype(cfg.dtype), 0.0)
+            defs = (kv, kv)
         elif blk.mixer == "mamba":
-            cache_units.append(_stacked(mamba.init_mamba_cache(cfg, batch, device=dev), u))
+            defs = mamba.mamba_cache_defs(cfg, batch)
         elif blk.mixer == "mlstm":
-            cache_units.append(_stacked(xlstm.init_mlstm_cache(cfg, batch, device=dev), u))
+            defs = xlstm.mlstm_cache_defs(cfg, batch)
         elif blk.mixer == "slstm":
-            cache_units.append(_stacked(xlstm.init_slstm_cache(cfg, batch, device=dev), u))
+            defs = xlstm.slstm_cache_defs(cfg, batch)
         elif blk.mixer == "reservoir":
             n, r = cfg.reservoir_nodes, reservoir_layer._n_channels(cfg)
-            cache_units.append((torch.zeros((u, batch, r, n), dtype=torch.float32, device=dev),
-                                torch.zeros((u, batch, r), dtype=torch.float32, device=dev)))
+            defs = (((batch, r, n), torch.float32, 0.0), ((batch, r), torch.float32, 0.0))
         else:
             raise ValueError(blk.mixer)
-    return {"pos": 0, "units": tuple(cache_units)}
+        out.append(tuple(((u, *shape), dt, fill) for shape, dt, fill in defs))
+    return tuple(out)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, context_len: int = 0,
+               device=None, plan=None) -> dict:
+    """Stacked per-unit-position cache (``cache_defs``; ``pos`` tracks the
+    fill) on ``device`` (default ``cuda``).
+
+    Under a serving plan, ``batch`` is the global batch, and only this
+    rank's block of each buffer under ``cache_pspecs`` is allocated; the
+    spec tree rides along as ``"specs"``."""
+    from ..parallel import sharding
+
+    dev = resolve_device(device)
+    defs = cache_defs(cfg, batch, max_len, context_len)
+    if plan is None:
+        return {"pos": 0, "units": tuple(tuple(torch.full(shape, fill, dtype=dt, device=dev)
+                                               for shape, dt, fill in entry) for entry in defs)}
+    shapes = {"pos": 0, "units": tuple(tuple(torch.empty(shape, dtype=dt, device="meta")
+                                             for shape, dt, _ in entry) for entry in defs)}
+    specs = sharding.cache_pspecs(cfg, plan.mesh, shapes)
+    units = tuple(tuple(torch.full(sharding.local_shape(shape, spec, plan.mesh), fill,
+                                   dtype=dt, device=dev)
+                        for (shape, dt, fill), spec in zip(entry, entry_specs, strict=True))
+                  for entry, entry_specs in zip(defs, specs["units"], strict=True))
+    return {"pos": 0, "units": units, "specs": specs}
 
 
 def _mixer_cache(blk, unit_cache, u: int, pos: int):
@@ -379,10 +419,13 @@ def _store_cache(blk, unit_cache, u: int, new_cache) -> None:
             leaf[u].copy_(new)
 
 
-def _forward_cached(cfg, params, cache, tokens, *, context=None):
+def _forward_cached(cfg, params, cache, tokens, *, context=None, plan=None):
     """Shared prefill/decode body: runs [B, S] tokens through cached blocks.
     With ``context`` (prefill) each cross-attention block computes its
-    context's k, v and stores them in the cache."""
+    context's k, v and stores them in the cache.  ``plan``: a serving
+    plan (``_forward_sharded``)."""
+    if plan is not None:
+        return _forward_sharded(cfg, params, cache, tokens, context, plan)
     x = layers.embed_tokens(cfg, params["embed"], tokens)
     pos0 = cache["pos"]
     positions = pos0 + torch.arange(tokens.shape[1], device=tokens.device)[None, :]
@@ -402,22 +445,93 @@ def _forward_cached(cfg, params, cache, tokens, *, context=None):
     return logits, {"pos": pos0 + tokens.shape[1], "units": cache["units"]}
 
 
-def prefill(cfg: ModelConfig, params: dict, tokens, *, max_len: int, context=None):
+def _sharded_block(cfg, blk, p, x, *, positions, unit_cache, unit_specs, u, pos0, context,
+                   plan):
+    """One block of ``_forward_sharded`` at unit repeat ``u``, on its cache
+    blocks (``unit_specs`` their stacked specs), which it updates in place."""
+    from ..parallel import sharding
+
+    leaves = tuple(leaf[u] for leaf in unit_cache)
+    specs = tuple(sharding.P(*spec[1:]) for spec in unit_specs)
+    seq = None
+    if blk.mixer in ("attn", "cross_attn"):
+        entry = specs[0][1]
+        seq = layers.SeqSlice(sharding.entry_axes(entry),
+                              plan.block_index(entry) * leaves[0].shape[1])
+    if blk.mixer == "attn":
+        blk_cache = (leaves[0], leaves[1], pos0)
+    elif blk.mixer == "cross_attn" and context is not None:
+        # prefill: attend over the whole context's k, v; keep this rank's slice
+        blk_cache = layers.context_kv(cfg, _split(p, "mixer"), context)
+        span = leaves[0].shape[1]
+        for leaf, new in zip(leaves, blk_cache, strict=True):
+            leaf.copy_(new[:, seq.offset:seq.offset + span])
+        seq = None
+    elif blk.mixer in ("mlstm", "slstm"):
+        blk_cache = tuple(plan.gather_to(leaf, spec, plan.without_model(spec))
+                          for leaf, spec in zip(leaves, specs, strict=True))
+    else:
+        blk_cache = leaves
+    x, nc, _ = _apply_block(cfg, blk, p, x, positions=positions, cache=blk_cache, plan=plan,
+                            seq=seq)
+    if blk.mixer in ("mlstm", "slstm"):
+        nc = tuple(sharding.shard(new, plan.model_entries(spec), plan.mesh)
+                   for new, spec in zip(nc, specs, strict=True))
+    if blk.mixer not in ("attn", "cross_attn"):
+        for leaf, new in zip(leaves, nc, strict=True):
+            leaf.copy_(new)
+    return x
+
+
+def _forward_sharded(cfg, params, cache, tokens, context, plan):
+    """``_forward_cached`` on this rank of a serving plan: params its stored
+    blocks, ``cache`` its cache blocks (``init_cache(plan=...)``), tokens
+    and context its rows.  Returns (the last position's logits [B, 1, V],
+    cache)."""
+    embed = plan.leaves(params["embed"], ("embed",))
+    x = layers.embed_tokens(cfg, embed, tokens, plan=plan)
+    pos0 = cache["pos"]
+    positions = pos0 + torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    if cfg.n_encoder_layers and context is not None:
+        context = encode(cfg, params, context, plan=plan)
+    for u in range(cfg.n_units):
+        for pos, blk in enumerate(cfg.unit):
+            p = plan.leaves(params["units"][pos], ("units", pos), index=u)
+            x = _sharded_block(cfg, blk, p, x, positions=positions,
+                               unit_cache=cache["units"][pos],
+                               unit_specs=cache["specs"]["units"][pos], u=u, pos0=pos0,
+                               context=context, plan=plan)
+    norm = plan.leaves(params["final_norm"], ("final_norm",))
+    x = layers.rmsnorm(x, norm["scale"], cfg.norm_eps)
+    logits = layers.logits_from_hidden(cfg, embed, x, plan=plan)
+    return logits, {**cache, "pos": pos0 + tokens.shape[1]}
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens, *, max_len: int, context=None, plan=None,
+            batch: int | None = None):
     """tokens [B, S] (and ``context`` [B, T, d] for a cross-attention
-    family) -> (logits [B, S, V], cache filled to S of ``max_len``)."""
-    cache = init_cache(cfg, tokens.shape[0], max_len,
+    family) -> (logits [B, S, V], cache filled to S of ``max_len``).
+
+    Under a serving plan: this rank's param blocks, its rows of a global
+    batch of ``batch`` rows (default: the rows given times the batch axes'
+    size, i.e. a cut), and (logits [B_local, 1, V] of the last position,
+    this rank's cache blocks)."""
+    if plan is not None and batch is None:
+        batch = tokens.shape[0] * plan.row_blocks
+    cache = init_cache(cfg, tokens.shape[0] if plan is None else batch, max_len,
                        context_len=(context.shape[1] if context is not None else 0),
-                       device=tokens.device)
+                       device=tokens.device, plan=plan)
     if context is not None:
         # the stored k, v take the (encoded) context's dtype, as the reference's
         ctx_dt = resolve_dtype(cfg.dtype) if cfg.n_encoder_layers else context.dtype
         cache["units"] = tuple(
             tuple(buf.to(ctx_dt) for buf in entry) if blk.mixer == "cross_attn" else entry
             for blk, entry in zip(cfg.unit, cache["units"], strict=True))
-    return _forward_cached(cfg, params, cache, tokens, context=context)
+    return _forward_cached(cfg, params, cache, tokens, context=context, plan=plan)
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache, tokens):
+def decode_step(cfg: ModelConfig, params: dict, cache, tokens, *, plan=None):
     """One decode step: tokens [B, 1] + cache -> (logits [B, 1, V], cache).
-    The cache's buffers are updated in place."""
-    return _forward_cached(cfg, params, cache, tokens)
+    The cache's buffers are updated in place.  Under a serving plan, this
+    rank's param blocks, rows and cache blocks (``prefill``)."""
+    return _forward_cached(cfg, params, cache, tokens, plan=plan)

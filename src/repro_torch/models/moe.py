@@ -20,7 +20,12 @@ Two routes, chosen as the reference chooses them:
   inputs' gradients over "model" (each rank's reach only its own experts'
   slots, so the sum adds disjoint blocks to zeros).  The expert weights
   arrive whole: the train step gathers every param over its spec's axes
-  (the reference gathers them over "data" inside the block).
+  (the reference gathers them over "data" inside the block);
+* under a serving plan (``plan``; no active mesh is read) the expert
+  weights arrive as this rank's E/tp block and run as they are, by the
+  same combine; the router, gathered whole, routes every token over all
+  experts on every rank.  Where "model" does not divide E the weights
+  arrive whole and the dense route runs.
 
 Returns the Switch load-balance aux loss beside the output, as the
 reference does.  Under a mesh each rank's aux is its own rows' (the
@@ -114,6 +119,20 @@ class _CopyToModel(torch.autograd.Function):
         return sharding.all_reduce(g.contiguous().clone(), "model", ctx.mesh), None
 
 
+def _own_experts(cfg, buf, wg, wu, wo, j, flat_e, safe_pos, w, cap):
+    """Block ``j`` of the experts (weights ``wg``/``wu``/``wo``, E_loc of
+    them): their FFN over their slice of the buffer, the combine of their
+    slots, the k slots summed per token: y [G, S, d], this rank's part."""
+    e_loc = wg.shape[0]
+    own = slice(j * e_loc, (j + 1) * e_loc)
+    out_e = _expert_ffn(cfg, buf[:, own], wg, wu, wo)
+    y = _combine_local(out_e, flat_e, safe_pos, w, j * e_loc, e_loc, cap)
+    # Sum the k slots per token BEFORE the all-reduce: the wire then carries
+    # [G, S, d] (token-sized) instead of [G, S·k, d].
+    g_loc, sk, dd = y.shape
+    return torch.sum(y.reshape(g_loc, sk // cfg.top_k, cfg.top_k, dd), dim=2)
+
+
 def _moe_block_sharded(cfg, mesh, buf, params, flat_e, safe_pos, w, cap):
     """Expert-parallel route: this model rank's E/tp experts, their FFN,
     the combine of their slots, the k slots summed, then the all-reduce
@@ -126,12 +145,7 @@ def _moe_block_sharded(cfg, mesh, buf, params, flat_e, safe_pos, w, cap):
     buf, w = _CopyToModel.apply(buf, mesh), _CopyToModel.apply(w, mesh)
     wg, wu, wo = (_CopyToModel.apply(params[k], mesh) for k in ("wi_gate", "wi_up", "wo"))
     own = slice(j * e_loc, (j + 1) * e_loc)
-    out_e = _expert_ffn(cfg, buf[:, own], wg[own], wu[own], wo[own])
-    y = _combine_local(out_e, flat_e, safe_pos, w, j * e_loc, e_loc, cap)
-    # Sum the k slots per token BEFORE the all-reduce: the wire then carries
-    # [G, S, d] (token-sized) instead of [G, S·k, d].
-    g_loc, sk, dd = y.shape
-    y = torch.sum(y.reshape(g_loc, sk // cfg.top_k, cfg.top_k, dd), dim=2)
+    y = _own_experts(cfg, buf, wg[own], wu[own], wo[own], j, flat_e, safe_pos, w, cap)
     return _SumOverModel.apply(y, mesh)
 
 
@@ -170,8 +184,9 @@ def route(cfg, p, x):
     return probs, top_p / torch.sum(top_p, dim=-1, keepdim=True), top_e
 
 
-def apply_moe(cfg, p, x):
-    """x [B, S, d] -> (y [B, S, d], aux_loss scalar f32)."""
+def apply_moe(cfg, p, x, *, plan=None):
+    """x [B, S, d] -> (y [B, S, d], aux_loss scalar f32).  ``plan``: a
+    serving plan, whose expert leaves are this rank's block (module doc)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
@@ -199,6 +214,12 @@ def apply_moe(cfg, p, x):
 
     # -- expert FFNs + combine ---------------------------------------------------
     w = (top_p.reshape(b, s * k) * keep).to(dt)
+    if plan is not None:
+        if p["wi_gate"].shape[0] == e:
+            return _moe_dense_tokens(cfg, buf, p, flat_e, safe_pos, w, cap), aux
+        y = _own_experts(cfg, buf, p["wi_gate"], p["wi_up"], p["wo"], plan.tp_rank, flat_e,
+                         safe_pos, w, cap)
+        return plan.sum_model(y), aux
     from ..parallel.sharding import active_mesh
 
     mesh = active_mesh()

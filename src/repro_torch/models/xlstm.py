@@ -17,6 +17,10 @@ Blocks carry their own projections (d_ff = 0): mLSTM up-projects by
 a gated ~4/3 projection.  The score products of the parallel form widen q
 and k to f32 first, where the reference asks its einsum for an f32 result
 (as the port's attention does).
+
+Under a serving plan both blocks run replicated over "model" (their leaves
+gathered whole, their cache blocks gathered for the step: see
+``parallel/sharding.py``); xLSTM's tensor parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -171,17 +175,19 @@ def apply_mlstm(cfg, p, x, *, cache=None):
     return out @ p["down_proj"].to(dt), new_cache
 
 
-def init_mlstm_cache(cfg, batch: int, dtype=torch.float32, *, device=None):
+def mlstm_cache_defs(cfg, batch: int, dtype=torch.float32) -> tuple:
+    """The cache's buffers as (shape, dtype, fill): conv window, C, n, m."""
     d_in = cfg.d_model * cfg.mlstm_expand
     h = cfg.n_heads
     hd = d_in // h
     f32 = torch.float32
-    return (
-        torch.zeros((batch, 3, d_in), dtype=dtype, device=device),
-        torch.zeros((batch, h, hd, hd), dtype=f32, device=device),
-        torch.zeros((batch, h, hd), dtype=f32, device=device),
-        torch.full((batch, h), -1e30, dtype=f32, device=device),
-    )
+    return (((batch, 3, d_in), dtype, 0.0), ((batch, h, hd, hd), f32, 0.0),
+            ((batch, h, hd), f32, 0.0), ((batch, h), f32, -1e30))
+
+
+def init_mlstm_cache(cfg, batch: int, dtype=torch.float32, *, device=None):
+    return tuple(torch.full(shape, fill, dtype=dt, device=device)
+                 for shape, dt, fill in mlstm_cache_defs(cfg, batch, dtype))
 
 
 # --------------------------------------------------------------------------
@@ -252,12 +258,14 @@ def apply_slstm(cfg, p, x, *, cache=None):
     return (g * u) @ p["down_proj"].to(dt), new_cache
 
 
-def init_slstm_cache(cfg, batch: int, *, device=None):
+def slstm_cache_defs(cfg, batch: int) -> tuple:
+    """The cache's buffers as (shape, dtype, fill): c, n, m, h."""
     d = cfg.d_model
     f32 = torch.float32
-    return (
-        torch.zeros((batch, d), dtype=f32, device=device),
-        torch.zeros((batch, d), dtype=f32, device=device),
-        torch.full((batch, cfg.n_heads), -1e30, dtype=f32, device=device),
-        torch.zeros((batch, d), dtype=f32, device=device),
-    )
+    return (((batch, d), f32, 0.0), ((batch, d), f32, 0.0),
+            ((batch, cfg.n_heads), f32, -1e30), ((batch, d), f32, 0.0))
+
+
+def init_slstm_cache(cfg, batch: int, *, device=None):
+    return tuple(torch.full(shape, fill, dtype=dt, device=device)
+                 for shape, dt, fill in slstm_cache_defs(cfg, batch))

@@ -37,6 +37,53 @@ the bytes a step moves.
 ``use_mesh`` / ``active_mesh`` stand for the reference's ``compat.use_mesh``
 / ``get_abstract_mesh``; ``maybe_shard`` is a no-op when no mesh is
 active, and only then: under a mesh it returns this rank's block.
+
+The serving plan (``ServePlan``).  The reference serves under a mesh by
+GSPMD: params laid out by ``param_pspecs``, caches by ``cache_pspecs``, and
+the compiler turns those layouts into Megatron tensor-parallel compute over
+"model".  The port's prefill and decode take each rank's stored blocks and
+run that compute with explicit collectives.  ``serve_labels`` gives each
+param leaf one of two labels:
+
+  local     the leaf's "model" entry is on a logical axis its block computes
+            over as this rank's block: "heads" (q heads, and the out
+            projection's rows) and "kv" (column-parallel attention, its kv
+            cache the rank's kv heads), "mlp" (the dense MLP's columns and
+            rows; Mamba's channels), "vocab" (the vocab-parallel embedding
+            and logits), "expert" (expert parallelism).  Any "data" entry of
+            the leaf is still gathered at its block.
+  gathered  gathered whole over its spec's axes at the block that uses it,
+            and freed after: every leaf without such a "model" entry, among
+            them every norm scale, the reservoir's ``w_in`` / ``readout`` /
+            ``readout_bias`` (no TP axis: the mixer runs whole on the rank's
+            rows, K1 on its B_local·R lanes), the fsdp fallback's leaves
+            (their "model" entry folded into "embed" / "ctx": starcoder2,
+            xlstm, reservoir_lm), attention's ``wk`` / ``wv`` where the kv
+            heads do not divide "model", and two leaves whose axis is a TP
+            axis but whose block does not split over it:
+            - the MoE router (embed, expert): every rank routes every token
+              over all experts, and d × E is small;
+            - every leaf of the mLSTM and sLSTM blocks: their "mlp" dims
+              straddle gate blocks (``up_proj`` and ``w_in`` concatenate
+              [x | z] and [i | f | z | o] along the sharded dim), and "mlp"
+              takes "model" away from the heads of ``wq``/``wk``/``wv``, so
+              the blocks run replicated over "model"; their cache blocks are
+              all-gathered over "model" for the step and cut back after.
+              Mamba's ``in_proj`` straddles [x | z] too, but stays local:
+              its product is all-gathered over "model" ([B, S, 2·d_in], far
+              smaller than the weight at decode) and each rank keeps x and z
+              of its own channels.
+
+``serve_pspecs`` is the layout each leaf is used in (the "model" entry of a
+local leaf, nothing else), so a block's gathers are its spec's axes minus
+its use's.  No rank ever gathers the whole tree: each block gathers its own
+leaves at entry.  The caches hold this rank's blocks under
+``cache_pspecs`` (``local_shape``): batch rows over the batch axes where
+they divide the batch, else the attention sequence over "data"; kv heads
+over "model" where they divide it, else the sequence over "model"; the
+recurrent states' inner dims over "model".  A sequence-sliced cache is
+attended in pieces: each rank's partial softmax over its slice, combined
+over the slice's axes by a max and a sum all-reduce.
 """
 
 from __future__ import annotations
@@ -214,6 +261,21 @@ def data_pspecs(cfg, mesh, specs: dict) -> dict:
     return out
 
 
+def serve_batch_entry(mesh, batch: int):
+    """The spec entry of a served batch's rows: the batch axes where their
+    product divides ``batch``, else None (every rank holds every row: the
+    long_500k case, batch 1).  ``cache_pspecs``' rule."""
+    b_axes = batch_axes(mesh)
+    b_size = math.prod(axis_sizes(mesh)[a] for a in b_axes)
+    return b_axes if batch % b_size == 0 else None
+
+
+def serve_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a served batch ``x`` [B, ...] (tokens, context),
+    by ``serve_batch_entry``."""
+    return shard(x, P(serve_batch_entry(mesh, x.shape[0])), mesh)
+
+
 def cache_pspecs(cfg, mesh, cache_shapes):
     """Specs mirroring ``init_cache``'s structure (``{"pos", "units"}``).
 
@@ -226,18 +288,17 @@ def cache_pspecs(cfg, mesh, cache_shapes):
     leaf for leaf.
     """
     sizes = axis_sizes(mesh)
-    b_axes = batch_axes(mesh)
-    b_size = math.prod(sizes[a] for a in b_axes)
     kinds = [blk.mixer for blk in cfg.unit]
 
     batch = None
     for unit_cache in cache_shapes["units"]:
         batch = unit_cache[0].shape[1]
         break
-    shard_batch = batch is not None and batch % b_size == 0
+    b_entry = None if batch is None else serve_batch_entry(mesh, batch)
+    shard_batch = b_entry is not None
 
     def b_ax():
-        return b_axes if shard_batch else None
+        return b_entry
 
     model = sizes.get("model", 0)
 
@@ -278,6 +339,19 @@ def cache_pspecs(cfg, mesh, cache_shapes):
         else:
             raise ValueError(kind)
     return {"pos": P(), "units": tuple(units_specs)}
+
+
+def local_shape(shape, spec: P, mesh) -> tuple:
+    """The shape of this rank's block of an array of ``shape`` under
+    ``spec`` (each dim divided by its entry's block count)."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        n = shard_count(entry, mesh)
+        if out[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide into {n} blocks "
+                             f"under {spec}")
+        out[dim] //= n
+    return tuple(out)
 
 
 def fit_spec(mesh, shape, *entries) -> P:
@@ -401,9 +475,10 @@ _RECORDERS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_collect
 @contextlib.contextmanager
 def record_collectives():
     """Collect every collective issued in the extent as a dict
-    ``{"kind", "bytes", "group"}``: ``bytes`` is the result's size on this
-    rank (the reference's HLO result-shape convention), ``group`` the
-    number of ranks taking part."""
+    ``{"kind", "bytes", "group", "axis"}``: ``bytes`` is the result's size
+    on this rank (the reference's HLO result-shape convention), ``group``
+    the number of ranks taking part, ``axis`` the mesh axis it ran over
+    (None for a point-to-point send)."""
     events: list[dict] = []
     token = _RECORDERS.set(_RECORDERS.get() + (events,))
     try:
@@ -412,22 +487,25 @@ def record_collectives():
         _RECORDERS.reset(token)
 
 
-def _record(kind: str, n_bytes: int, group_size: int) -> None:
+def _record(kind: str, n_bytes: int, group_size: int, axis: str | None = None) -> None:
     for events in _RECORDERS.get():
-        events.append({"kind": kind, "bytes": n_bytes, "group": group_size})
+        events.append({"kind": kind, "bytes": n_bytes, "group": group_size, "axis": axis})
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def all_reduce(x: torch.Tensor, axes, mesh) -> torch.Tensor:
-    """Sum ``x`` in place over the ranks of ``axes`` (a name or a tuple),
-    one all-reduce an axis; returns ``x``."""
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, axes, mesh, *, op: str = "sum") -> torch.Tensor:
+    """Reduce ``x`` in place over the ranks of ``axes`` (a name or a tuple),
+    one all-reduce an axis, by ``op`` ("sum" or "max"); returns ``x``."""
     for a in entry_axes(axes):
         g = mesh.get_group(a)
-        _record("all-reduce", _nbytes(x), g.size())
-        dist.all_reduce(x, group=g)
+        _record("all-reduce", _nbytes(x), g.size(), a)
+        dist.all_reduce(x, op=_REDUCE_OPS[op], group=g)
     return x
 
 
@@ -438,7 +516,7 @@ def all_gather(x: torch.Tensor, axis: str, mesh, *, dim: int = 0) -> torch.Tenso
     n = g.size()
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    _record("all-gather", n * _nbytes(x), n)
+    _record("all-gather", n * _nbytes(x), n, axis)
     dist.all_gather(parts, x, group=g)
     return torch.cat(parts, dim=dim)
 
@@ -447,7 +525,7 @@ def broadcast(x: torch.Tensor, axis: str, mesh, *, src: int) -> torch.Tensor:
     """``x`` of the rank at coordinate ``src`` of ``axis``, in place on
     every rank of the axis."""
     g = mesh.get_group(axis)
-    _record("broadcast", _nbytes(x), g.size())
+    _record("broadcast", _nbytes(x), g.size(), axis)
     dist.broadcast(x, src=dist.get_global_rank(g, src), group=g)
     return x
 
@@ -473,9 +551,141 @@ def coordinate(mesh, axis: str) -> int:
     return _coords(mesh)[axis]
 
 
-__all__ = ["AbstractMesh", "BATCH_AXES", "P", "active_mesh", "all_gather", "all_reduce",
-           "axis_sizes", "batch_axes", "batch_pspec", "broadcast", "cache_pspecs",
-           "coordinate", "data_pspecs", "entry_axes", "fit_spec", "gather",
-           "maybe_shard", "param_pspecs", "record_collectives", "send_recv", "shard",
+# --------------------------------------------------------------------------
+# The serving plan (module doc)
+# --------------------------------------------------------------------------
+
+# Logical axes whose "model" block a serving block computes over.
+_TP_AXES = frozenset({"heads", "kv", "mlp", "vocab", "expert"})
+# Mixers that run replicated over "model", and single leaves gathered whole
+# although their axis is a TP axis (module doc).
+_WHOLE_MIXERS = ("mlstm", "slstm")
+_WHOLE_LEAVES = ("mlp/router",)
+
+
+def serve_pspecs(cfg, mesh):
+    """The spec tree of the params as the serving blocks use them: the
+    "model" entry of each local leaf, no other entry (``param_pspecs``'
+    structure)."""
+    from ..models.model import _ENCODER_BLOCK, param_logical_axes
+
+    specs, axes = param_pspecs(cfg, mesh), param_logical_axes(cfg)
+
+    def use(spec, logical, whole):
+        return P(*("model" if not whole and entry == "model" and ax in _TP_AXES else None
+                   for entry, ax in zip(spec, logical, strict=True)))
+
+    def leaves(spec_d, axes_d, blk=None):
+        return {k: use(s, axes_d[k], k in _WHOLE_LEAVES or (
+                    blk is not None and blk.mixer in _WHOLE_MIXERS and k.startswith("mixer/")))
+                for k, s in spec_d.items()}
+
+    out = {"embed": leaves(specs["embed"], axes["embed"]),
+           "units": tuple(leaves(s, a, blk) for s, a, blk in zip(specs["units"], axes["units"],
+                                                                   cfg.unit, strict=True)),
+           "final_norm": leaves(specs["final_norm"], axes["final_norm"])}
+    if "encoder" in specs:
+        enc, enc_axes = specs["encoder"], axes["encoder"]
+        out["encoder"] = {
+            "units": (leaves(enc["units"][0], enc_axes["units"][0], _ENCODER_BLOCK),),
+            "final_norm": leaves(enc["final_norm"], enc_axes["final_norm"])}
+    return out
+
+
+def serve_labels(cfg, mesh):
+    """``param_pspecs``' tree with each leaf labelled "local" (its use keeps
+    its "model" block, or no axis shards it) or "gathered" (module doc)."""
+    def label(spec, use):
+        kept = any(entry_axes(e) for e in use)
+        return "local" if kept or not any(entry_axes(e) for e in spec) else "gathered"
+
+    return _tree_zip(label, param_pspecs(cfg, mesh), serve_pspecs(cfg, mesh))
+
+
+class ServePlan:
+    """A serving step on this rank of ``mesh`` (a ``DeviceMesh``): the
+    params' storage specs (``pspecs``), the layout each leaf is used in
+    (``uses``), and the collectives its blocks run.  The model's serving
+    route takes it as an argument; nothing reads the active mesh."""
+
+    def __init__(self, cfg, mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.sizes = axis_sizes(mesh)
+        self.coords = _coords(mesh)
+        self.pspecs = param_pspecs(cfg, mesh)
+        self.uses = serve_pspecs(cfg, mesh)
+        self.tp = self.sizes.get("model", 1)
+        self.tp_rank = self.coords.get("model", 0)
+        # the blocks the batch axes cut a served batch into, where they divide it
+        self.row_blocks = math.prod(self.sizes[a] for a in batch_axes(mesh))
+
+    def leaves(self, local: dict, path: tuple, index: int | None = None) -> dict:
+        """The leaves of ``local`` (the stored blocks of the params subtree
+        at ``path`` of the spec trees; with ``index``, unit ``index`` of its
+        stacked leaves) in the layout their block uses: each gathered over
+        the axes its spec names and its use does not."""
+        specs, uses = self.pspecs, self.uses
+        for key in path:
+            specs, uses = specs[key], uses[key]
+        out = {}
+        for name, t in local.items():
+            spec, use = specs[name], uses[name]
+            if index is not None:
+                t, spec, use = t[index], P(*spec[1:]), P(*use[1:])
+            out[name] = self.gather_to(t, spec, use)
+        return out
+
+    def gather_to(self, t: torch.Tensor, spec: P, use: P) -> torch.Tensor:
+        """``t`` (a block under ``spec``) gathered over every axis of
+        ``spec`` that ``use`` drops, in ``gather``'s order; axes of one rank
+        move nothing and are skipped."""
+        out = t
+        for dim, entry in enumerate(spec):
+            kept = entry_axes(use[dim]) if dim < len(use) else ()
+            if kept and kept != entry_axes(entry):
+                raise ValueError(f"dim {dim}: a use {use} keeps part of the entry {entry}")
+            if kept:
+                continue
+            for a in reversed(entry_axes(entry)):
+                if self.sizes[a] > 1:
+                    out = all_gather(out, a, self.mesh, dim=dim)
+        return out
+
+    def block_index(self, entry) -> int:
+        """This rank's block along a dim cut by ``entry`` (row-major over
+        its axes)."""
+        idx = 0
+        for a in entry_axes(entry):
+            idx = idx * self.sizes[a] + self.coords[a]
+        return idx
+
+    def model_entries(self, spec: P) -> P:
+        """``spec`` with only its "model" entries (the dims a recurrent
+        state's cache block cuts over "model")."""
+        return P(*("model" if entry == "model" else None for entry in spec))
+
+    def without_model(self, spec: P) -> P:
+        return P(*(None if entry == "model" else entry for entry in spec))
+
+    def reduce(self, x: torch.Tensor, axes, *, op: str = "sum") -> torch.Tensor:
+        """``all_reduce`` over those of ``axes`` with more than one rank."""
+        live = tuple(a for a in entry_axes(axes) if self.sizes[a] > 1)
+        return all_reduce(x, live, self.mesh, op=op) if live else x
+
+    def sum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums added over "model", in
+        place."""
+        return self.reduce(x, "model")
+
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The "model" ranks' blocks of ``x`` joined along ``dim``."""
+        return all_gather(x, "model", self.mesh, dim=dim) if self.tp > 1 else x
+
+
+__all__ = ["AbstractMesh", "BATCH_AXES", "P", "ServePlan", "active_mesh", "all_gather",
+           "all_reduce", "axis_sizes", "batch_axes", "batch_pspec", "broadcast",
+           "cache_pspecs", "coordinate", "data_pspecs", "entry_axes", "fit_spec", "gather",
+           "local_shape", "maybe_shard", "param_pspecs", "record_collectives", "send_recv",
+           "serve_batch_entry", "serve_labels", "serve_pspecs", "serve_rows", "shard",
            "shard_count", "spec_for", "spec_leaves", "tree_gather", "tree_shard",
            "use_mesh"]

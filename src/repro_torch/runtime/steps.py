@@ -27,7 +27,14 @@ collectives (DESIGN.md §5):
 Ranks along "model" see the same rows and compute the same step; the one
 explicit compute split over "model" is the MoE expert block
 (``models/moe.py``).  Megatron tensor-parallel compute over "model" and
-per-unit gathering are not ported (ROADMAP.md Queue 1 item 13e).
+per-unit gathering are not ported to the train step (ROADMAP.md Queue 1
+item 13e).
+
+The serving steps under an active mesh run on this rank's blocks
+(``parallel.sharding.ServePlan``): the params as stored by
+``param_pspecs``, each block gathering its own leaves; the cache as laid
+out by ``cache_pspecs``, allocated as such; tensor-parallel compute over
+"model"; each rank its rows of the batch (``sharding.serve_rows``).
 """
 
 from __future__ import annotations
@@ -157,14 +164,28 @@ def _sharded_train_step(cfg, opt_cfg, state, batch, mesh):
     return state, metrics
 
 
-def serve_prefill(cfg, params, tokens, context=None, *, max_len: int | None = None):
-    """Prefill: returns (last-position logits [B, V], cache)."""
+def _serve_plan(cfg):
+    mesh = sharding.active_mesh()
+    return None if mesh is None else sharding.ServePlan(cfg, mesh)
+
+
+def serve_prefill(cfg, params, tokens, context=None, *, max_len: int | None = None,
+                  batch: int | None = None):
+    """Prefill: returns (last-position logits [B, V], cache).
+
+    Under an active mesh: ``params`` this rank's stored blocks, ``tokens``
+    (and ``context``) its rows of a global batch of ``batch`` rows
+    (``sharding.serve_rows``; default the rows given times the batch axes'
+    size), and the cache returned this rank's blocks; logits [B_local, V]
+    with every vocab column."""
     max_len = max_len or tokens.shape[1]
-    logits, cache = model_prefill(cfg, params, tokens, max_len=max_len, context=context)
+    logits, cache = model_prefill(cfg, params, tokens, max_len=max_len, context=context,
+                                  plan=_serve_plan(cfg), batch=batch)
     return logits[:, -1, :], cache
 
 
 def serve_decode(cfg, params, cache, tokens):
-    """One decode step: (logits [B, V], new cache)."""
-    logits, cache = model_decode(cfg, params, cache, tokens)
+    """One decode step: (logits [B, V], new cache).  Under an active mesh on
+    this rank's blocks and rows, as ``serve_prefill``."""
+    logits, cache = model_decode(cfg, params, cache, tokens, plan=_serve_plan(cfg))
     return logits[:, -1, :], cache

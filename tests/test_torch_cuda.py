@@ -32,6 +32,10 @@ plain route's; K1's f32 states cast to bf16 bitwise its bf16 states, so
 serving without grad and a forward with grad give the same logits.  The MoE, Mamba, mLSTM, sLSTM and
 cross-attention blocks and the archs built of them (smoke widths, f32)
 within 1e-5 of the same code on the CPU (cuBLAS sums in another order).
+Sharded serving of reservoir_lm on two gloo ranks of the card, on (1, 2)
+and (2, 1): each rank's logits within twice one process's own row-split
+spread (floored at 1e-5, the CPU tests' logit tolerance) of the unsharded
+serve's, K1 launched once a layer a step on each rank.
 """
 
 import dataclasses
@@ -1045,3 +1049,64 @@ def test_sharded_step_on_1x2_is_bitwise_the_unsharded_step_on_the_card(dev, tmp_
                                              timeout=300, threads=None):
         assert same
         assert launches == calls > 0
+
+
+def _card_serving_rank(rank, shape):
+    """reservoir_lm's smoke config (f32) served on a ("data", "model") mesh
+    of ``shape`` over two gloo ranks on the one card, a prefill of 16
+    tokens then 4 decode steps, each rank also serving unsharded in its own
+    process: (the largest gap of the rank's logits to the unsharded serve's
+    rows, one process's row-split spread, K1's (launches, calls) of each
+    sharded step)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import forward, init_params
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime import steps
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = smoke_config("reservoir_lm")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 20), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    mesh = make_mesh(shape, ("data", "model"), device_type="cuda")
+    local = sharding.tree_shard(params, sharding.param_pspecs(cfg, mesh), mesh)
+    rows = sharding.serve_rows(toks, mesh)
+    plain, got, counts = [], [], []
+    with torch.no_grad():
+        logit, cache = steps.serve_prefill(cfg, params, toks[:, :16], max_len=20)
+        plain.append(logit)
+        for i in range(16, 20):
+            logit, cache = steps.serve_decode(cfg, params, cache, toks[:, i:i + 1])
+            plain.append(logit)
+        full, _ = forward(cfg, params, toks)
+        one, _ = forward(cfg, params, toks[:1])
+        spread = float((full[:1] - one).abs().max())
+        with sharding.use_mesh(mesh):
+            for i in range(15, 20):
+                scan_ops.dfr_scan.launches = scan_ops.dfr_scan.calls = 0
+                if i == 15:
+                    logit, cache = steps.serve_prefill(cfg, local, rows[:, :16], max_len=20,
+                                                       batch=4)
+                else:
+                    logit, cache = steps.serve_decode(cfg, local, cache, rows[:, i:i + 1])
+                counts.append((scan_ops.dfr_scan.launches, scan_ops.dfr_scan.calls))
+                got.append(logit)
+    spec = sharding.P(sharding.serve_batch_entry(mesh, 4))
+    gap = max(float((g - sharding.shard(w, spec, mesh)).abs().max())
+              for g, w in zip(got, plain, strict=True))
+    return gap, spread, counts
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
+def test_sharded_serving_on_two_ranks_of_the_card_is_one_process_within_its_spread(
+        dev, tmp_path, shape):
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import run_ranks
+
+    layers = smoke_config("reservoir_lm").n_layers
+    for gap, spread, counts in run_ranks(_card_serving_rank, 2, store_dir=str(tmp_path),
+                                         args=(shape,), timeout=300, threads=None):
+        assert gap <= max(2 * spread, 1e-5), (gap, spread)
+        assert all(tuple(c) == (layers, layers) for c in counts), counts

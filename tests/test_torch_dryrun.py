@@ -9,6 +9,11 @@
   moments, each leaf over the product of its spec's axes), beside the
   global batch the step is handed; its output is the same shards and the
   metrics.
+* The serving cells (prefill_32k, decode_32k, and long_500k for a
+  subquadratic arch) hold, on their rank, exactly the bytes the
+  reference's ``param_pspecs`` and ``cache_pspecs`` imply for the params
+  and the decode cache, beside the rank's rows of the tokens (and
+  context); a decode cell all-reduces over "model".
 * Eager counting under-counts nothing, so the calibration variants'
   solved total equals the direct count (exact up to float rounding of the
   sums: 1e-12 relative).
@@ -105,6 +110,55 @@ def test_dry_run_holds_the_shard_bytes_the_references_specs_imply(arch):
     assert rec["memory"]["temp_bytes"] is None
     assert rec["flops"] > 0 and rec["collectives"]["total"] > 0
     assert set(rec["collectives"]["counts"]) == {"all-gather", "all-reduce"}
+
+
+def _spec_blocks(spec, mesh) -> int:
+    n = 1
+    for entry in spec:
+        for a in (entry if isinstance(entry, tuple) else ((entry,) if entry else ())):
+            n *= mesh.shape[a]
+    return n
+
+
+def _local_bytes(shapes, specs, mesh) -> int:
+    """Per-rank bytes of a tree of shapes under a spec tree."""
+    jax = jdryrun.jax
+    leaves = jax.tree_util.tree_leaves(shapes)
+    spec_leaves = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda s: isinstance(s, jax.sharding.PartitionSpec))
+    return sum(int(np.prod(sh.shape)) * sh.dtype.itemsize // _spec_blocks(sp, mesh)
+               for sh, sp in zip(leaves, spec_leaves, strict=True))
+
+
+@pytest.mark.parametrize("arch,shape", [("granite-8b", "prefill_32k"),
+                                        ("granite-8b", "decode_32k"),
+                                        ("qwen3-moe-30b-a3b", "decode_32k"),
+                                        ("seamless-m4t-medium", "prefill_32k"),
+                                        ("jamba-v0.1-52b", "long_500k")])
+def test_serving_cells_hold_the_shard_bytes_the_references_specs_imply(arch, shape):
+    jax = jdryrun.jax
+    from repro.models import init_cache as jinit_cache
+    from repro.models import init_params as jinit_params
+
+    cfg, jcfg = _reduced(arch, get_config), _reduced(arch, jget_config)
+    rec = dryrun.measure(cfg, shape, "pod")
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    info = SHAPES[shape]
+    b, s = info["batch"], info["seq"]
+    rows = b // 16 if b % 16 == 0 else b
+    params = _local_bytes(jax.eval_shape(lambda: jinit_params(jcfg, jax.random.PRNGKey(0))),
+                          jsharding.param_pspecs(jcfg, mesh), mesh)
+    want = params + rows * (1 if info["kind"] == "decode" else s) * 4
+    if info["kind"] == "prefill" and cfg.n_context_tokens:
+        want += rows * cfg.n_context_tokens * (cfg.d_context or cfg.d_model) * 4
+    if info["kind"] == "decode":
+        cache = jax.eval_shape(lambda: jinit_cache(jcfg, b, s,
+                                                   context_len=jcfg.n_context_tokens))
+        want += _local_bytes(cache["units"], jsharding.cache_pspecs(jcfg, mesh, cache)["units"],
+                             mesh)
+        assert rec["collective_axes"]["all-reduce"].get("model", 0) > 0
+    assert rec["memory"]["argument_bytes"] == want
+    assert rec["flops"] > 0 and rec["memory"]["output_bytes"] > 0
 
 
 def _calib_cfg(arch):
