@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
    MZISine above the chain kernel's node limit, which SiliconMR raises at);
    the adjoint scan K1ᵀ on its edge grid (N ∈ {1, 31, 32, 33, 256, 900} ×
    B ∈ {1, 33, 64} × K ∈ {1, 2, 37} × beta 0 and 0.5, a non-zero gradient
-   of the final state), bitwise its plain version; the
+   of the final state), at the LM's [24, 512, 256] and at its node limit,
+   bitwise its plain version; the
    Gram kernel on the edges of its triangle
    grid (F at the 64-wide tile's edges and 901, C = 1 and 128, a ragged
    T, f32 and bf16 X, both thread layouts), G symmetric bitwise, a
@@ -938,15 +939,23 @@ LM_TRAIN_SMOKE_STEPS = 3
 LM_TRAIN_TOL = 2e-5
 LM_TRAIN_SMOKE = {"loss": (5.65335321, 5.68292475, 5.58096981),
                   "grad_norm": (1.77798784, 1.72750413, 1.75281179)}
-# the adjoint scan's edge grid (phase_scan_grad_checks): N at the float4
-# group's and the warp's edges and the path widths, B at the 8-lane block's
-# edges, every K, beta 0 (the mixer's form) and 0.5 (TPA saturation)
+# the adjoint scan's edge grid (phase_scan_grad_checks): N at the float4's
+# and the warp's edges (1, 31-33: rows off 16 bytes, staged by 4-byte
+# copies), the path's width and a long row, B of one lane and of the
+# kernel's earlier 8-lane blocks' edges, every K, beta 0 (the mixer's form)
+# and 0.5 (TPA saturation)
 GRAD_EDGE_N = (1, 31, 32, 33, 256, 900)
 GRAD_EDGE_B = (1, 33, 64)
 GRAD_EDGE_K = (1, 2, 37)
 GRAD_EDGE_BETA = (0.0, 0.5)
-# f32 ops of one adjoint node step (dfr_scan_grad.cu, node<false>): u, the
-# compare and select, g + q, c·λ and its add, α·λ, γ·gp, m·gp and its add
+# ... then whole at the LM train step's shape (phase_lm_training's K1ᵀ: 8
+# rows of a microbatch x 3 reservoir channels = 24 lanes, 512 tokens,
+# N = 256) and at the largest N a block holds
+GRAD_LM_BKN = (24, 512, 256)
+GRAD_LIMIT_BK = (2, 2)
+# f32 ops of one adjoint node step (dfr_scan_grad.cu: the chain's mul and
+# add; transition4's u, compare and select, g + q, α·λ, γ·gp, m·gp; the
+# summer's add)
 GRAD_OPS_PER_STEP = 10
 
 
@@ -1484,9 +1493,13 @@ def phase_scan_checks(dev) -> None:
 def phase_scan_grad_checks(dev) -> None:
     """The adjoint scan K1ᵀ against its plain version on the edge grid of
     its block layout (every N of GRAD_EDGE_N × B of GRAD_EDGE_B × K of
-    GRAD_EDGE_K × beta of GRAD_EDGE_BETA), from K1's own f32 states with a
-    non-zero gradient of the final state: dj and ds0 bitwise, one launch a
-    call; the forms it does not cover raise on the card."""
+    GRAD_EDGE_K × beta of GRAD_EDGE_BETA), then at the LM's whole train-step
+    shape GRAD_LM_BKN (beta 0, the mixer's form: its plain version takes
+    ≈ 10 s there; tests/test_torch_cuda.py also holds beta 0.5 there) and
+    at the largest N its block holds
+    (GRAD_LIMIT_BK), from K1's own f32 states with a non-zero gradient of
+    the final state: dj and ds0 bitwise, one launch a call; each case's
+    block layout reported; the forms it does not cover raise on the card."""
     import numpy as np
     import torch
 
@@ -1494,33 +1507,40 @@ def phase_scan_grad_checks(dev) -> None:
     from repro_torch.kernels.dfr_scan import ops
 
     t0 = time.perf_counter()
-    cases, worst = 0, 0.0
+    cases, worst, layouts = 0, 0.0, {}
+
+    def case(b, k, n, beta, seed):
+        rng = np.random.default_rng(seed)
+        model = SiliconMR(beta_tpa=beta)
+        j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32, device=dev)
+        s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32, device=dev)
+        mask = torch.as_tensor(rng.choice((0.0, 1.0), n), dtype=torch.float32, device=dev)
+        # K1's own states; its plain version's above K1's node limit (below K1ᵀ's)
+        states = (ops.dfr_scan(model, j, mask, s0) if n <= ops.max_nodes(False)
+                  else ops.dfr_scan_plain(model, j, mask, s0)[0])
+        g = torch.as_tensor(rng.standard_normal((b, k, n)), dtype=torch.float32, device=dev)
+        g_fin = torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32, device=dev)
+        what = f"K1ᵀ B={b} K={k} N={n} beta={beta}"
+        before = ops.dfr_scan_grad.launches
+        dj, ds0 = ops.dfr_scan_grad(model, j, mask, s0, states, g, g_fin)
+        check(ops.dfr_scan_grad.launches == before + 1, f"{what}: not one launch")
+        pj, ps = ops.dfr_scan_grad_plain(model, j, mask, s0, states, g, g_fin)
+        check(same_bits(dj, pj) and same_bits(ds0, ps),
+              f"{what}: vs plain {max_err(dj, pj)}, {max_err(ds0, ps)}")
+        layouts[f"{b}x{n}"] = ops.grad_layout(b, n)._asdict()
+        return max(max_err(dj, pj), max_err(ds0, ps))
+
     for n in GRAD_EDGE_N:
         for b in GRAD_EDGE_B:
             for k in GRAD_EDGE_K:
                 for beta in GRAD_EDGE_BETA:
-                    rng = np.random.default_rng(cases)
-                    model = SiliconMR(beta_tpa=beta)
-                    j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32,
-                                        device=dev)
-                    s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32,
-                                         device=dev)
-                    mask = torch.as_tensor(rng.choice((0.0, 1.0), n), dtype=torch.float32,
-                                           device=dev)
-                    states = ops.dfr_scan(model, j, mask, s0)
-                    g = torch.as_tensor(rng.standard_normal((b, k, n)), dtype=torch.float32,
-                                        device=dev)
-                    g_fin = torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32,
-                                            device=dev)
-                    what = f"K1ᵀ B={b} K={k} N={n} beta={beta}"
-                    before = ops.dfr_scan_grad.launches
-                    dj, ds0 = ops.dfr_scan_grad(model, j, mask, s0, states, g, g_fin)
-                    check(ops.dfr_scan_grad.launches == before + 1, f"{what}: not one launch")
-                    pj, ps = ops.dfr_scan_grad_plain(model, j, mask, s0, states, g, g_fin)
-                    worst = max(worst, max_err(dj, pj), max_err(ds0, ps))
-                    check(same_bits(dj, pj) and same_bits(ds0, ps),
-                          f"{what}: vs plain {max_err(dj, pj)}, {max_err(ds0, ps)}")
+                    worst = max(worst, case(b, k, n, beta, cases))
                     cases += 1
+    t_grid = time.perf_counter() - t0
+    lm_b, lm_k, lm_n = GRAD_LM_BKN
+    worst = max(worst, case(lm_b, lm_k, lm_n, 0.0, 1000))
+    limit_b, limit_k = GRAD_LIMIT_BK
+    worst = max(worst, case(limit_b, limit_k, ops.max_grad_nodes(), 0.0, 2000))
     j2, s2, st = (torch.zeros(shape, device=dev) for shape in ((2, 2), (2, 3), (2, 2, 3)))
     raised = {}
     for name, model, mask in (("MackeyGlass", MackeyGlass(), s2[0]),
@@ -1534,8 +1554,10 @@ def phase_scan_grad_checks(dev) -> None:
     emit({"phase": "kernel_checks", "kernel": "dfr_scan_grad", "edge_grid": {
               "N": GRAD_EDGE_N, "B": GRAD_EDGE_B, "K": GRAD_EDGE_K, "beta": GRAD_EDGE_BETA,
               "cases": cases, "bitwise_vs_plain": True, "max_abs_err": worst,
-              "max_nodes": ops.max_grad_nodes(), "raised": raised,
-              "seconds": time.perf_counter() - t0}})
+              "max_nodes": ops.max_grad_nodes(), "raised": raised, "grid_seconds": t_grid,
+              "lm_shape_bkn": list(GRAD_LM_BKN), "lm_shape_beta": 0.0,
+              "node_limit_bkn": [limit_b, limit_k, ops.max_grad_nodes()],
+              "layouts": layouts, "seconds": time.perf_counter() - t0}})
 
 
 def phase_gram_checks(dev) -> None:
@@ -3846,7 +3868,8 @@ def phase_lm_training(dev, card: str) -> dict:
         LM_TRAIN_STEPS + LM_TRAIN_RESUMED, which resumes from the
         checkpoint at step LM_TRAIN_STEPS and runs the rest;
     (b) one more step of the same under ``torch.profiler``: the device's
-        busy share, and K1's and K1ᵀ's share of the busy time;
+        busy share, and K1's and K1ᵀ's share of the busy time and device ms
+        a launch;
     (c) every leaf's gradient through K1 and K1ᵀ against the plain route's
         (both scans' plain versions, on the card), full width cut to 2
         layers, 2 × 32 tokens on numpy weights: bitwise, else within
@@ -3964,9 +3987,12 @@ def phase_lm_training(dev, card: str) -> dict:
         train_step(cfg, opt, state, batch)
     finally:
         mixer.dfr_scan, mixer.dfr_scan_grad = scan, grad
-    out["profile_one_step"] = profile_calls(
+    out["profile_one_step"] = prof = profile_calls(
         lambda: train_step(cfg, opt, state, batch), 1, "steps",
         shares={"k1": "dfr_scan_chain_kernel", "k1t": "dfr_scan_grad_kernel"})
+    for label, kernel in (("k1", "dfr_scan"), ("k1t", "dfr_scan_grad")):
+        if f"{label}_device_ms" in prof:  # device ms a launch in the profiled step
+            prof[f"{label}_ms_per_call"] = prof[f"{label}_device_ms"] / per_step[kernel]
     del state, batch
     torch.cuda.empty_cache()
 
@@ -4924,7 +4950,9 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         first SPLIT_CHECK_K periods of the same inputs (whose time is
         ``plain_ms``), timed at the full shape, with its byte bound and its
         chain bound (K·N steps of its chain step, a mul and an add, at the
-        latency ``chain_cycles`` measures: ``grad_step``)."""
+        latency ``chain_cycles`` measures: ``grad_step``); also timed with
+        TPA saturation (beta 0.5, the helpers' division) on the same inputs,
+        and its block layout."""
         model, j, mask, s0, states, g, g_fin = args
         b, k = j.shape
         n = mask.shape[-1]
@@ -4942,6 +4970,8 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         bound, by = bound_ms(4 * (2 * b * k * n + 2 * b * k + 3 * b * n + n),
                              GRAD_OPS_PER_STEP * b * k * n)
         t = times(lambda: scan_ops.dfr_scan_grad(*args), 5, bound)
+        tpa_args = (dataclasses.replace(model, beta_tpa=0.5), *args[1:])
+        tpa = kernel_times(lambda: scan_ops.dfr_scan_grad(*tpa_args), 5)
         chain_bound = k * n * cycles["grad_step"] / (clocks["max"] * 1e3)
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/dfr_scan_grad.cu",
@@ -4957,6 +4987,8 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                      "chain_cycles_per_step": cycles,
                      "cycles_per_node_at_max_clock": t["ms"] * clocks["max"] * 1e3 / (k * n),
                      "sm_clock_mhz": clocks,
+                     "beta_0p5": {key: tpa[key] for key in ("ms", "cold_ms", "call_ms")},
+                     "layout": scan_ops.grad_layout(b, n)._asdict(),
                      "lanes_per_block": scan_ops.grad_layout(b, n).lanes, "shape_bkn": [b, k, n]})
 
     grad_row("dfr_scan_grad_lm_train", tr["k1t"], tr["launches"]["dfr_scan_grad"],

@@ -31,7 +31,12 @@ adjoint scan K1ᵀ (``csrc/dfr_scan_grad.cu``; no TPU kernel stands behind
 it: the reference differentiates its ``lax.scan`` with ``jax.grad``).  It
 takes K1's f32 states and recomputes the branch bits from them; its plain
 version ``dfr_scan_grad_plain`` runs the kernel's ops in its order, so the
-two agree bitwise.  It counts ``launches`` and ``calls`` as K1 does.
+two agree bitwise.  The kernel reads every input in the layout the caller
+holds ([B, K] and [B, K, N], as K1 emits its states) and writes dj [B, K]
+and ds0 [B, N]: the wrapper allocates those two and nothing else for f32
+contiguous inputs.  ``grad_layout`` gives its block layout (lanes a block,
+the staging ring's depth, the nodes a handoff).  It counts ``launches``
+and ``calls`` as K1 does.
 
 Both launches are also ``torch.library`` operators,
 ``torch.ops.repro_torch.dfr_scan`` and ``dfr_scan_grad``, whose fakes
@@ -45,6 +50,7 @@ cost a call; the operators' CUDA kernels are the same functions.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -66,11 +72,11 @@ LANES_PER_BLOCK = 8
 # (``kMaxParams`` in dfr_scan.cu).
 MAX_PARAMS = 16
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_void_p)
 
 
 class ScanLayout(NamedTuple):
@@ -172,14 +178,11 @@ def _scan_cuda(j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, model_id: 
     if b and k_periods:
         jt = j.to(torch.float32).t().contiguous()
         mt = (mask.to(torch.float32).t() if per_lane else mask.to(torch.float32)).contiguous()
-        fn = _build.load("dfr_scan").dfr_scan_launch
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        fn = _build.entry("dfr_scan", "dfr_scan_launch", _ARGTYPES)
         consts = (ctypes.c_float * len(params))(*params)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(jt.data_ptr(), mt.data_ptr(), int(per_lane), fin.data_ptr(),
-                     out.data_ptr(), int(out_bf16), b,
-                     k_periods, n_nodes, *layout, model_id, consts, len(params), stream)
+        err = _build.launch(fn, dev, jt.data_ptr(), mt.data_ptr(), int(per_lane),
+                            fin.data_ptr(), out.data_ptr(), int(out_bf16), b, k_periods,
+                            n_nodes, *layout, model_id, consts, len(params))
         _build.check(err, "dfr_scan")
         dfr_scan.launches += 1
     return out.permute(2, 0, 1).contiguous(), fin.t().to(j.dtype).contiguous()
@@ -253,8 +256,42 @@ _COUNTERS = dfr_scan    # the counters' owner, should a test rebind the module's
 # K1ᵀ: the adjoint scan (``kernels/csrc/dfr_scan_grad.cu``)
 # --------------------------------------------------------------------------
 
-_GRAD_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 4 \
+_GRAD_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9 + (ctypes.c_float,) * 4 \
     + (ctypes.c_void_p,)
+
+# K1ᵀ's block (csrc/dfr_scan_grad.cu): eight warps, a chain warp, four
+# helper warps, a summer and a stager (and one that waits, so that the
+# chain has its sub-partition to itself).  The chain hands a group
+# of nodes at a time to a helper warp and back: GRAD_GROUP, or
+# GRAD_GROUP_WIDE when a block holds one lane and a period has two such
+# groups or more (fewer handoffs; a helper then still finishes a group in
+# the period's other nodes, which two lanes a block would not: PERF.md PR
+# 25).  The stager keeps rows GRAD_PREFETCH_NODES nodes of chain ahead of
+# the helpers (about 2 us at 8.3 cycles a node, more than a bulk copy from
+# HBM takes), in a ring of 2 to GRAD_MAX_DEPTH period slots.  One lane a
+# block while the batch's blocks fit the card's SMS SMs (the chain's time
+# is the same whatever the grouping, and a block's helpers then serve one
+# lane), up to GRAD_MAX_LANES lanes a block beyond.
+GRAD_GROUP = 64
+GRAD_GROUP_WIDE = 128
+GRAD_PREFETCH_NODES = 512
+GRAD_MAX_DEPTH = 32
+GRAD_MAX_LANES = 8
+SMS = 132
+
+
+class GradLayout(NamedTuple):
+    """Block layout of the adjoint scan: ``lanes`` a block, ``blocks``,
+    ``stride`` (floats a row), ``depth`` (period slots of the staging
+    ring), ``group`` (nodes a handoff between the chain and the helpers)
+    and ``smem_bytes`` (dynamic shared memory a block)."""
+
+    lanes: int
+    blocks: int
+    stride: int
+    depth: int
+    group: int
+    smem_bytes: int
 
 
 def grad_constants(model) -> tuple[float, float, float, float]:
@@ -270,35 +307,58 @@ def grad_constants(model) -> tuple[float, float, float, float]:
     return alpha, gamma, beta, _one_minus_f32(alpha)
 
 
-def _grad_rows(lanes: int) -> int:
-    """Rows a block of the adjoint scan keeps: three state slots, two
-    gradient slots and the q row a lane, and the mask."""
-    return 6 * lanes + 1
+def grad_smem_bytes(lanes: int, n_nodes: int, depth: int, group: int = GRAD_GROUP) -> int:
+    """Shared memory of an adjoint-scan block: an mbarrier a ring slot and
+    two a node group, j[p], j[p+1] of each lane a slot, and the handoff
+    counts (one a node group, one a slot, four), in whole 16 bytes; then
+    rows of ``row_stride(N)`` floats: the mask, and a lane's a and c' rows,
+    two term rows and ``depth`` state and gradient slots."""
+    groups = -(-n_nodes // group)
+    head = 8 * (depth + 2 * groups) + 8 * depth * lanes + 4 * (groups + depth + 4)
+    return -(-head // 16) * 16 + 4 * row_stride(n_nodes) * (1 + lanes * (4 + 2 * depth))
 
 
+@functools.cache
 def max_grad_nodes() -> int:
-    """The largest N whose rows fit a block of the adjoint scan."""
-    cap = SMEM_PER_BLOCK // (4 * _grad_rows(LANES_PER_BLOCK))
-    return cap - (cap - 4) % 8
+    """The largest N whose rows fit a block of the adjoint scan: one lane,
+    a ring of two slots."""
+    n = SMEM_PER_BLOCK // (4 * 9)
+    while _grad_layout(1, n, 1).smem_bytes > SMEM_PER_BLOCK:
+        n -= 1
+    return n
 
 
-def grad_layout(b: int, n_nodes: int) -> ScanLayout:
-    """The adjoint scan's block layout for B lanes of N nodes (K1's lanes a
-    block and row pitch); raises ValueError above ``max_grad_nodes()``."""
+def _grad_layout(b: int, n_nodes: int, lanes: int | None) -> GradLayout:
+    """``grad_layout`` without the node limit, at ``lanes`` a block where
+    given (the layout variants ``launch.time_kernels --plans`` times)."""
+    lanes = lanes or next((la for la in (1, 2, 4) if -(-b // la) <= SMS), GRAD_MAX_LANES)
+    depth = min(GRAD_MAX_DEPTH, max(2, 1 + -(-GRAD_PREFETCH_NODES // n_nodes)))
+    while depth > 2 and grad_smem_bytes(lanes, n_nodes, depth) > SMEM_PER_BLOCK:
+        depth -= 1
+    while lanes > 1 and grad_smem_bytes(lanes, n_nodes, depth) > SMEM_PER_BLOCK:
+        lanes //= 2
+    group = GRAD_GROUP_WIDE if lanes == 1 and n_nodes >= 2 * GRAD_GROUP_WIDE else GRAD_GROUP
+    return GradLayout(lanes, -(-b // lanes), row_stride(n_nodes), depth, group,
+                      grad_smem_bytes(lanes, n_nodes, depth, group))
+
+
+def grad_layout(b: int, n_nodes: int) -> GradLayout:
+    """The adjoint scan's block layout for B lanes of N nodes (the rule
+    above; fewer lanes a block where the rows would not fit); raises
+    ValueError above ``max_grad_nodes()``."""
     limit = max_grad_nodes()
     if n_nodes > limit:
         raise ValueError(f"the adjoint scan keeps a block's rows in shared memory: N = "
                          f"{n_nodes} exceeds its limit of {limit} nodes")
-    stride = row_stride(n_nodes)
-    return ScanLayout(LANES_PER_BLOCK, -(-b // LANES_PER_BLOCK), stride,
-                      4 * stride * _grad_rows(LANES_PER_BLOCK))
+    return _grad_layout(b, n_nodes, None)
 
 
 def grad_plan(b: int, n_nodes: int) -> dict:
-    """The adjoint scan's launch plan, read on either route (``_calls``)."""
-    stride = row_stride(n_nodes)
-    return {"smem_bytes": 4 * stride * _grad_rows(LANES_PER_BLOCK), "row_bytes": 4 * stride,
-            "multi_tile": b > LANES_PER_BLOCK}
+    """The adjoint scan's launch plan, read on either route (``_calls``);
+    unlike ``grad_layout`` it does not raise above the node limit."""
+    lay = _grad_layout(b, n_nodes, None)
+    return {"smem_bytes": lay.smem_bytes, "row_bytes": 4 * lay.stride,
+            "multi_tile": b > lay.lanes}
 
 
 def dfr_scan_grad_plain(model, j, mask, s0, states, g_states, g_fin):
@@ -351,26 +411,26 @@ def _grad_cuda(j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, states: to
                g_states: torch.Tensor, g_fin: torch.Tensor, alpha: float, gamma: float,
                beta: float, keep: float) -> tuple[torch.Tensor, torch.Tensor]:
     """K1ᵀ's launch: (dj [B, K], ds0 [B, N]) f32."""
+    return _grad_launch(j, mask, s0, states, g_states, g_fin, (alpha, gamma, beta, keep),
+                        grad_layout(j.shape[0], mask.shape[0]))
+
+
+def _grad_launch(j, mask, s0, states, g_states, g_fin, consts, layout: GradLayout):
+    """K1ᵀ under ``layout``, on the inputs as the caller holds them ([B, K]
+    and [B, K, N], already f32 and contiguous on the training path): the
+    only allocations are dj and ds0."""
     b, k_periods = j.shape
     n_nodes = mask.shape[0]
-    layout = grad_layout(b, n_nodes)
-    dev = j.device
     f32 = torch.float32
-    jt = j.to(f32).t().contiguous()
-    st = states.to(f32).permute(1, 2, 0).contiguous()
-    gt = g_states.to(f32).permute(1, 2, 0).contiguous()
-    s0t = s0.to(f32).t().contiguous()
-    gft = g_fin.to(f32).t().contiguous()
-    m = mask.to(f32).contiguous()
-    djt = torch.empty((k_periods, b), dtype=f32, device=dev)
-    ds0t = torch.empty((n_nodes, b), dtype=f32, device=dev)
+    ins = [t.to(f32).contiguous() for t in (j, mask, s0, states, g_states, g_fin)]
+    dj = torch.empty((b, k_periods), dtype=f32, device=j.device)
+    ds0 = torch.empty((b, n_nodes), dtype=f32, device=j.device)
     fn = _build.entry("dfr_scan_grad", "dfr_scan_grad_launch", _GRAD_ARGTYPES)
-    err = _build.launch(fn, dev, jt.data_ptr(), m.data_ptr(), s0t.data_ptr(), st.data_ptr(),
-                        gt.data_ptr(), gft.data_ptr(), djt.data_ptr(), ds0t.data_ptr(), b,
-                        k_periods, n_nodes, *layout, alpha, gamma, beta, keep)
+    err = _build.launch(fn, j.device, *(t.data_ptr() for t in ins), dj.data_ptr(),
+                        ds0.data_ptr(), b, k_periods, n_nodes, *layout, *consts)
     _build.check(err, "dfr_scan_grad")
     dfr_scan_grad.launches += 1
-    return djt.t().contiguous(), ds0t.t().contiguous()
+    return dj, ds0
 
 
 # K1ᵀ as an operator, ``torch.ops.repro_torch.dfr_scan_grad``: its CUDA

@@ -22,11 +22,12 @@ finished its spin in both timed loops (else the device waited and the
 times count host time).  ``chip_smoke.py``'s kernels line times every row with
 it.
 
-The command times the block copy, the readout apply and the adjoint scan
-K1ᵀ at the shapes of the paths they ride (the ``contracts`` fixture's
-[2048, 1024] f32 with a 32 × 256 tile; the bf16 streamed evaluation's
-[64, 256, 900] and the serving tick's [4096, 32, 64] f32, C = 1; the LM
-train step's [24, 512, 256], where a checkout has K1ᵀ), beside their byte
+The command times the block copy, the readout apply, the adjoint scan
+K1ᵀ and K1 at the LM's decode shape, at the shapes of the paths they ride
+(the ``contracts`` fixture's [2048, 1024] f32 with a 32 × 256 tile; the
+bf16 streamed evaluation's [64, 256, 900] and the serving tick's
+[4096, 32, 64] f32, C = 1; the LM train step's [24, 512, 256], beta 0 and
+0.5, where a checkout has K1ᵀ; decode's [24, 1, 256]), beside their byte
 bounds and
 the PyTorch call that computes the same (``x.clone()``,
 ``torch.baddbmm`` on features already f32) and, for the readout, PyTorch's
@@ -35,8 +36,9 @@ checkout of another commit, e.g. ``git archive <commit> | tar -x -C DIR``)
 it times DIR's kernels too, each checkout in a process of its own that
 builds its own sources, in turns parent, this, this, parent.  With
 ``--plans`` it also times the readout kernel under other layouts than its
-launch plan picks, and the block copy's SIMT route where the wrapper takes
-TMA (``plan_variants``).  Needs a GPU.
+launch plan picks, K1ᵀ under every lanes a block and handoff group
+(``adjoint_variants``), and the block copy's SIMT route where the wrapper
+takes TMA (``plan_variants``).  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -152,6 +154,7 @@ def _rows(reps: int) -> list[dict]:
                      # one read of the features and nothing else: PyTorch's row sums
                      "read_floor": kernel_times(lambda: x.sum(-1), reps)})
     rows += _adjoint_rows(dev, gen, reps)
+    rows.append(_decode_row(dev, gen, reps))
     x = torch.randn((2048, 1024), generator=gen, device=dev)
     tile = (32, 256)
     out = copy_ops.block_copy(x, tile)
@@ -164,17 +167,15 @@ def _rows(reps: int) -> list[dict]:
     return rows
 
 
-def _adjoint_rows(dev, gen, reps: int) -> list[dict]:
-    """K1ᵀ at the LM train step's [24, 512, 256] from K1's own f32 states
-    and a normal gradient of the states, where this checkout has it; its
-    outputs' checksums let two checkouts be compared."""
+def _adjoint_inputs(dev, gen, b: int, k: int = 512, n: int = 256):
+    """K1ᵀ's inputs at the LM train step's shape: K1's own f32 states of
+    SiliconMR with the mixer's mask, a normal gradient of the states, and
+    the model at beta 0 and 0.5 (TPA saturation)."""
+    import dataclasses
+
+    from repro_torch.core import SiliconMR, make_mask
     from repro_torch.kernels.dfr_scan import ops as scan_ops
 
-    if not hasattr(scan_ops, "dfr_scan_grad"):
-        return []
-    from repro_torch.core import SiliconMR, make_mask
-
-    b, k, n = 24, 512, 256
     model = SiliconMR()
     j = torch.rand((b, k), generator=gen, device=dev)
     s0 = torch.zeros((b, n), device=dev)
@@ -182,13 +183,47 @@ def _adjoint_rows(dev, gen, reps: int) -> list[dict]:
     states = scan_ops.dfr_scan(model, j, mask, s0)
     g = torch.randn((b, k, n), generator=gen, device=dev)
     g_fin = torch.zeros((b, n), device=dev)
-    dj, ds0 = scan_ops.dfr_scan_grad(model, j, mask, s0, states, g, g_fin)
+    models = {0.0: model, 0.5: dataclasses.replace(model, beta_tpa=0.5)}
+    return models, (j, mask, s0, states, g, g_fin)
+
+
+def _adjoint_rows(dev, gen, reps: int) -> list[dict]:
+    """K1ᵀ at the LM train step's [24, 512, 256], beta 0 (the mixer's form)
+    and 0.5, where this checkout has it; its outputs' checksums let two
+    checkouts be compared."""
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+
+    if not hasattr(scan_ops, "dfr_scan_grad"):
+        return []
+    b, k, n = 24, 512, 256
+    models, args = _adjoint_inputs(dev, gen, b, k, n)
     n_bytes = 4 * (2 * b * k * n + 2 * b * k + 3 * b * n + n)
-    return [{"name": "dfr_scan_grad", "shape": [b, k, n],
-             "dj_sum": float(dj.double().sum()), "ds0_sum": float(ds0.double().sum()),
-             "bound_ms": n_bytes / PEAK_HBM_BYTES * 1e3,
-             **kernel_times(lambda: scan_ops.dfr_scan_grad(model, j, mask, s0, states, g,
-                                                           g_fin), reps)}]
+    rows = []
+    for beta, model in models.items():
+        dj, ds0 = scan_ops.dfr_scan_grad(model, *args)
+        rows.append({"name": "dfr_scan_grad" if beta == 0 else f"dfr_scan_grad_beta{beta}",
+                     "shape": [b, k, n], "beta": beta,
+                     "dj_sum": float(dj.double().sum()), "ds0_sum": float(ds0.double().sum()),
+                     "bound_ms": n_bytes / PEAK_HBM_BYTES * 1e3,
+                     **kernel_times(lambda m=model: scan_ops.dfr_scan_grad(m, *args), reps)})
+    return rows
+
+
+def _decode_row(dev, gen, reps: int) -> dict:
+    """K1 at the LM decode step's [24, 1, 256] (one token a step, f32), the
+    shape where the host's time a call (``call_ms``) outweighs the
+    device's."""
+    from repro_torch.core import SiliconMR, make_mask
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+
+    b, n = 24, 256
+    j = torch.rand((b, 1), generator=gen, device=dev)
+    s0 = torch.rand((b, n), generator=gen, device=dev)
+    mask = make_mask(n, seed=1, device=dev)
+    model = SiliconMR()
+    return {"name": "dfr_scan_lm_decode", "shape": [b, 1, n],
+            **kernel_times(lambda: scan_ops.dfr_scan(model, j, mask, s0, return_final=True),
+                           reps)}
 
 
 def _launch_with(plan: dict, x, w, y):
@@ -245,7 +280,7 @@ def plan_variants(reps: int) -> list[dict]:
                         "dtype": str(dtype).removeprefix("torch."), **plan,
                         "chosen": all(chosen[k] == v for k, v in plan.items()),
                         **kernel_times(_launch_with(plan, x, w, y), reps)})
-    rows += _adjoint_rows(dev, gen, reps)
+    out += adjoint_variants(dev, gen, reps)
     x = torch.randn((2048, 1024), generator=gen, device=dev)
     tile = (32, 256)
     y = torch.empty_like(x)
@@ -263,6 +298,35 @@ def plan_variants(reps: int) -> list[dict]:
     return out
 
 
+def adjoint_variants(dev, gen, reps: int) -> list[dict]:
+    """K1ᵀ at the LM's [24, 512, 256] and at B = 64 under every lanes a
+    block of ``grad_layout`` (1, 2, 4, 8) and both handoff groups (64, 128
+    nodes), beta 0 and 0.5, each checked bitwise against the layout the
+    wrapper picks: what that choice rests on."""
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+
+    out = []
+    for b in (24, 64):
+        models, args = _adjoint_inputs(dev, gen, b)
+        n = args[1].shape[0]
+        for beta, model in models.items():
+            consts = scan_ops.grad_constants(model)
+            want = scan_ops.dfr_scan_grad(model, *args)
+            chosen = scan_ops.grad_layout(b, n)
+            for lanes in (1, 2, 4, 8):
+                for group in (64, 128):
+                    lay = scan_ops._grad_layout(b, n, lanes)
+                    lay = lay._replace(group=group, smem_bytes=scan_ops.grad_smem_bytes(
+                        lay.lanes, n, lay.depth, group))
+                    got = scan_ops._grad_launch(*args, consts, lay)
+                    out.append({"kernel": "dfr_scan_grad", "shape": [b, args[0].shape[1], n],
+                                "beta": beta, **lay._asdict(), "chosen": lay == chosen,
+                                "bitwise": all(torch.equal(x, y) for x, y in zip(got, want)),
+                                **kernel_times(lambda m=lay: scan_ops._grad_launch(
+                                    *args, consts, m), reps, cold=False)})
+    return out
+
+
 def _worker(reps: int) -> None:
     import repro_torch
 
@@ -277,7 +341,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the results here (JSON lines)")
     ap.add_argument("--plans", action="store_true",
-                    help="also time the readout kernel under other layouts and the copy's "
+                    help="also time the readout kernel and K1ᵀ under other layouts and the copy's "
                          "SIMT route at the fixture's tile (this checkout only)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -28,8 +28,9 @@ SIMT), each case asserting the route it took; the LM's
 reservoir mixer on K1 bitwise its plain route; an LM's decode within the
 reference's 2e-4 / 2e-3 of its forward.  The adjoint scan K1ᵀ bitwise its
 plain version; a reservoir_lm's gradients through K1 and K1ᵀ bitwise the
-plain route's; K1's f32 states cast to bf16 bitwise its bf16 states, so
-serving without grad and a forward with grad give the same logits.  The MoE, Mamba, mLSTM, sLSTM and
+plain route's; K1ᵀ allocates only dj and ds0; K1's f32 states cast to
+bf16 bitwise its bf16 states, so serving without grad and a forward with
+grad give the same logits.  The MoE, Mamba, mLSTM, sLSTM and
 cross-attention blocks and the archs built of them (smoke widths, f32)
 within 1e-5 of the same code on the CPU (cuBLAS sums in another order).
 Sharded serving of reservoir_lm on two gloo ranks of the card, on (1, 2)
@@ -851,26 +852,81 @@ def test_lm_archs_on_the_card_match_the_cpu_and_decode_as_they_forward(dev, arch
     torch.testing.assert_close(step[:, 0], full[:, -1], atol=2e-4, rtol=2e-3)
 
 
-@pytest.mark.parametrize("beta", [0.0, 0.5])
-@pytest.mark.parametrize("b,k,n", [(1, 1, 1), (33, 2, 31), (64, 37, 33), (24, 16, 256),
-                                   (9, 3, 900)])
-def test_adjoint_scan_kernel_is_bitwise_its_plain_version(dev, b, k, n, beta):
-    """K1ᵀ against its plain version from K1's own f32 states, with a
-    non-zero gradient of the final state: dj and ds0 bitwise (the same
-    separately rounded ops in the same order), one launch a call."""
-    rng = np.random.default_rng(b * k + n)
+def _adjoint_inputs(dev, b, k, n, beta, seed):
+    """K1's own f32 states (its plain version's above K1's node limit, which
+    is below K1ᵀ's) and normal gradients of the states and the final state,
+    for K1ᵀ at [B, K, N]."""
+    rng = np.random.default_rng(seed)
     model = SiliconMR(beta_tpa=beta)
     j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32, device=dev)
     s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32, device=dev)
     mask = make_mask(n, seed=1, device=dev)
-    states = scan_ops.dfr_scan(model, j, mask, s0)
+    if n <= scan_ops.max_nodes(False):
+        states = scan_ops.dfr_scan(model, j, mask, s0)
+    else:
+        states = scan_ops.dfr_scan_plain(model, j, mask, s0)[0]
     g = torch.as_tensor(rng.standard_normal((b, k, n)), dtype=torch.float32, device=dev)
     g_fin = torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32, device=dev)
+    return model, j, mask, s0, states, g, g_fin
+
+
+def _adjoint_bitwise(args):
     before = scan_ops.dfr_scan_grad.launches
-    dj, ds0 = scan_ops.dfr_scan_grad(model, j, mask, s0, states, g, g_fin)
+    dj, ds0 = scan_ops.dfr_scan_grad(*args)
     assert scan_ops.dfr_scan_grad.launches == before + 1
-    pj, ps = scan_ops.dfr_scan_grad_plain(model, j, mask, s0, states, g, g_fin)
-    assert torch.equal(dj, pj) and torch.equal(ds0, ps)
+    pj, ps = scan_ops.dfr_scan_grad_plain(*args)
+    assert torch.equal(dj.view(torch.int32), pj.view(torch.int32))
+    assert torch.equal(ds0.view(torch.int32), ps.view(torch.int32))
+
+
+@pytest.mark.parametrize("beta", [0.0, 0.5])
+@pytest.mark.parametrize("b,k,n", [(1, 1, 1), (33, 2, 31), (64, 37, 33), (24, 16, 256),
+                                   (9, 3, 900), (24, 512, 256), (133, 3, 33), (265, 2, 31)])
+def test_adjoint_scan_kernel_is_bitwise_its_plain_version(dev, b, k, n, beta):
+    """K1ᵀ against its plain version from K1's own f32 states, with a
+    non-zero gradient of the final state: dj and ds0 bitwise (the same
+    separately rounded ops in the same order), one launch a call; at the
+    LM's [24, 512, 256] (its 128-node handoffs), at ragged rows (N = 1, 31,
+    33: 4-byte copies) and at batches that leave a block partly filled (133
+    lanes at two a block, 265 at four)."""
+    _adjoint_bitwise(_adjoint_inputs(dev, b, k, n, beta, b * k + n))
+
+
+def test_adjoint_scan_kernel_at_its_node_limit_and_off_16_bytes(dev):
+    """K1ᵀ bitwise its plain version at the largest N its block holds, and
+    on inputs whose rows start off 16 bytes though N is a multiple of 4
+    (views one float into their storage: the kernel stages them by 4-byte
+    copies instead of bulk copies)."""
+    n = scan_ops.max_grad_nodes()
+    _adjoint_bitwise(_adjoint_inputs(dev, 2, 2, n, 0.0, 11))
+    model, j, mask, s0, states, g, g_fin = _adjoint_inputs(dev, 5, 7, 64, 0.5, 12)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    _adjoint_bitwise((model, j, mask, shifted(s0), shifted(states), shifted(g), g_fin))
+
+
+def test_adjoint_scan_allocates_only_its_outputs(dev):
+    """A call on f32 contiguous inputs allocates dj [B, K] and ds0 [B, N]
+    and nothing else: no [K, N, B] copy of the states or their gradient
+    (1.6 MB each here) and no transposed outputs.  The bound adds 4 KB for
+    the caching allocator's rounding of the two blocks (512 bytes each)."""
+    b, k, n = 24, 64, 256
+    args = _adjoint_inputs(dev, b, k, n, 0.0, 13)
+    scan_ops.dfr_scan_grad(*args)               # built and bound
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dj, ds0 = scan_ops.dfr_scan_grad(*args)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= 4 * (b * k + b * n) + 4096, extra
+    assert args[4].numel() * 4 > 50 * (extra + 1)
 
 
 def test_adjoint_scan_raises_for_what_it_does_not_cover(dev):

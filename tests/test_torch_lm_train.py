@@ -200,9 +200,118 @@ def test_adjoint_scan_raises_for_forms_it_does_not_cover():
         scan_ops.dfr_scan_grad(SiliconMR(), j, mask, s0, st.bfloat16(), st, s0)
     with pytest.raises(ValueError, match="g_states"):
         scan_ops.dfr_scan_grad(SiliconMR(), j, mask, s0, st, st[:, :2], s0)
-    assert scan_ops.grad_layout(64, 256).blocks == 8
+    assert scan_ops.grad_layout(64, 256).blocks == 64       # one lane a block
     with pytest.raises(ValueError, match="exceeds its limit"):
         scan_ops.grad_layout(8, scan_ops.max_grad_nodes() + 1)
+
+
+# (B, N) -> (lanes a block, blocks, row pitch, ring slots, nodes a handoff,
+# shared bytes) of K1ᵀ's block layout
+GRAD_LAYOUTS = {
+    (24, 256): (1, 24, 260, 3, 128, 11568),     # the LM's microbatch: a lane on each of 24 SMs
+    (64, 256): (1, 64, 260, 3, 128, 11568),
+    (132, 256): (1, 132, 260, 3, 128, 11568),   # the card's SMs, one lane each
+    (133, 33): (2, 67, 36, 17, 64, 11600),      # past them: two lanes a block, the last half full
+    (1000, 256): (8, 125, 260, 3, 64, 84576),
+    (9, 900): (1, 9, 900, 2, 128, 32624),       # long rows: the ring at its least
+    (1, 1): (1, 1, 4, 32, 64, 1792),            # short rows: the ring at its most
+    (4096, 1180): (4, 1024, 1180, 2, 64, 156256),   # fewer lanes a block where eight would not fit
+}
+
+
+@pytest.mark.parametrize("b,n", sorted(GRAD_LAYOUTS))
+def test_adjoint_scan_layout_and_plan(b, n):
+    """K1ᵀ's block layout: one lane a block while the batch's blocks fit the
+    card's SMs (then 2, 4, 8), 128-node handoffs when one lane has a block
+    and a period holds two of them, the ring's depth from N, every block
+    within the card's shared memory; the launch plan the contract checker
+    reads is the layout's."""
+    lay = scan_ops.grad_layout(b, n)
+    assert tuple(lay) == GRAD_LAYOUTS[(b, n)]
+    assert lay.lanes * lay.blocks >= b > (lay.blocks - 1) * lay.lanes
+    assert lay.smem_bytes == scan_ops.grad_smem_bytes(lay.lanes, n, lay.depth, lay.group)
+    assert lay.smem_bytes <= scan_ops.SMEM_PER_BLOCK and lay.stride % 4 == 0
+    assert scan_ops.grad_plan(b, n) == {"smem_bytes": lay.smem_bytes, "row_bytes": 4 * lay.stride,
+                                        "multi_tile": b > lay.lanes}
+
+
+def test_adjoint_scan_node_limit():
+    """The largest N fits one lane a block with a ring of two slots, N + 1
+    does not, and the limit is no lower than the kernel's before (1180
+    nodes at eight lanes a block); above it the plan still reads, for the
+    contract checker to flag."""
+    limit = scan_ops.max_grad_nodes()
+    assert limit >= 1180
+    lay = scan_ops.grad_layout(1, limit)
+    assert (lay.lanes, lay.depth) == (1, 2) and lay.smem_bytes <= scan_ops.SMEM_PER_BLOCK
+    assert scan_ops.grad_plan(1, limit + 1)["smem_bytes"] > scan_ops.SMEM_PER_BLOCK
+
+
+def _adjoint_dataflow(model, j, mask, s0, states, g, g_fin):
+    """K1ᵀ's dataflow (csrc/dfr_scan_grad.cu), element by element in f32:
+    the a row starts as g_fin; each transition k -> k-1 (k = K .. 0) turns
+    lam[k] into a[k-1] = g[k-1] + gamma gp[k] (q[0] at k = 0) and c'[k-1]
+    (c[k, 0] at node N-1, 1 before the last period), and writes the terms
+    of dj[k], summed N-1 -> 0; the chain runs each period between; ds0's
+    node N-1 takes one more chain step with c[0, 0]."""
+    f = np.float32
+    alpha, gamma, beta, keep = (f(v) for v in scan_ops.grad_constants(model))
+    j, m, s0, states, g, g_fin = (t.numpy() for t in (j, mask, s0, states, g, g_fin))
+    b, k_periods = j.shape
+    n = m.shape[0]
+    dj, ds0 = np.zeros((b, k_periods), f), np.zeros((b, n), f)
+    for lane in range(b):
+        a, c, lam = g_fin[lane].copy(), np.ones(n, f), f(0)
+        for k in range(k_periods, -1, -1):
+            s = states[lane, k - 1] if k else s0[lane]
+            jk = j[lane, k] if k < k_periods else f(0)
+            jp = j[lane, k - 1] if k else f(0)
+            terms = np.zeros(n, f)
+            for i in range(n):
+                if k == k_periods:
+                    q = a[i]
+                else:
+                    gp = f(alpha * a[i])
+                    if beta:
+                        den = f(f(1) + f(beta * f(f(jk * m[i]) + f(gamma * s[i]))))
+                        gp = f(gp / f(den * den))
+                    q, terms[i] = f(gamma * gp), f(m[i] * gp)
+                a[i] = f(g[lane, k - 1, i] + q) if k else q
+                if i < n - 1 and k:
+                    c[i] = f(1) if f(jp * m[i + 1]) > s[i] else keep
+                elif i == n - 1 and k < k_periods:
+                    c[i] = f(1) if f(jk * m[0]) > s[i] else keep
+            if k < k_periods:
+                acc = f(0)
+                for i in range(n - 1, -1, -1):
+                    acc = f(acc + terms[i])
+                dj[lane, k] = acc
+            if k:
+                for i in range(n - 1, -1, -1):
+                    lam = a[i] = f(a[i] + f(c[i] * lam))
+        a[n - 1] = f(a[n - 1] + f(c[n - 1] * lam))
+        ds0[lane] = a
+    return torch.from_numpy(dj), torch.from_numpy(ds0)
+
+
+@pytest.mark.parametrize("b,k,n,beta", [(1, 1, 1, 0.0), (2, 3, 5, 0.5), (3, 4, 8, 0.0),
+                                        (2, 5, 33, 0.5)])
+def test_adjoint_scan_dataflow_is_bitwise_the_plain_version(b, k, n, beta):
+    """The kernel's split of the adjoint into per-node transitions (c'
+    wrapping at node N-1, g_fin as the first q, q[0] as ds0, the extra step
+    at N-1) gives the plain version's bits."""
+    rng = np.random.default_rng(b * k + n)
+    model = SiliconMR(beta_tpa=beta)
+    j = torch.as_tensor(rng.uniform(0, 1, (b, k)), dtype=torch.float32)
+    s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32)
+    mask = torch.as_tensor(rng.choice((0.0, 1.0), n), dtype=torch.float32)
+    states = scan_ops.dfr_scan(model, j, mask, s0)
+    g = torch.as_tensor(rng.standard_normal((b, k, n)), dtype=torch.float32)
+    g_fin = torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32)
+    args = (model, j, mask, s0, states, g, g_fin)
+    for got, want in zip(_adjoint_dataflow(*args), scan_ops.dfr_scan_grad_plain(*args),
+                         strict=True):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------
