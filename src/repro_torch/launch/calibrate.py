@@ -22,10 +22,11 @@ bytes), with one more for training:
   (+ an E'=2 encoder variant for enc-dec archs.)
 
 ``step_unit`` is what a unit costs once a step whatever the microbatches:
-the port's train step gathers the params and reduces the gradients once a
-step, where the reference's GSPMD step does its collectives inside the
-microbatch loop; the reference's A/B/C algebra is the case step_unit = 0
-(the FLOPs).  The variants run at the microbatch batch, as the
+the port's train step gathers each unit's params and reduce-scatters their
+gradients inside the microbatch loop, as the reference's GSPMD step does,
+and all-reduces once a step the gradients of the leaves no batch axis
+shards; the reference's A/B/C algebra is the case step_unit = 0 (the
+FLOPs).  The variants run at the microbatch batch, as the
 reference's do.  There is no ``bytes accessed`` count without a compiler.
 
 Writes build/dryrun/calib__<arch>__<shape>__pod.json.
@@ -102,12 +103,11 @@ def solve(cfg, kind: str, measured) -> dict:
         rec.update({"unit": unit, "base": base})
         total = {k: base[k] + cfg.n_units * unit[k] for k in _METRICS}
     if enc:
-        # the encoder runs once a microbatch; its params are gathered once a step
+        # the encoder runs, and gathers its units' params, once a microbatch
         enc_unit = _sub(measured(1, 1, 2, 1), a)
         rec["enc_unit"] = enc_unit
         mult = cfg.microbatches if kind == "train" else 1
-        total["flops"] += mult * (enc - 1) * enc_unit["flops"]
-        total["coll"] += (enc - 1) * enc_unit["coll"]
+        total = {k: total[k] + mult * (enc - 1) * enc_unit[k] for k in _METRICS}
     rec["total"] = total
     return rec
 

@@ -26,6 +26,11 @@ devices.  For each cell it
 ``temp_bytes`` (XLA's scratch) has no counterpart without a compiler and
 is written as null.  The scan kernels K1 and K1ᵀ run on ``meta`` through
 their operators' fake shape functions (``kernels/dfr_scan/ops.py``).
+The train cells run the sharded train step (``runtime/steps.py``): the
+rank's state blocks, each unit's leaves gathered as it runs, Megatron
+tensor parallelism over "model", so the FLOPs counted on the rank leave
+out the products it moves to the other model ranks, and the gradients
+come back by reduce-scatter.
 The serving cells (prefill, decode) run the sharded serving steps: the
 rank's param blocks under ``param_pspecs``, its rows of the batch where
 the batch axes divide it (else every row: long_500k), and for decode its

@@ -5,13 +5,18 @@ card (or the CPU).  Launched on several ranks (``torchrun``'s environment:
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``)
 it trains on the debug mesh, (1, WORLD_SIZE) ("data", "model"), or with
 ``--production-mesh`` on the 16 × 16 pod mesh, which needs exactly 256
-ranks (``launch.mesh.make_mesh`` raises otherwise).  The backend is NCCL
-for ranks on cards, gloo on the CPU or with ``--backend gloo``.  Every
-rank draws the params from a ``torch.Generator`` seeded with ``--seed``
-and keeps its shard of them (``runtime.steps.state_pspecs``); the batches
-come from the synthetic token stream of ``data.pipeline`` (numpy,
-deterministic in (seed, step)), the global batch on every rank, copied to
-its device each step (the step cuts the rank's rows).  Examples:
+ranks (``launch.mesh.make_mesh`` raises otherwise).  On the debug mesh
+every rank is on "model": each sees every row, and the step runs
+Megatron tensor-parallel over them (each rank its block of the attention
+heads, the MLP columns and rows, Mamba's channels, the MoE experts and
+the vocab), gathering each unit's remaining leaves as it runs.  The
+backend is NCCL for ranks on cards, gloo on the CPU or with ``--backend
+gloo``.  Every rank draws the params from a ``torch.Generator`` seeded
+with ``--seed`` and keeps its shard of them
+(``runtime.steps.state_pspecs``); the batches come from the synthetic
+token stream of ``data.pipeline`` (numpy, deterministic in (seed, step)),
+the global batch on every rank, copied to its device each step (the step
+cuts the rank's rows).  Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch reservoir_lm \\
       --steps 200 --batch 8 --seq 256 --d-model 256 --layers 4          # on cuda

@@ -19,13 +19,19 @@ TPU kernel there).  Two differences of the framework, kept small:
 Cross-attention (the VLM and encoder-decoder families) attends to a
 context's k, v computed once (``context_kv``) through a tanh-gated residual.
 
-Under a serving plan (``plan``: ``parallel.sharding.ServePlan``) the blocks
-run tensor-parallel over "model" on the leaves as the plan hands them over,
-and tell a block of this rank from a whole leaf by its shape: q heads and
-kv heads column-parallel, the out projection row-parallel and its partial
-sums all-reduced; the dense MLP likewise; the embedding vocab-parallel (a
-rank looks up the tokens of its rows, zeros elsewhere, and the all-reduce
-adds one non-zero a token: exact) and the logits' vocab columns all-gathered.
+Under a plan (``plan``: ``parallel.sharding.Plan``) the blocks run
+Megatron tensor-parallel over "model" on the leaves as the plan hands them
+over, and tell a block of this rank from a whole leaf by its shape: q heads
+and kv heads column-parallel, the out projection row-parallel and its
+partial sums all-reduced (g); the dense MLP likewise; the embedding
+vocab-parallel (a rank looks up the tokens of its rows, zeros elsewhere,
+and the all-reduce adds one non-zero a token: exact).  Each input that
+enters a rank's block of the compute passes Megatron's f, whose backward
+sums its gradient over "model": x before the column-parallel products,
+whole kv heads before a rank takes those its q heads group over, and the
+q/k norm scales, which every rank applies to its own heads.  A serving
+plan all-gathers the last position's vocab columns of the logits; a train
+plan keeps the rank's vocab block of every position (``losses.lm_loss``).
 A KV cache cut along its sequence (``seq``: ``SeqSlice``) is attended in
 pieces, each rank's partial softmax over its slice combined over the
 slice's axes.  Without a plan every function is as before.
@@ -226,15 +232,26 @@ def _sdpa_chunked(cfg, q, k, v, *, causal: bool, q_offset: int = 0, chunk: int =
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
-def _qkv(cfg, p, x, positions):
-    """q, k, v [B, S, heads, hd] of x, qk-normed and rotated."""
+def _tp(plan, t, block: bool):
+    """``t`` through Megatron's f where it enters a rank's block of the
+    compute (``block``) under a plan, else ``t``."""
+    return plan.copy_to_model(t) if plan is not None and block else t
+
+
+def _qkv(cfg, p, x, positions, plan=None):
+    """q, k, v [B, S, heads, hd] of x, qk-normed and rotated; under a plan
+    this rank's q heads (and kv heads, where "model" divides them)."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    q_block = p["wq"].shape[1] < cfg.n_heads
+    kv_block = p["wk"].shape[1] < cfg.n_kv_heads
+    x_tp = _tp(plan, x, q_block or kv_block)
+    q = torch.einsum("bsd,dhk->bshk", x_tp, p["wq"].to(dt))
+    xkv = x_tp if kv_block else x
+    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(dt))
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, _tp(plan, p["q_norm"], q_block), cfg.norm_eps)
+        k = rmsnorm(k, _tp(plan, p["k_norm"], kv_block), cfg.norm_eps)
     cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -259,7 +276,7 @@ def apply_attn(cfg, p, x, *, positions, cache=None, causal=True, plan=None, seq=
     just computed, a later step over every rank's slice (``_sdpa_sliced``).
     """
     dt = x.dtype
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv(cfg, p, x, positions, plan)
 
     new_cache = None
     if cache is None:
@@ -297,7 +314,8 @@ def apply_cross_attn(cfg, p, x, *, context_kv, plan=None, seq=None):
     the context positions) or, at prefill, the whole context's k, v."""
     dt = x.dtype
     k, v = context_kv
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    q = torch.einsum("bsd,dhk->bshk", _tp(plan, x, p["wq"].shape[1] < cfg.n_heads),
+                     p["wq"].to(dt))
     if seq is not None and seq.axes:
         out = _sdpa_sliced(cfg, plan, q, k.to(dt), v.to(dt), seq, causal=False)
     else:
@@ -306,10 +324,12 @@ def apply_cross_attn(cfg, p, x, *, context_kv, plan=None, seq=None):
     return torch.tanh(p["gate"].to(torch.float32)).to(dt) * y
 
 
-def context_kv(cfg, p, context):
+def context_kv(cfg, p, context, plan=None):
     """Cross-attention k, v [B, T, KV, hd] from context embeddings
-    [B, T, d_ctx], in the context's dtype."""
+    [B, T, d_ctx], in the context's dtype; under a plan this rank's kv
+    heads where "model" divides them."""
     dt = context.dtype
+    context = _tp(plan, context, p["wk"].shape[1] < cfg.n_kv_heads)
     k = torch.einsum("btd,dhk->bthk", context, p["wk"].to(dt))
     v = torch.einsum("btd,dhk->bthk", context, p["wv"].to(dt))
     return k, v
@@ -335,13 +355,14 @@ def _out_proj(cfg, p, out, plan):
     wo = p["wo"]
     y = torch.einsum("bshk,hkd->bsd", out, wo.to(out.dtype))
     if plan is not None and wo.shape[0] < cfg.n_heads:
-        plan.sum_model(y)
+        y = plan.sum_model(y)
     return y
 
 
 def _sdpa_heads(cfg, plan, q, k, v, *, causal: bool, q_offset: int = 0):
     """``_sdpa`` for this rank's q heads: where k, v hold every kv head and
-    q a block of the heads, the kv heads that block's heads group over."""
+    q a block of the heads, the kv heads that block's heads group over
+    (after f: each rank's gradient reaches only those)."""
     hq, kvh = q.shape[2], k.shape[2]
     if hq < cfg.n_heads and kvh == cfg.n_kv_heads:
         g = cfg.n_heads // cfg.n_kv_heads
@@ -350,7 +371,7 @@ def _sdpa_heads(cfg, plan, q, k, v, *, causal: bool, q_offset: int = 0):
                                       f"({cfg.n_heads} heads, {cfg.n_kv_heads} kv heads)")
         q0 = plan.tp_rank * hq
         lo, hi = q0 // g, (q0 + hq - 1) // g + 1
-        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        k, v = plan.copy_to_model(k)[:, :, lo:hi], plan.copy_to_model(v)[:, :, lo:hi]
     return _sdpa(cfg, q, k, v, causal=causal, q_offset=q_offset)
 
 
@@ -366,7 +387,7 @@ def _sdpa_sliced(cfg, plan, q, k, v, seq: SeqSlice, *, causal: bool, q_offset: i
     b, sq, hq, dh = q.shape
     gathered = "model" in seq.axes and hq < cfg.n_heads
     if gathered:
-        q = plan.gather_model(q, dim=2)
+        q = plan.gather_model(q, dim=2, backward="reduce-scatter")
     h, kvh = q.shape[2], k.shape[2]
     f32 = torch.float32
     qg = q.reshape(b, sq, kvh, h // kvh, dh)
@@ -412,15 +433,17 @@ def _gelu(x):
 
 
 def apply_mlp(cfg, p, x, *, plan=None):
-    """The gated MLP; under a serving plan a block of its columns
-    (``wi_*``) and rows (``wo``), the partial sums added over "model"."""
+    """The gated MLP; under a plan a block of its columns (``wi_*``) and
+    rows (``wo``): x through f, the partial sums added over "model" (g)."""
     dt = x.dtype
     act = F.silu if cfg.mlp_act == "silu" else _gelu
+    block = p["wo"].shape[0] < cfg.d_ff
+    x = _tp(plan, x, block)
     g = act(x @ p["wi_gate"].to(dt))
     u = x @ p["wi_up"].to(dt)
     y = (g * u) @ p["wo"].to(dt)
-    if plan is not None and p["wo"].shape[0] < cfg.d_ff:
-        plan.sum_model(y)
+    if plan is not None and block:
+        y = plan.sum_model(y)
     return y
 
 
@@ -437,8 +460,8 @@ def embed_defs(cfg) -> dict:
 
 
 def embed_tokens(cfg, p, tokens, *, plan=None):
-    """Token embeddings; under a serving plan a block of the vocab rows:
-    this rank's rows looked up, zeros elsewhere, summed over "model"."""
+    """Token embeddings; under a plan a block of the vocab rows: this
+    rank's rows looked up, zeros elsewhere, summed over "model" (g)."""
     table = p["embedding"]
     if plan is None or table.shape[0] == cfg.vocab_size:
         x = table[tokens]
@@ -453,14 +476,18 @@ def embed_tokens(cfg, p, tokens, *, plan=None):
 def logits_from_hidden(cfg, p, x, *, plan=None):
     """Logits [B, S, V] of hidden states x [B, S, d].  Under a serving plan
     only the last position's [B, 1, V], a block of the vocab columns a rank
-    all-gathered over "model"."""
+    all-gathered over "model"; under a train plan this rank's block of the
+    vocab columns [B, S, V_local], x through f."""
     dt = x.dtype
     table = p["lm_head"].to(dt) if "lm_head" in p else p["embedding"].to(dt).T
+    block = table.shape[1] < cfg.vocab_size
+    if plan is not None and plan.train:
+        x = _tp(plan, x, block)
     logits = (x @ table).to(resolve_dtype(cfg.logit_dtype))
-    if plan is None:
+    if plan is None or plan.train:
         return logits
     logits = logits[:, -1:]
-    return plan.gather_model(logits, dim=-1) if table.shape[1] < cfg.vocab_size else logits
+    return plan.gather_model(logits, dim=-1, backward="slice") if block else logits
 
 
 def norm_defs(cfg, name: str = "scale") -> dict:

@@ -10,13 +10,16 @@ steps of whole-tensor ops), whose first component ∏dA folds the initial
 state h0 in exactly as the reference does.  Sums associate in another
 tree, so values agree to f32 round-off.  Decode is the same path at S = 1.
 
-Under a serving plan the block is channel-parallel over ``d_in``: the conv,
-``dt_proj``, ``dt_bias``, ``a_log``, ``d_skip``, the scan and the cache
-blocks (conv window and h) are this rank's channels; ``x_proj`` and
-``out_proj`` are row-parallel, their partial sums added over "model".
-``in_proj``'s sharded dim is the concatenation [x | z], so a contiguous
-block of it does not hold x and z of the same channels: its product is
-all-gathered over "model" and each rank keeps x and z of its own channels.
+Under a plan (``parallel.sharding.Plan``) the block is channel-parallel
+over ``d_in``: the conv, ``dt_proj``, ``dt_bias``, ``a_log``, ``d_skip``,
+the scan and the cache blocks (conv window and h) are this rank's
+channels; ``x_proj`` and ``out_proj`` are row-parallel, their partial sums
+added over "model" (Megatron's g; ``x_proj``'s sum then enters the rank's
+channels again through f).  ``in_proj``'s sharded dim is the concatenation
+[x | z], so a contiguous block of it does not hold x and z of the same
+channels: x enters through f, the product is all-gathered over "model",
+and each rank keeps x and z of its own channels, so the gather's backward
+is a reduce-scatter (each rank's gradient reaches only its channels).
 """
 
 from __future__ import annotations
@@ -63,14 +66,14 @@ def _ssm_inputs(cfg, p, xc, plan=None):
     """Per-step discretised (dA, dB·x, C).
 
     xc [B, S, d_in] (post-conv, post-silu) -> dA [B,S,d_in,N], dBx same,
-    c [B,S,N], all f32.  Under a serving plan xc is this rank's channels,
-    and ``x_proj``'s partial sums are added over "model".
+    c [B,S,N], all f32.  Under a plan xc is this rank's channels, and
+    ``x_proj``'s partial sums are added over "model" (g, then f).
     """
     n = cfg.mamba_d_state
     r = _dt_rank(cfg)
     proj = xc @ p["x_proj"].to(xc.dtype)                         # [B,S,r+2N]
     if plan is not None and xc.shape[-1] < cfg.d_model * cfg.mamba_expand:
-        plan.sum_model(proj)
+        proj = plan.copy_to_model(plan.sum_model(proj))
     dt_in, b_ssm, c_ssm = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus((dt_in @ p["dt_proj"].to(xc.dtype)).to(torch.float32) + p["dt_bias"])
     a = -torch.exp(p["a_log"])                                   # [d_in, N] f32
@@ -94,15 +97,18 @@ def apply_mamba(cfg, p, x, *, cache=None, plan=None):
     """x [B, S, d]; cache=(conv_state [B, d_conv-1, d_in], h [B, d_in, N]).
 
     Returns (y [B, S, d], new_cache); cache=None -> no state returned.
-    Under a serving plan (module doc) d_in is this rank's channels.
+    Under a plan (module doc) d_in is this rank's channels.
     """
     dt_ = x.dtype
     d_in = cfg.d_model * cfg.mamba_expand
-    xz = x @ p["in_proj"].to(dt_)
-    if plan is not None and xz.shape[-1] < 2 * d_in:
-        xz = plan.gather_model(xz, dim=-1)
+    split = plan is not None and p["conv_b"].shape[0] < d_in
+    if plan is not None and p["in_proj"].shape[1] < 2 * d_in:
+        xz = plan.copy_to_model(x) @ p["in_proj"].to(dt_)
+        xz = plan.gather_model(xz, dim=-1, backward="reduce-scatter" if split else "slice")
+    else:
+        xz = x @ p["in_proj"].to(dt_)
     xr, z = torch.chunk(xz, 2, dim=-1)                           # [B,S,d_in] each
-    if plan is not None and p["conv_b"].shape[0] < d_in:
+    if split:
         d_in = p["conv_b"].shape[0]
         own = slice(plan.tp_rank * d_in, (plan.tp_rank + 1) * d_in)
         xr, z = xr[..., own], z[..., own]
@@ -132,7 +138,7 @@ def apply_mamba(cfg, p, x, *, cache=None, plan=None):
     y = y * F.silu(z)
     out = y @ p["out_proj"].to(dt_)
     if plan is not None and p["out_proj"].shape[0] < cfg.d_model * cfg.mamba_expand:
-        plan.sum_model(out)
+        out = plan.sum_model(out)
     return out, new_cache
 
 

@@ -32,18 +32,21 @@ return the same buffers: the reference's server donates them.  A
 cross-attention entry holds the context's k, v, computed once at prefill
 in the context's dtype, as the reference stores them.
 
-Serving under a mesh takes the plan explicitly (``plan``: a
-``parallel.sharding.ServePlan``; nothing here reads the active mesh, so a
-train step's forward under ``use_mesh`` with whole params is untouched).
-The params are this rank's stored blocks (``param_pspecs``); each block
-gathers the leaves it uses at entry (``ServePlan.leaves``) and runs
-tensor-parallel over "model" (``layers``, ``moe``, ``mamba``); the cache
-holds this rank's blocks under ``cache_pspecs``, allocated as such
-(``init_cache(plan=...)``), its spec tree under ``"specs"``.  The mLSTM /
-sLSTM and reservoir blocks run whole on the rank's rows (the recurrent
-caches gathered over "model" for the step and cut back after; K1 a layer a
-step on the rank's B_local·R lanes), and the logits are the last
-position's, every vocab column on every "model" rank.
+Under a mesh every entry point takes the plan explicitly (``plan``: a
+``parallel.sharding.Plan``; nothing here reads the active mesh).  The
+params are this rank's stored blocks (``param_pspecs``); each block
+gathers the leaves it uses at entry (``Plan.leaves``) and runs
+tensor-parallel over "model" (``layers``, ``moe``, ``mamba``).  The mLSTM /
+sLSTM and reservoir blocks run whole on the rank's rows (K1 a layer on the
+rank's B_local·R lanes).  In ``forward`` (a train plan) a unit's leaves are
+gathered inside the function ``remat`` wraps, so a ``"full"`` recompute
+gathers them again, and under ``"none"`` autograd keeps the gathered unit
+for the backward; the logits are this rank's vocab block of every
+position.  In serving the cache holds this rank's blocks under
+``cache_pspecs``, allocated as such (``init_cache(plan=...)``), its spec
+tree under ``"specs"``; the recurrent caches of the mLSTM / sLSTM blocks
+are gathered over "model" for the step and cut back after, and the logits
+are the last position's, every vocab column on every "model" rank.
 """
 
 from __future__ import annotations
@@ -189,17 +192,6 @@ def activation_axes(cfg=None) -> tuple[str, ...]:
         else ("pod", "data")
 
 
-def _shard_activations(x, cfg=None):
-    """Anchor [B, ...] activations: under an active mesh, this rank's rows
-    of the batch over ``activation_axes(cfg)`` (the rank's block of the
-    reference's sharding constraint); ``x`` itself without a mesh.  The
-    port's forward takes the rows it is given: the train step anchors each
-    microbatch here, once."""
-    from ..parallel.sharding import maybe_shard
-
-    return maybe_shard(x, activation_axes(cfg))
-
-
 # --------------------------------------------------------------------------
 # Block application
 # --------------------------------------------------------------------------
@@ -228,7 +220,7 @@ def _apply_block(cfg, blk, p, x, *, positions, context=None, cache=None, plan=No
         elif context is None:
             raise ValueError(f"{cfg.name}: a cross-attention block needs a context")
         else:
-            ctx_kv = layers.context_kv(cfg, mp, context)
+            ctx_kv = layers.context_kv(cfg, mp, context, plan)
         y = layers.apply_cross_attn(cfg, mp, h, context_kv=ctx_kv, plan=plan, seq=seq)
     elif blk.mixer == "mamba":
         y, new_cache = mamba.apply_mamba(cfg, mp, h, cache=cache, plan=plan)
@@ -254,9 +246,13 @@ def _apply_block(cfg, blk, p, x, *, positions, context=None, cache=None, plan=No
     return x, new_cache, aux
 
 
-def _unit_params(units: tuple, u: int) -> tuple:
-    """Unit repeat ``u``'s params: each unit position's leaves at index u."""
-    return tuple({k: v[u] for k, v in pos.items()} for pos in units)
+def _unit_params(units: tuple, u: int, plan=None, path=("units",)) -> tuple:
+    """Unit repeat ``u``'s params: each unit position's leaves at index u;
+    under a plan, as the unit's blocks use them (``Plan.leaves`` of the
+    subtree at ``path``)."""
+    if plan is None:
+        return tuple({k: v[u] for k, v in pos.items()} for pos in units)
+    return tuple(plan.leaves(pos, (*path, i), index=u) for i, pos in enumerate(units))
 
 
 _SAVED_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
@@ -287,30 +283,37 @@ def _remat(cfg, fn):
 # --------------------------------------------------------------------------
 
 
-def forward(cfg: ModelConfig, params: dict, tokens, *, context=None):
+def forward(cfg: ModelConfig, params: dict, tokens, *, context=None, plan=None):
     """tokens [B, S] -> (logits [B, S, V], moe_aux scalar).
 
     ``context`` [B, T, d]: image-patch / audio-frame stub embeddings for
     cross-attention families (encoded first if the config has an encoder).
+    ``plan``: a train plan; ``params`` are then this rank's stored blocks,
+    ``tokens`` (and ``context``) its rows, and the logits its vocab block
+    (module doc).
     """
-    x = layers.embed_tokens(cfg, params["embed"], tokens)
+    embed = params["embed"] if plan is None else plan.leaves(params["embed"], ("embed",))
+    x = layers.embed_tokens(cfg, embed, tokens, plan=plan)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     if cfg.n_encoder_layers:
-        context = encode(cfg, params, context)
+        context = encode(cfg, params, context, plan=plan)
 
-    def unit_step(x, aux, unit_params):
+    def unit_step(x, aux, u):
+        unit_params = _unit_params(params["units"], u, plan)
         for pos, blk in enumerate(cfg.unit):
             x, _, a = _apply_block(cfg, blk, unit_params[pos], x, positions=positions,
-                                   context=context)
+                                   context=context, plan=plan)
             aux = aux + a
         return x, aux
 
     step = _remat(cfg, unit_step)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(cfg.n_units):
-        x, aux = step(x, aux, _unit_params(params["units"], u))
-    x = layers.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return layers.logits_from_hidden(cfg, params["embed"], x), aux
+        x, aux = step(x, aux, u)
+    norm = params["final_norm"] if plan is None else plan.leaves(params["final_norm"],
+                                                                 ("final_norm",))
+    x = layers.rmsnorm(x, norm["scale"], cfg.norm_eps)
+    return layers.logits_from_hidden(cfg, embed, x, plan=plan), aux
 
 
 def _encoder_view(cfg: ModelConfig) -> ModelConfig:
@@ -319,8 +322,8 @@ def _encoder_view(cfg: ModelConfig) -> ModelConfig:
 
 def encode(cfg: ModelConfig, params: dict, frames, *, plan=None):
     """Bidirectional encoder over stub frame embeddings [B, T, d], in
-    ``cfg.dtype``; under a serving plan on this rank's blocks (module
-    doc)."""
+    ``cfg.dtype``; under a plan on this rank's blocks, each unit's leaves
+    gathered inside the function ``remat`` wraps (module doc)."""
     if frames is None:
         raise ValueError(f"{cfg.name}: the encoder needs context frames")
     enc_cfg = _encoder_view(cfg)
@@ -328,16 +331,14 @@ def encode(cfg: ModelConfig, params: dict, frames, *, plan=None):
     positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
     enc = params["encoder"]
 
-    def unit_step(x, unit_params):
-        return _apply_block(enc_cfg, _ENCODER_BLOCK, unit_params[0], x, positions=positions,
+    def unit_step(x, u):
+        (unit_params,) = _unit_params(enc["units"], u, plan, ("encoder", "units"))
+        return _apply_block(enc_cfg, _ENCODER_BLOCK, unit_params, x, positions=positions,
                             plan=plan)[0]
 
     step = _remat(cfg, unit_step)
     for u in range(cfg.n_encoder_layers):
-        if plan is None:
-            x = step(x, _unit_params(enc["units"], u))
-        else:
-            x = step(x, (plan.leaves(enc["units"][0], ("encoder", "units", 0), index=u),))
+        x = step(x, u)
     norm = enc["final_norm"] if plan is None else plan.leaves(enc["final_norm"],
                                                               ("encoder", "final_norm"))
     return layers.rmsnorm(x, norm["scale"], cfg.norm_eps)

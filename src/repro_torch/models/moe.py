@@ -9,27 +9,26 @@ count, as in the reference (not a sort).
 
 Two routes, chosen as the reference chooses them:
 
-* ``_moe_dense_tokens`` → ``_moe_block_dense`` (no mesh, or a mesh whose
-  model axis does not divide the experts): every expert's FFN runs
-  densely over the whole [B, E, C+1, d] capacity buffer;
-* ``_moe_block_sharded`` (expert parallelism under an active mesh with a
-  "model" axis that divides E): each model rank runs its E/tp experts on
-  the buffer of its rows, combines its own experts' slots per token, sums
-  the k slots, and one token-sized all-reduce over "model" completes the
-  combine (``repro/models/moe.py:87-125``).  Its backward sums the
-  inputs' gradients over "model" (each rank's reach only its own experts'
-  slots, so the sum adds disjoint blocks to zeros).  The expert weights
-  arrive whole: the train step gathers every param over its spec's axes
-  (the reference gathers them over "data" inside the block);
-* under a serving plan (``plan``; no active mesh is read) the expert
-  weights arrive as this rank's E/tp block and run as they are, by the
-  same combine; the router, gathered whole, routes every token over all
-  experts on every rank.  Where "model" does not divide E the weights
-  arrive whole and the dense route runs.
+* ``_moe_dense_tokens`` → ``_moe_block_dense`` (no plan, or a plan whose
+  model axis divides neither the experts nor their FFN width): every
+  expert's FFN runs densely over the whole [B, E, C+1, d] capacity buffer;
+* ``_own_experts`` under a plan (``plan``: ``parallel.sharding.Plan``;
+  serving and the train step alike) whose expert weights are this rank's
+  block: its E/tp experts (expert parallelism, where "model" divides E;
+  ``repro/models/moe.py:87-125``), else every expert's block of the FFN
+  columns and rows (where "model" divides only moe_d_ff).  Each rank runs
+  its block over the buffer of its rows, combines its slots per token,
+  sums the k slots, and one token-sized all-reduce over "model" (g)
+  completes the combine.  The tokens it dispatches and the combine
+  weights pass Megatron's f, so the backward sums their gradients over
+  "model" (each rank's reaches only its own slots); the weights'
+  gradients stay the rank's blocks.  The router, gathered whole, routes
+  every token over all experts on every rank.
 
 Returns the Switch load-balance aux loss beside the output, as the
-reference does.  Under a mesh each rank's aux is its own rows' (the
-reference's is the global batch's; ROADMAP.md Queue 3).
+reference does.  Under a train plan its two per-expert means are the whole
+batch's: averaged over the ranks that cut the rows (one all-reduce, and
+one in the backward), so every rank's aux is the reference's.
 """
 
 from __future__ import annotations
@@ -88,41 +87,11 @@ def _moe_block_dense(cfg, buf, params, flat_e, safe_pos, w, cap):
     return _combine_local(out, flat_e, safe_pos, w, 0, cfg.n_experts, cap)
 
 
-class _SumOverModel(torch.autograd.Function):
-    """All-reduce over "model" forward; the gradient passes as it is (the
-    loss downstream is the same on every model rank)."""
-
-    @staticmethod
-    def forward(ctx, y, mesh):
-        from ..parallel import sharding
-
-        return sharding.all_reduce(y.clone(), "model", mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _CopyToModel(torch.autograd.Function):
-    """Identity forward; the gradient is summed over "model" (each rank's
-    reaches only its own experts' slots)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        from ..parallel import sharding
-
-        return sharding.all_reduce(g.contiguous().clone(), "model", ctx.mesh), None
-
-
 def _own_experts(cfg, buf, wg, wu, wo, j, flat_e, safe_pos, w, cap):
     """Block ``j`` of the experts (weights ``wg``/``wu``/``wo``, E_loc of
-    them): their FFN over their slice of the buffer, the combine of their
-    slots, the k slots summed per token: y [G, S, d], this rank's part."""
+    them, each whole or a block of its FFN width): their FFN over their
+    slice of the buffer, the combine of their slots, the k slots summed per
+    token: y [G, S, d], this rank's part."""
     e_loc = wg.shape[0]
     own = slice(j * e_loc, (j + 1) * e_loc)
     out_e = _expert_ffn(cfg, buf[:, own], wg, wu, wo)
@@ -131,36 +100,6 @@ def _own_experts(cfg, buf, wg, wu, wo, j, flat_e, safe_pos, w, cap):
     # [G, S, d] (token-sized) instead of [G, S·k, d].
     g_loc, sk, dd = y.shape
     return torch.sum(y.reshape(g_loc, sk // cfg.top_k, cfg.top_k, dd), dim=2)
-
-
-def _moe_block_sharded(cfg, mesh, buf, params, flat_e, safe_pos, w, cap):
-    """Expert-parallel route: this model rank's E/tp experts, their FFN,
-    the combine of their slots, the k slots summed, then the all-reduce
-    over "model": y [G, S, d]."""
-    from ..parallel import sharding
-
-    tp = sharding.axis_sizes(mesh)["model"]
-    e_loc = cfg.n_experts // tp
-    j = sharding.coordinate(mesh, "model")
-    buf, w = _CopyToModel.apply(buf, mesh), _CopyToModel.apply(w, mesh)
-    wg, wu, wo = (_CopyToModel.apply(params[k], mesh) for k in ("wi_gate", "wi_up", "wo"))
-    own = slice(j * e_loc, (j + 1) * e_loc)
-    y = _own_experts(cfg, buf, wg[own], wu[own], wo[own], j, flat_e, safe_pos, w, cap)
-    return _SumOverModel.apply(y, mesh)
-
-
-def _sharded_usable(cfg, mesh) -> bool:
-    """The reference's test for the expert-parallel route: an active mesh
-    with a "model" axis that divides the experts.  (The reference also asks
-    the batch axes to divide the groups, for its shard_map; the port's
-    buffer holds this rank's rows already.)  The model ranks must hold the
-    same rows, which zero3's split of the batch over "model" breaks."""
-    if mesh is None or cfg.strategy == "zero3":
-        return False
-    from ..parallel import sharding
-
-    tp = sharding.axis_sizes(mesh).get("model", 0)
-    return bool(tp) and cfg.n_experts % tp == 0
 
 
 def _moe_dense_tokens(cfg, buf, params, flat_e, safe_pos, w, cap):
@@ -186,7 +125,7 @@ def route(cfg, p, x):
 
 def apply_moe(cfg, p, x, *, plan=None):
     """x [B, S, d] -> (y [B, S, d], aux_loss scalar f32).  ``plan``: a
-    serving plan, whose expert leaves are this rank's block (module doc)."""
+    plan, whose expert leaves may be this rank's block (module doc)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
@@ -196,6 +135,8 @@ def apply_moe(cfg, p, x, *, plan=None):
     me = torch.mean(probs, dim=(0, 1))                           # mean router prob [E]
     dispatched = F.one_hot(top_e, e).to(torch.float32)           # [B, S, k, E]
     ce = torch.mean(torch.sum(dispatched, dim=2), dim=(0, 1)) / k
+    if plan is not None and plan.train:
+        me, ce = plan.mean_rows(torch.stack([me, ce]))          # the whole batch's means
     aux = e * torch.sum(me * ce)
 
     # -- per-group dispatch positions -------------------------------------------
@@ -208,21 +149,17 @@ def apply_moe(cfg, p, x, *, plan=None):
 
     # -- dispatch: group-local scatter into [B, E, C+1, d].  Overflowed slots
     # all write the scratch row, in no set order; the combine weighs it by 0.
+    w = (top_p.reshape(b, s * k) * keep).to(dt)
+    block = plan is not None and (p["wi_gate"].shape[0] < e or p["wo"].shape[1] < cfg.moe_d_ff)
+    if block:
+        x, w = plan.copy_to_model(x), plan.copy_to_model(w)
     buf = torch.zeros((b, e, cap + 1, d), dtype=dt, device=x.device)
     g = torch.arange(b, device=x.device)[:, None]
     buf[g, flat_e, safe_pos] = x[:, tok_idx]
 
     # -- expert FFNs + combine ---------------------------------------------------
-    w = (top_p.reshape(b, s * k) * keep).to(dt)
-    if plan is not None:
-        if p["wi_gate"].shape[0] == e:
-            return _moe_dense_tokens(cfg, buf, p, flat_e, safe_pos, w, cap), aux
-        y = _own_experts(cfg, buf, p["wi_gate"], p["wi_up"], p["wo"], plan.tp_rank, flat_e,
-                         safe_pos, w, cap)
-        return plan.sum_model(y), aux
-    from ..parallel.sharding import active_mesh
-
-    mesh = active_mesh()
-    if _sharded_usable(cfg, mesh):
-        return _moe_block_sharded(cfg, mesh, buf, p, flat_e, safe_pos, w, cap), aux
-    return _moe_dense_tokens(cfg, buf, p, flat_e, safe_pos, w, cap), aux
+    if not block:
+        return _moe_dense_tokens(cfg, buf, p, flat_e, safe_pos, w, cap), aux
+    j = plan.tp_rank if p["wi_gate"].shape[0] < e else 0
+    y = _own_experts(cfg, buf, p["wi_gate"], p["wi_up"], p["wo"], j, flat_e, safe_pos, w, cap)
+    return plan.sum_model(y), aux

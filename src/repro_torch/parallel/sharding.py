@@ -27,31 +27,36 @@ which is JAX's device order.  ``shard`` and ``gather`` are the only way
 between a full tensor and its shard.
 
 Every collective of the port goes through this module (``gather``,
-``all_reduce``, ``all_gather``, ``send``/``recv``, ``broadcast``), on the
-tensors where they lie: nothing is copied to the host on the way (gloo
-stages CUDA tensors itself), and no single-process fallback stands in for
-a mesh.  Each one is recorded as (kind, result bytes, group size) for the
-recorders ``record_collectives`` opens, which is how the dry run counts
-the bytes a step moves.
+``all_reduce``, ``all_gather``, ``reduce_scatter``, ``send``/``recv``,
+``broadcast``), on the tensors where they lie: nothing is copied to the
+host on the way (gloo stages CUDA tensors itself), and no single-process
+fallback stands in for a mesh.  Each one is recorded as (kind, result
+bytes, group size) for the recorders ``record_collectives`` opens, which
+is how the dry run counts the bytes a step moves.
 
 ``use_mesh`` / ``active_mesh`` stand for the reference's ``compat.use_mesh``
 / ``get_abstract_mesh``; ``maybe_shard`` is a no-op when no mesh is
 active, and only then: under a mesh it returns this rank's block.
 
-The serving plan (``ServePlan``).  The reference serves under a mesh by
-GSPMD: params laid out by ``param_pspecs``, caches by ``cache_pspecs``, and
-the compiler turns those layouts into Megatron tensor-parallel compute over
-"model".  The port's prefill and decode take each rank's stored blocks and
-run that compute with explicit collectives.  ``serve_labels`` gives each
-param leaf one of two labels:
+The plan (``Plan``).  The reference serves and trains under a mesh by
+GSPMD: params laid out by ``param_pspecs`` (caches by ``cache_pspecs``),
+and the compiler turns those layouts into Megatron tensor-parallel compute
+over "model", gathering the data-sharded dims per use.  The port's
+prefill, decode and train step take each rank's stored blocks and run that
+compute with explicit collectives; one ``Plan`` serves all three
+(``train=True`` for the train step: the logits stay this rank's vocab
+block, for ``models.losses.lm_loss``'s vocab-parallel route).
+``use_labels`` gives each param leaf one of two labels:
 
   local     the leaf's "model" entry is on a logical axis its block computes
             over as this rank's block: "heads" (q heads, and the out
             projection's rows) and "kv" (column-parallel attention, its kv
             cache the rank's kv heads), "mlp" (the dense MLP's columns and
-            rows; Mamba's channels), "vocab" (the vocab-parallel embedding
-            and logits), "expert" (expert parallelism).  Any "data" entry of
-            the leaf is still gathered at its block.
+            rows; Mamba's channels; an expert FFN's columns and rows where
+            "model" does not divide the experts), "vocab" (the
+            vocab-parallel embedding and logits), "expert" (expert
+            parallelism).  Any "data" entry of the leaf is still gathered at
+            its block.
   gathered  gathered whole over its spec's axes at the block that uses it,
             and freed after: every leaf without such a "model" entry, among
             them every norm scale, the reservoir's ``w_in`` / ``readout`` /
@@ -74,16 +79,40 @@ param leaf one of two labels:
               smaller than the weight at decode) and each rank keeps x and z
               of its own channels.
 
-``serve_pspecs`` is the layout each leaf is used in (the "model" entry of a
+``use_pspecs`` is the layout each leaf is used in (the "model" entry of a
 local leaf, nothing else), so a block's gathers are its spec's axes minus
 its use's.  No rank ever gathers the whole tree: each block gathers its own
-leaves at entry.  The caches hold this rank's blocks under
-``cache_pspecs`` (``local_shape``): batch rows over the batch axes where
-they divide the batch, else the attention sequence over "data"; kv heads
-over "model" where they divide it, else the sequence over "model"; the
-recurrent states' inner dims over "model".  A sequence-sliced cache is
-attended in pieces: each rank's partial softmax over its slice, combined
-over the slice's axes by a max and a sum all-reduce.
+leaves at entry (in the train step inside the unit that ``remat``
+recomputes, so a recompute gathers them again), its leaves' k-th gathers
+over one axis in one collective, their blocks flattened and joined.  Where "model" cuts the
+rows (zero3), no leaf keeps its "model" block and nothing runs
+tensor-parallel.
+
+Under grad the plan's collectives are ``torch.autograd.Function``s:
+
+  copy_to_model  Megatron's f: identity forward, the gradient all-reduced
+                 over "model" (where a replicated tensor enters the compute
+                 of this rank's block).
+  sum_model      Megatron's g: a row-parallel product's partial sums
+                 all-reduced over "model"; the gradient passes as it is.
+  a gather       all-gather forward, and one of two backwards: ``"slice"``
+                 (this rank's block of the gradient) where every rank of the
+                 axis uses the gathered tensor alike, replicated compute
+                 (the "model" part of a leaf used whole; serving's vocab
+                 logits), and ``"reduce-scatter"`` where the ranks use
+                 different parts or see different rows (a leaf's block over
+                 the axes that cut the rows; Mamba's gathered ``in_proj``
+                 product, each rank taking its own channels).  A sum where a
+                 slice belongs multiplies the gradient by the axis size; a
+                 slice where a sum belongs drops the other ranks' parts.
+
+The caches hold this rank's blocks under ``cache_pspecs``
+(``local_shape``): batch rows over the batch axes where they divide the
+batch, else the attention sequence over "data"; kv heads over "model"
+where they divide it, else the sequence over "model"; the recurrent
+states' inner dims over "model".  A sequence-sliced cache is attended in
+pieces: each rank's partial softmax over its slice, combined over the
+slice's axes by a max and a sum all-reduce.
 """
 
 from __future__ import annotations
@@ -468,27 +497,29 @@ def _tree_zip(fn, tree, spec_tree):
 # Recording collectives
 # --------------------------------------------------------------------------
 
-_RECORDERS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_collectives",
-                                                            default=())
+# The open recorders, process-wide: a backward's collectives run on
+# autograd's device threads, which a context variable set here does not reach.
+_RECORDERS: list[list] = []
 
 
 @contextlib.contextmanager
 def record_collectives():
-    """Collect every collective issued in the extent as a dict
-    ``{"kind", "bytes", "group", "axis"}``: ``bytes`` is the result's size
-    on this rank (the reference's HLO result-shape convention), ``group``
-    the number of ranks taking part, ``axis`` the mesh axis it ran over
-    (None for a point-to-point send)."""
+    """Collect every collective issued in the extent, the backward's on
+    autograd's threads too, as a dict ``{"kind", "bytes", "group",
+    "axis"}``: ``bytes`` is the result's size on this rank (the reference's
+    HLO result-shape convention), ``group`` the number of ranks taking
+    part, ``axis`` the mesh axis it ran over (None for a point-to-point
+    send)."""
     events: list[dict] = []
-    token = _RECORDERS.set(_RECORDERS.get() + (events,))
+    _RECORDERS.append(events)
     try:
         yield events
     finally:
-        _RECORDERS.reset(token)
+        del _RECORDERS[next(i for i, e in enumerate(_RECORDERS) if e is events)]
 
 
 def _record(kind: str, n_bytes: int, group_size: int, axis: str | None = None) -> None:
-    for events in _RECORDERS.get():
+    for events in _RECORDERS:
         events.append({"kind": kind, "bytes": n_bytes, "group": group_size, "axis": axis})
 
 
@@ -519,6 +550,21 @@ def all_gather(x: torch.Tensor, axis: str, mesh, *, dim: int = 0) -> torch.Tenso
     _record("all-gather", n * _nbytes(x), n, axis)
     dist.all_gather(parts, x, group=g)
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(x: torch.Tensor, axis: str, mesh, *, dim: int = 0) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis``, cut into the axis's
+    blocks along ``dim``: this rank's block (the adjoint of
+    ``all_gather``)."""
+    g = mesh.get_group(axis)
+    n = g.size()
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide into {n} blocks")
+    parts = [t.contiguous() for t in x.chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    _record("reduce-scatter", _nbytes(out), n, axis)
+    dist.reduce_scatter(out, parts, group=g)
+    return out
 
 
 def broadcast(x: torch.Tensor, axis: str, mesh, *, src: int) -> torch.Tensor:
@@ -552,10 +598,10 @@ def coordinate(mesh, axis: str) -> int:
 
 
 # --------------------------------------------------------------------------
-# The serving plan (module doc)
+# The plan (module doc)
 # --------------------------------------------------------------------------
 
-# Logical axes whose "model" block a serving block computes over.
+# Logical axes whose "model" block a block computes over.
 _TP_AXES = frozenset({"heads", "kv", "mlp", "vocab", "expert"})
 # Mixers that run replicated over "model", and single leaves gathered whole
 # although their axis is a TP axis (module doc).
@@ -563,17 +609,17 @@ _WHOLE_MIXERS = ("mlstm", "slstm")
 _WHOLE_LEAVES = ("mlp/router",)
 
 
-def serve_pspecs(cfg, mesh):
-    """The spec tree of the params as the serving blocks use them: the
-    "model" entry of each local leaf, no other entry (``param_pspecs``'
-    structure)."""
+def use_pspecs(cfg, mesh, *, tp: bool = True):
+    """The spec tree of the params as the blocks use them: the "model"
+    entry of each local leaf, no other entry (``param_pspecs``'
+    structure); with ``tp`` False (the rows cut over "model") no entry."""
     from ..models.model import _ENCODER_BLOCK, param_logical_axes
 
     specs, axes = param_pspecs(cfg, mesh), param_logical_axes(cfg)
 
     def use(spec, logical, whole):
-        return P(*("model" if not whole and entry == "model" and ax in _TP_AXES else None
-                   for entry, ax in zip(spec, logical, strict=True)))
+        return P(*("model" if tp and not whole and entry == "model" and ax in _TP_AXES
+                   else None for entry, ax in zip(spec, logical, strict=True)))
 
     def leaves(spec_d, axes_d, blk=None):
         return {k: use(s, axes_d[k], k in _WHOLE_LEAVES or (
@@ -592,30 +638,125 @@ def serve_pspecs(cfg, mesh):
     return out
 
 
-def serve_labels(cfg, mesh):
+def use_labels(cfg, mesh):
     """``param_pspecs``' tree with each leaf labelled "local" (its use keeps
     its "model" block, or no axis shards it) or "gathered" (module doc)."""
     def label(spec, use):
         kept = any(entry_axes(e) for e in use)
         return "local" if kept or not any(entry_axes(e) for e in spec) else "gathered"
 
-    return _tree_zip(label, param_pspecs(cfg, mesh), serve_pspecs(cfg, mesh))
+    return _tree_zip(label, param_pspecs(cfg, mesh), use_pspecs(cfg, mesh))
 
 
-class ServePlan:
-    """A serving step on this rank of ``mesh`` (a ``DeviceMesh``): the
-    params' storage specs (``pspecs``), the layout each leaf is used in
-    (``uses``), and the collectives its blocks run.  The model's serving
-    route takes it as an argument; nothing reads the active mesh."""
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward; the gradient all-reduced over
+    "model"."""
 
-    def __init__(self, cfg, mesh):
-        self.cfg, self.mesh = cfg, mesh
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan.reduce(g.clone(memory_format=torch.contiguous_format), "model"), None
+
+
+class _SumModel(torch.autograd.Function):
+    """Megatron's g: all-reduce over "model" forward; the gradient passes
+    as it is (what follows runs alike on every model rank)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        return plan.reduce(x.clone(memory_format=torch.contiguous_format), "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumRows(torch.autograd.Function):
+    """All-reduce over ``axes`` (those that cut the rows) forward and
+    backward: the adjoint of a sum is the sum."""
+
+    @staticmethod
+    def forward(ctx, x, axes, plan):
+        ctx.axes, ctx.plan = axes, plan
+        return plan.reduce(x.clone(memory_format=torch.contiguous_format), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan.reduce(g.clone(memory_format=torch.contiguous_format),
+                               ctx.axes), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of the tensors ``xs`` over ``axis``, each along its dim
+    of ``dims``, in one collective (their blocks flattened and joined);
+    the backward is ``kind``: "slice" (this rank's block of each
+    gradient) or "reduce-scatter", in one collective too (module doc).
+    The tensors share a dtype."""
+
+    @staticmethod
+    def forward(ctx, axis, dims, kind, plan, *xs):
+        if kind not in ("slice", "reduce-scatter"):
+            raise ValueError(f"a gather's backward is slice or reduce-scatter, not {kind!r}")
+        ctx.axis, ctx.dims, ctx.kind, ctx.plan = axis, dims, kind, plan
+        ctx.shapes = [x.shape for x in xs]
+        n = plan.sizes[axis]
+        flat = all_gather(torch.cat([x.reshape(-1) for x in xs]), axis, plan.mesh).view(n, -1)
+        out, off = [], 0
+        for x, dim in zip(xs, dims, strict=True):
+            blocks = flat[:, off:off + x.numel()].reshape(n, *x.shape)
+            out.append(torch.cat(blocks.unbind(0), dim=dim))
+            off += x.numel()
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan, axis, n = ctx.plan, ctx.axis, ctx.plan.sizes[ctx.axis]
+        if ctx.kind == "slice":
+            own = [g.narrow(dim, plan.coords[axis] * shape[dim], shape[dim])
+                   .clone(memory_format=torch.contiguous_format)
+                   for g, dim, shape in zip(grads, ctx.dims, ctx.shapes, strict=True)]
+        else:
+            # each rank's blocks of every gradient, joined as the forward joined them
+            rows = torch.cat([torch.stack(g.chunk(n, dim=dim)).reshape(n, -1)
+                              for g, dim in zip(grads, ctx.dims, strict=True)], dim=1)
+            mine = reduce_scatter(rows, axis, plan.mesh).reshape(-1)
+            own = list(mine.split([shape.numel() for shape in ctx.shapes]))
+            own = [t.view(shape) for t, shape in zip(own, ctx.shapes, strict=True)]
+        return (None, None, None, None, *own)
+
+
+class Plan:
+    """A step on this rank of ``mesh`` (a ``DeviceMesh``): the params'
+    storage specs (``pspecs``), the layout each leaf is used in
+    (``uses``), the axes that cut the rows (``row_axes``), and the
+    collectives its blocks run (module doc).  The model's sharded routes
+    take it as an argument; nothing reads the active mesh.
+
+    ``train``: a train step's plan, whose logits stay this rank's vocab
+    block.  ``rows``: the rows a step's microbatch holds in all (default:
+    a cut by every batch axis); the batch axes whose running product
+    divides them cut them.
+    """
+
+    def __init__(self, cfg, mesh, *, train: bool = False, rows: int | None = None):
+        from ..models.model import activation_axes
+
+        self.cfg, self.mesh, self.train = cfg, mesh, train
         self.sizes = axis_sizes(mesh)
         self.coords = _coords(mesh)
         self.pspecs = param_pspecs(cfg, mesh)
-        self.uses = serve_pspecs(cfg, mesh)
-        self.tp = self.sizes.get("model", 1)
-        self.tp_rank = self.coords.get("model", 0)
+        axes = tuple(a for a in (activation_axes(cfg) if train else BATCH_AXES)
+                     if a in self.sizes)
+        if rows is not None:
+            axes = entry_axes(fit_spec(mesh, (rows,), axes)[0])
+        self.row_axes = tuple(a for a in axes if self.sizes[a] > 1)
+        self.uses = use_pspecs(cfg, mesh, tp="model" not in self.row_axes)
+        self.tp = 1 if "model" in self.row_axes else self.sizes.get("model", 1)
+        self.tp_rank = self.coords.get("model", 0) if self.tp > 1 else 0
         # the blocks the batch axes cut a served batch into, where they divide it
         self.row_blocks = math.prod(self.sizes[a] for a in batch_axes(mesh))
 
@@ -623,33 +764,52 @@ class ServePlan:
         """The leaves of ``local`` (the stored blocks of the params subtree
         at ``path`` of the spec trees; with ``index``, unit ``index`` of its
         stacked leaves) in the layout their block uses: each gathered over
-        the axes its spec names and its use does not."""
+        the axes its spec names and its use does not (``gather_to``), the
+        leaves' k-th gathers over one axis in one collective."""
         specs, uses = self.pspecs, self.uses
         for key in path:
             specs, uses = specs[key], uses[key]
-        out = {}
+        out, steps = {}, {}
         for name, t in local.items():
             spec, use = specs[name], uses[name]
             if index is not None:
                 t, spec, use = t[index], P(*spec[1:]), P(*use[1:])
-            out[name] = self.gather_to(t, spec, use)
+            out[name], steps[name] = t, self._gathers(spec, use)
+        for k in range(max((len(v) for v in steps.values()), default=0)):
+            for axis in self.sizes:                          # one order on every rank
+                names = [nm for nm, st in steps.items() if len(st) > k and st[k][1] == axis]
+                if names:
+                    got = self._gather([out[nm] for nm in names], axis,
+                                       [steps[nm][k][0] for nm in names])
+                    out.update(zip(names, got))
         return out
 
     def gather_to(self, t: torch.Tensor, spec: P, use: P) -> torch.Tensor:
         """``t`` (a block under ``spec``) gathered over every axis of
-        ``spec`` that ``use`` drops, in ``gather``'s order; axes of one rank
-        move nothing and are skipped."""
-        out = t
+        ``spec`` that ``use`` drops (``_gathers``)."""
+        for dim, axis in self._gathers(spec, use):
+            (t,) = self._gather([t], axis, [dim])
+        return t
+
+    def _gathers(self, spec: P, use: P) -> list:
+        """The (dim, axis) gathers that take a block under ``spec`` to the
+        layout ``use``, in ``gather``'s order (dims in order, an entry's
+        last axis first); axes of one rank move nothing and are left out."""
+        out = []
         for dim, entry in enumerate(spec):
             kept = entry_axes(use[dim]) if dim < len(use) else ()
             if kept and kept != entry_axes(entry):
                 raise ValueError(f"dim {dim}: a use {use} keeps part of the entry {entry}")
-            if kept:
-                continue
-            for a in reversed(entry_axes(entry)):
-                if self.sizes[a] > 1:
-                    out = all_gather(out, a, self.mesh, dim=dim)
+            if not kept:
+                out += [(dim, a) for a in reversed(entry_axes(entry)) if self.sizes[a] > 1]
         return out
+
+    def _gather(self, xs: list, axis: str, dims: list) -> tuple:
+        """``xs`` all-gathered over ``axis`` along ``dims`` in one
+        collective: a gather over an axis that cuts the rows
+        reduce-scatters its gradient, over any other axis slices it."""
+        kind = "reduce-scatter" if axis in self.row_axes else "slice"
+        return _Gather.apply(axis, tuple(dims), kind, self, *xs)
 
     def block_index(self, entry) -> int:
         """This rank's block along a dim cut by ``entry`` (row-major over
@@ -668,24 +828,55 @@ class ServePlan:
         return P(*(None if entry == "model" else entry for entry in spec))
 
     def reduce(self, x: torch.Tensor, axes, *, op: str = "sum") -> torch.Tensor:
-        """``all_reduce`` over those of ``axes`` with more than one rank."""
+        """``all_reduce`` in place over those of ``axes`` with more than one
+        rank (no autograd)."""
         live = tuple(a for a in entry_axes(axes) if self.sizes[a] > 1)
         return all_reduce(x, live, self.mesh, op=op) if live else x
 
     def sum_model(self, x: torch.Tensor) -> torch.Tensor:
-        """A row-parallel product's partial sums added over "model", in
-        place."""
-        return self.reduce(x, "model")
+        """Megatron's g (module doc): the partial sums of a row-parallel
+        product added over "model"."""
+        return _SumModel.apply(x, self) if self.tp > 1 else x
 
-    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The "model" ranks' blocks of ``x`` joined along ``dim``."""
-        return all_gather(x, "model", self.mesh, dim=dim) if self.tp > 1 else x
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f (module doc): ``x``, whose gradient is summed over
+        "model"."""
+        return _CopyToModel.apply(x, self) if self.tp > 1 else x
+
+    def gather_model(self, x: torch.Tensor, dim: int, backward: str) -> torch.Tensor:
+        """The "model" ranks' blocks of ``x`` joined along ``dim``; its
+        gradient ``backward`` ("slice" or "reduce-scatter", module doc)."""
+        return _Gather.apply("model", (dim,), backward, self, x)[0] if self.tp > 1 else x
+
+    def mean_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the ranks of the axes that cut the rows
+        (a mean over each rank's equal share of rows is the whole batch's
+        mean), its gradient the adjoint's."""
+        if not self.row_axes:
+            return x
+        n = math.prod(self.sizes[a] for a in self.row_axes)
+        return _SumRows.apply(x, self.row_axes, self) / n
+
+    def global_norm(self, grads: list) -> torch.Tensor:
+        """The f32 L2 norm of the gradient whose blocks ``grads`` (in
+        ``tree_leaves`` order) this rank holds: each leaf's square sum
+        counted on the first rank of every axis its spec does not name, so
+        a replicated block counts once, then summed over every axis."""
+        sums = []
+        for g, spec in zip(grads, spec_leaves(self.pspecs), strict=True):
+            named = {a for e in spec for a in entry_axes(e)}
+            if all(self.coords[a] == 0 for a in self.sizes if a not in named):
+                sums.append(torch.sum(torch.square(g.to(torch.float32))))
+        # optim.adamw.global_norm's sum where this rank counts every leaf
+        total = torch.sum(torch.stack(sums)) if sums else \
+            torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        return torch.sqrt(self.reduce(total, tuple(self.sizes)))
 
 
-__all__ = ["AbstractMesh", "BATCH_AXES", "P", "ServePlan", "active_mesh", "all_gather",
+__all__ = ["AbstractMesh", "BATCH_AXES", "P", "Plan", "active_mesh", "all_gather",
            "all_reduce", "axis_sizes", "batch_axes", "batch_pspec", "broadcast",
            "cache_pspecs", "coordinate", "data_pspecs", "entry_axes", "fit_spec", "gather",
-           "local_shape", "maybe_shard", "param_pspecs", "record_collectives", "send_recv",
-           "serve_batch_entry", "serve_labels", "serve_pspecs", "serve_rows", "shard",
+           "local_shape", "maybe_shard", "param_pspecs", "record_collectives",
+           "reduce_scatter", "send_recv", "serve_batch_entry", "serve_rows", "shard",
            "shard_count", "spec_for", "spec_leaves", "tree_gather", "tree_shard",
-           "use_mesh"]
+           "use_labels", "use_mesh", "use_pspecs"]

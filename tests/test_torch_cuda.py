@@ -1062,9 +1062,11 @@ def test_scan_operators_are_bitwise_their_plain_versions(dev, out_dtype):
 
 def _card_sharded_rank(rank):
     """Three steps of reservoir_lm's smoke config on a (1, 2) mesh over two
-    gloo ranks on the one card, each rank also running the unsharded step in
-    its own process: (params, moments and metrics bitwise, K1/K1ᵀ
-    (launches, calls))."""
+    gloo ranks on the one card (the MLP and the vocab tensor-parallel over
+    them), each rank also running the unsharded step in its own process:
+    (the largest metric gap, each leaf's largest moment gaps over its
+    largest |moment|, the largest param gap, Σlr, K1/K1ᵀ (launches,
+    calls))."""
     from repro_torch.configs import smoke_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import AdamWConfig
@@ -1080,7 +1082,7 @@ def _card_sharded_rank(rank):
     full = steps.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     state = sharding.tree_shard(full, steps.state_pspecs(cfg, mesh), mesh)
     gen = torch.Generator(device=dev).manual_seed(1)
-    same = True
+    metric_gap, lr_sum = 0.0, 0.0
     for _ in range(3):
         toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen, device=dev,
                              dtype=torch.int32)
@@ -1090,20 +1092,28 @@ def _card_sharded_rank(rank):
             state, m = steps.train_step(cfg, opt, state, batch)
         counts = (scan_ops.dfr_scan.launches, scan_ops.dfr_scan.calls)
         plain, pm = steps.train_step(cfg, opt, plain, batch)
-        same &= all(torch.equal(m[k], pm[k]) for k in m)
-    specs = steps.state_pspecs(cfg, mesh)
-    got = sharding.tree_gather(state, specs, mesh)
-    for a, b in zip(tree_leaves(got), tree_leaves(plain), strict=True):
-        same &= torch.equal(a, b)
-    return same, counts
+        metric_gap = max(metric_gap, *(abs(float(m[k]) - float(pm[k])) for k in m))
+        lr_sum += float(pm["lr"])
+    got = sharding.tree_gather(state, steps.state_pspecs(cfg, mesh), mesh)
+    moments = [max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(tree_leaves(got["opt"][k]), tree_leaves(plain["opt"][k])))
+               for k in ("m", "v")]
+    params = max(float((a - b).abs().max())
+                 for a, b in zip(tree_leaves(got["params"]), tree_leaves(plain["params"])))
+    return metric_gap, moments, params, lr_sum, counts
 
 
 def test_sharded_step_on_1x2_is_bitwise_the_unsharded_step_on_the_card(dev, tmp_path):
+    """(The name is from before the step ran tensor-parallel: it adds its
+    partial sums in another order, so it is held at the CPU tests'
+    tolerances, tests/test_torch_parallel_train.py.)"""
     from repro_torch.launch.mesh import run_ranks
 
-    for same, (launches, calls) in run_ranks(_card_sharded_rank, 2, store_dir=str(tmp_path),
-                                             timeout=300, threads=None):
-        assert same
+    for metric_gap, (m_gap, v_gap), params, lr_sum, (launches, calls) in run_ranks(
+            _card_sharded_rank, 2, store_dir=str(tmp_path), timeout=300, threads=None):
+        assert metric_gap <= 2e-5
+        assert m_gap <= 1e-5 and v_gap <= 2e-5
+        assert params <= 2 * lr_sum
         assert launches == calls > 0
 
 

@@ -8,7 +8,8 @@
   bytes the reference's specs imply for the state (params and both f32
   moments, each leaf over the product of its spec's axes), beside the
   global batch the step is handed; its output is the same shards and the
-  metrics.
+  metrics; its gradients come back by reduce-scatter beside the
+  all-gathers and all-reduces.
 * The serving cells (prefill_32k, decode_32k, and long_500k for a
   subquadratic arch) hold, on their rank, exactly the bytes the
   reference's ``param_pspecs`` and ``cache_pspecs`` imply for the params
@@ -35,6 +36,9 @@ from repro_torch.configs import SHAPES, get_config, smoke_config
 from repro_torch.core import SiliconMR
 from repro_torch.kernels.dfr_scan import ops as scan_ops
 from repro_torch.launch import calibrate, dryrun
+from repro_torch.models.model import meta_params
+from repro_torch.optim.adamw import tree_leaves_with_path
+from repro_torch.parallel import sharding
 
 _HLO = {
     "all-reduce": "%a = f32[64,128]{1,0} all-reduce(f32[64,128]{1,0} %x), "
@@ -109,7 +113,7 @@ def test_dry_run_holds_the_shard_bytes_the_references_specs_imply(arch):
     assert rec["memory"]["output_bytes"] == state + 7 * 4      # the step's 7 f32 metrics
     assert rec["memory"]["temp_bytes"] is None
     assert rec["flops"] > 0 and rec["collectives"]["total"] > 0
-    assert set(rec["collectives"]["counts"]) == {"all-gather", "all-reduce"}
+    assert set(rec["collectives"]["counts"]) == {"all-gather", "all-reduce", "reduce-scatter"}
 
 
 def _spec_blocks(spec, mesh) -> int:
@@ -220,3 +224,49 @@ def test_scan_kernels_run_on_meta_through_their_operators():
     with pytest.raises(NotImplementedError):
         torch.ops.repro_torch.dfr_scan(torch.zeros(2, 3), torch.zeros(4), torch.zeros(2, 4),
                                        0, [1.0], False)
+
+
+def _train_flops(cfg, specs, mesh_shape=None):
+    """FlopCounterMode's count of one train step on ``meta`` tensors: on one
+    process, or on rank 0 of a fake group of ``mesh_shape``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import train_step
+
+    if mesh_shape is None:
+        with FlopCounterMode(display=False) as fc:
+            train_step(cfg, AdamWConfig(), dryrun._meta_state(cfg), specs)
+        return fc.get_total_flops()
+    with dryrun.fake_world(int(np.prod(mesh_shape))):
+        mesh = make_mesh(mesh_shape, ("data", "model"), device_type="cpu")
+        fn, args = dryrun.build_step(cfg, "train_4k", mesh, specs=specs)
+        with FlopCounterMode(display=False) as fc:
+            fn(*args)
+        return fc.get_total_flops()
+
+
+@pytest.mark.parametrize("arch", ["reservoir_lm", "granite-8b"])
+def test_a_train_cells_flops_a_rank_exclude_the_work_tensor_parallelism_moves(arch):
+    """A train step's counted FLOPs on a rank of (1, 2) at smoke size are at
+    most half of one process's tensor-parallel products plus the whole of
+    the rest.  The tensor-parallel products come from the leaf shapes: each
+    leaf the plan keeps as its "model" block (``use_pspecs``) takes part in
+    one product a token, forward and the backward's two, 6·T·numel FLOPs
+    (the embedding as the tied logits' table, or the untied head; its
+    lookup counts none)."""
+    cfg = dataclasses.replace(smoke_config(arch), microbatches=2)
+    tokens = (4, 16)
+    specs = {"tokens": torch.empty(tokens, dtype=torch.int32, device="meta"),
+             "labels": torch.empty(tokens, dtype=torch.int32, device="meta")}
+    one = _train_flops(cfg, specs)
+    rank = _train_flops(cfg, specs, (1, 2))
+    uses = sharding.use_pspecs(cfg, sharding.AbstractMesh((1, 2), ("data", "model")))
+    t = tokens[0] * tokens[1]
+    tp = sum(6 * t * leaf.numel() for (path, leaf), use in
+             zip(tree_leaves_with_path(meta_params(cfg)), sharding.spec_leaves(uses),
+                 strict=True)
+             if any(use) and (cfg.tie_embeddings or path != "['embed']['embedding']"))
+    assert tp > 0 and rank < one
+    assert rank <= one - tp / 2, (rank, one, tp)

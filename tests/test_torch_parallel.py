@@ -15,9 +15,11 @@ test's process.  Tolerances:
   codes and scales, summed in another order;
 * ``pipeline_apply`` within 1e-5 of the sequential fold, the reference's
   own bar (tests/test_parallel_multidev.py);
-* the expert-parallel MoE block within 1e-6 (f32 round-off of O(1)
-  values: the k slots summed in another order) of the dense route, output
-  and gradients, and within the MoE tests' 2e-6 of the reference;
+* the expert-parallel MoE block (a train plan's: this rank's experts'
+  block) within 1e-6 (f32 round-off of O(1) values: the k slots summed in
+  another order) of the dense route, output and gradients (the experts'
+  for the rank's block), and within the MoE tests' 2e-6 of the
+  reference;
 * checkpoints re-laid out bitwise;
 * ``Experiment`` over two ranks within 1e-4 NRMSE of one process, the
   reference's own tolerance for its sharded run.
@@ -175,47 +177,66 @@ def _moe_params(cfg, seed):
             for name, (shape, _axes, _init) in sorted(moe.moe_defs(cfg).items())}
 
 
-def _moe_grads(cfg, p, x, r):
+def _moe_grads(cfg, p, x, r, plan=None):
     """y, aux and the gradients of sum(y · r) + aux w.r.t. x and each param."""
     tp = {k: torch.as_tensor(v).requires_grad_(True) for k, v in p.items()}
     tx = torch.as_tensor(x).requires_grad_(True)
-    y, aux = moe.apply_moe(cfg, tp, tx)
+    y, aux = moe.apply_moe(cfg, tp, tx, plan=plan)
     names = sorted(tp)
     grads = torch.autograd.grad((y * torch.as_tensor(r)).sum() + aux, [tx] + [tp[k] for k in names])
     return y.detach(), float(aux.detach()), dict(zip(["x"] + names, grads))
 
 
 def _moe_rank(rank, p, x, r):
+    """The block on this rank of a train plan over (1, 2): the router whole
+    (as the plan gathers it), the experts this rank's E/2 block; and
+    whether a zero3 plan, whose rows "model" cuts, keeps any "model"
+    block."""
     cfg = smoke_config(MOE_ARCH)
     mesh = _cpu_mesh((1, 2))
-    with sharding.use_mesh(mesh), sharding.record_collectives() as events:
-        out = _moe_grads(cfg, p, x, r)
-    return out, [e["kind"] for e in events]
+    plan = sharding.Plan(cfg, mesh, train=True, rows=x.shape[0])
+    e_loc = cfg.n_experts // plan.tp
+    own = slice(plan.tp_rank * e_loc, (plan.tp_rank + 1) * e_loc)
+    local = {k: v if k == "router" else v[own] for k, v in p.items()}
+    with sharding.record_collectives() as events:
+        out = _moe_grads(cfg, local, x, r, plan)
+    zero3 = sharding.Plan(dataclasses.replace(cfg, strategy="zero3"), mesh, train=True,
+                          rows=x.shape[0] * 2)
+    keeps = any(e for use in zero3.uses["units"][0].values() for e in use)
+    return out, [e["kind"] for e in events], (zero3.tp, keeps)
 
 
 def test_expert_parallel_block_matches_the_dense_route_and_the_reference(tmp_path):
     cfg, jcfg = smoke_config(MOE_ARCH), jsmoke_config(MOE_ARCH)
-    assert cfg.n_experts % 2 == 0 and moe._sharded_usable(cfg, sharding.AbstractMesh(
-        (1, 2), ("data", "model")))
-    assert not moe._sharded_usable(cfg, sharding.AbstractMesh((1, 3), ("data", "model")))
-    assert not moe._sharded_usable(dataclasses.replace(cfg, strategy="zero3"),
-                                   sharding.AbstractMesh((1, 2), ("data", "model")))
+    # the plan keeps the experts' "model" block where "model" divides E, else none
+    for tp, expert in ((2, "model"), (3, None)):
+        mesh = sharding.AbstractMesh((1, tp), ("data", "model"))
+        uses = sharding.use_pspecs(cfg, mesh)["units"][0]
+        assert uses["mlp/wi_gate"][1] == uses["mlp/wo"][1] == expert
+        assert not any(uses["mlp/router"])
     p = _moe_params(cfg, 0)
     rng = np.random.default_rng(1)
     x = rng.standard_normal((3, 12, cfg.d_model), dtype=np.float32)
     r = rng.standard_normal((3, 12, cfg.d_model), dtype=np.float32)
     y_dense, aux_dense, g_dense = _moe_grads(cfg, p, x, r)
     jy, jaux = jmoe.apply_moe(jcfg, jax.tree.map(jnp.asarray, p), jnp.asarray(x))
-    for (y, aux, grads), kinds in _run(_moe_rank, 2, tmp_path, p, x, r):
+    e_loc = cfg.n_experts // 2
+    for rank, ((y, aux, grads), kinds, zero3) in enumerate(_run(_moe_rank, 2, tmp_path,
+                                                                 p, x, r)):
         np.testing.assert_allclose(y, y_dense.numpy(), atol=1e-6, rtol=0)
         np.testing.assert_allclose(y, np.asarray(jy), atol=2e-6, rtol=0)
         assert abs(aux - aux_dense) < 1e-7 and abs(aux - float(jaux)) < 1e-6
         for k, g in grads.items():
-            scale = float(g_dense[k].abs().max())
-            np.testing.assert_allclose(g, g_dense[k].numpy(), atol=1e-6 * scale, rtol=0,
-                                       err_msg=k)
-        # forward: one token-sized all-reduce; backward: the inputs' gradients
-        assert kinds == ["all-reduce"] * 6
+            want = g_dense[k].numpy()
+            scale = float(np.abs(want).max())
+            if k not in ("x", "router"):                     # this rank's experts' block
+                want = want[rank * e_loc:(rank + 1) * e_loc]
+            np.testing.assert_allclose(g, want, atol=1e-6 * scale, rtol=0, err_msg=k)
+        # forward: one token-sized all-reduce (g); backward: the gradients of
+        # the dispatched tokens and of the combine weights (f); the experts'
+        # weights keep their blocks' gradients
+        assert kinds == ["all-reduce"] * 3
+        assert zero3 == (1, False)
 
 
 # ---------------------------------------------------------------------------

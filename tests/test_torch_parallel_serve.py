@@ -1,5 +1,5 @@
 """The port's sharded serving (``runtime.steps.serve_prefill`` /
-``serve_decode`` under a mesh, ``parallel.sharding.ServePlan``) on gloo
+``serve_decode`` under a mesh, ``parallel.sharding.Plan``) on gloo
 ranks on the CPU, against the JAX package's unsharded serving steps.
 
 One spawn a mesh ((1, 2), (2, 1), (2, 2), (1, 4);
@@ -34,7 +34,7 @@ results are shared by the tests of its mesh.
   before a sequence-sliced cache, Mamba's ``in_proj`` product, the xLSTM
   cache blocks).
 * ``launch.serve.main`` on two ranks gives the one-process launcher's ids.
-* ``sharding.serve_labels`` on the pod mesh: each leaf "local" or
+* ``sharding.use_labels`` on the pod mesh: each leaf "local" or
   "gathered" as the plan in ``parallel/sharding.py``'s doc says.
 """
 
@@ -327,8 +327,8 @@ def test_the_serving_plan_labels_each_leaf_as_its_block_uses_it(arch):
     only on a TP axis."""
     cfg = configs.get_config(arch)
     mesh = sharding.AbstractMesh((16, 16), AXES)
-    specs, uses = sharding.param_pspecs(cfg, mesh), sharding.serve_pspecs(cfg, mesh)
-    labels = sharding.serve_labels(cfg, mesh)
+    specs, uses = sharding.param_pspecs(cfg, mesh), sharding.use_pspecs(cfg, mesh)
+    labels = sharding.use_labels(cfg, mesh)
     axes = param_logical_axes(cfg)
     for pos, blk in enumerate(cfg.unit):
         for name, label in labels["units"][pos].items():
