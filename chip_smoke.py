@@ -26,7 +26,11 @@ Phases, each printing one JSON line:
    grid (F at the 64-wide tile's edges and 901, C = 1 and 128, a ragged
    T, f32 and bf16 X, both thread layouts), G symmetric bitwise, a
    non-symmetric G0 through accumulate-into, and accumulate-into over an
-   uneven split == one-shot bitwise;
+   uneven split == one-shot bitwise.  None of it times a kernel, and all
+   of it is host-bound (the plain versions' eager loops): the scan
+   kernel's edge grid runs here, the rest of phase 2 and then phase 21 in
+   one spawned process beside it, phase 17 in another; their lines print
+   when all three have ended, before phase 3;
 3. the main path at full width — ``Experiment.run`` on the paper's NARMA10
    Silicon-MR operating point (N = 900, washout 60, the λ grid, sampled
    digitiser noise 0.003) over 64 seeds through the scan kernel (2
@@ -54,7 +58,8 @@ Phases, each printing one JSON line:
 8. the ``kernels`` line, after every other phase: each kernel at the
    shapes of the path it rides,
    its launches on that path, error vs the plain version (K1 also on a
-   chunk resumed from a carry and on a split from zero, exact), the
+   chunk resumed from a carry and on a split from zero, exact, each on its
+   first 32 periods), the
    kernel's and the library call's device time warm (``ms``,
    ``library_ms``) and with L2 flushed before each call (``cold_ms``, the
    bound share's denominator), the host's time a call through the wrapper
@@ -112,7 +117,8 @@ Then the device subsystem (``repro_torch.devices``):
    benchmarks/device_sweep.py on the ``fast`` path with per-lane device
    parameters: finite, the JAX package's stable map, the stable cells'
    states held through a float64 ridge (1e-3 NRMSE) and the map's NRMSE
-   within 2e-2 there; wall time and peak memory;
+   within 2e-2 there; wall time and peak memory.  It runs in a process of
+   its own beside phase 2 (see there; its wall is taken beside it);
 18. ``fast_path`` — ``method="fast"`` for SiliconMR, MackeyGlass and
    SiliconMRLiteral against K1 on the same inputs, timed.
 
@@ -143,7 +149,8 @@ Then the program contracts (``repro_torch.analysis``):
    and the peak device memory; the seeded violation caught; the
    block-copy fixture under ``SmemBudget`` (in budget it launches, the
    whole-array tile is flagged and refused); a K = 20000 streamed fit at
-   N = 900 under a quarter of one [B, K, N] f32 state tensor.  The
+   N = 900 under a quarter of one [B, K, N] f32 state tensor.  It runs
+   beside phase 2's edge grid, after the rest of phase 2 (see there).  The
    kernels line also holds ``block_copy`` bitwise to its plain version
    at the fixture's in-budget tile (the TMA route), beside ``x.clone()``,
    and names the route that ran.
@@ -210,7 +217,20 @@ Then the distribution code (``repro_torch.parallel``, ``launch.mesh``):
    the figures of the route the step replaced (PAR_PR23_ROUTE).  Then one
    sharded step through NCCL at world 1, bitwise the unsharded step, and
    NARMA10 (N = 900, B = 64) through ``Experiment`` over the two ranks'
-   (2, 1) mesh, NRMSE per instance within 1e-4 of one process.
+   (2, 1) mesh, NRMSE per instance within 1e-4 of one process.  Its
+   ``parallel_dfrc`` line: the DFRC pipeline's other paths over the same
+   mesh (``pdfrc_cases``): phase 7's streamed 64-channel WDM run (N =
+   100) and its shared readout over 8 channels (each chunk's features
+   all-gathered, the whole F = 801 Gram folded on each rank), the d2_l2
+   graph through ``Experiment`` and d2_l1 per WDM channel on phase 20's
+   MC probe, and the device map of SWEEP_GRID at N = 16 over 300 samples
+   (``dev_params`` cut with the lanes).  Each rank's results bitwise one
+   process's, but where only cuSOLVER's eigh at another batch size moves
+   them (its solve's inputs bitwise its block of one process's, and that
+   block solved at the rank's batch size gives the rank's bits): there
+   NRMSE within 1e-3; K1 and K3 launches == calls == one process's; the
+   collectives exact (one all-gather of the results, or one of features a
+   chunk).  The shared readout also through NCCL at world 1, bitwise.
 25. ``parallel_serving`` — sharded serving (``runtime.steps.serve_prefill``
    / ``serve_decode`` under a mesh: each rank its param blocks, its rows,
    its cache blocks, tensor-parallel over "model") on two gloo ranks of the
@@ -1022,6 +1042,24 @@ PAR_PR23_ROUTE = {
                                          "all-reduce": {"data": {"count": 12,
                                                                  "wire_bytes": 466578452.0}}}}}
 
+# The DFRC pipeline over the parallel phase's (2, 1) mesh: phase_wdm's
+# streamed 64-channel run and its shared readout over PDFRC_SHARED_R
+# channels, the PDFRC_COMPOSED graph through Experiment and d2_l1 per WDM
+# channel on phase_composed's MC probe, and the device map of SWEEP_GRID
+# cut to PDFRC_SWEEP_N nodes over PDFRC_SWEEP_SAMPLES samples.  Each rank's
+# results are bitwise the one process's, but where its Gram stacks are
+# bitwise its block of the one process's and only the solve (cuSOLVER's
+# eigh at another batch size) differs: there within PDFRC_EIGH_NRMSE_TOL.
+PDFRC_SHARED_R = 8
+PDFRC_COMPOSED = "d2_l2"
+PDFRC_SWEEP_N = 16
+PDFRC_SWEEP_SAMPLES = 300
+PDFRC_RESULTS = ("nrmse", "ser", "lam", "readout_w", "y_pred")
+# The one-process parity tests' NRMSE tolerance (tests/test_torch_wdm.py,
+# test_torch_composed.py, test_torch_devices.py), for a rank whose solve
+# alone differs from one process's.
+PDFRC_EIGH_NRMSE_TOL = 1e-3
+
 
 # the parallel serving phase (phase_parallel_serving): f32 throughout, so a
 # rank's gap to one process is f32 summation order alone (tensor-parallel
@@ -1038,12 +1076,90 @@ PSERVE_TIMEOUT_S = 300
 
 
 _T_START = time.perf_counter()
+# In a side process (``side_main``): the records ``emit`` keeps for the
+# parent, which prints them when it joins the side process.
+_SIDE_RECORDS: list | None = None
+# The longest a side process may take (the device map ≈ 170 s, the kernel
+# checks and the contracts ≈ 170 s, each beside the others).
+SIDE_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
+    if _SIDE_RECORDS is not None:
+        _SIDE_RECORDS.append(obj)
+        return
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - _T_START}
     print(json.dumps(obj), flush=True)
+
+
+def side_main(name: str, args: tuple, results) -> None:
+    """A side process: phase ``name`` (a function of this script) on the
+    card with ``args`` after the device, its records kept for the parent;
+    puts (ok, the phase's result or the traceback, records) on
+    ``results``."""
+    import traceback
+
+    import torch
+
+    global _SIDE_RECORDS
+    _SIDE_RECORDS = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = globals()[name](torch.device("cuda", 0), *args)
+    except BaseException:
+        results.put((False, traceback.format_exc(), _SIDE_RECORDS))
+    else:
+        results.put((True, out, _SIDE_RECORDS))
+
+
+def start_side(name: str, *args):
+    """Start phase ``name`` in a spawned process of its own (``side_main``),
+    beside the phases this one runs; ``join_sides`` ends it."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=side_main, args=(name, args, results), daemon=True)
+    proc.start()
+    return name, proc, results, time.perf_counter()
+
+
+def join_sides(sides) -> list:
+    """Wait for each side process (at most SIDE_TIMEOUT_S from its start),
+    print its records, end it; return their phases' results, or fail if a
+    phase failed or timed out (after every side process has ended)."""
+    import queue
+
+    outs, errors = [], []
+    for name, proc, results, t0 in sides:
+        try:
+            while True:
+                try:
+                    ok, out, records = results.get(timeout=5)
+                    break
+                except queue.Empty:
+                    if not proc.is_alive():
+                        ok, out, records = False, f"exited ({proc.exitcode}) with no result", []
+                        break
+                    if time.perf_counter() - t0 > SIDE_TIMEOUT_S:
+                        ok, out, records = False, f"timed out after {SIDE_TIMEOUT_S} s", []
+                        break
+        finally:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            results.close()
+        for obj in records:
+            emit({**obj, "side_joined_after_s": time.perf_counter() - t0} if "phase" in obj
+                 else obj)
+        outs.append(out)
+        if not ok:
+            errors.append(f"{name} in its side process:\n{out}")
+    check(not errors, "\n".join(errors))
+    return outs
 
 
 def check(ok: bool, what: str) -> None:
@@ -1455,12 +1571,10 @@ def scan_edge_check(dev, model, levels, tol, relative, b, k, n, per_lane, seed) 
 
 
 def phase_scan_checks(dev) -> None:
-    """The scan kernel vs its plain version for every form it inlines: at
+    """The scan kernel vs its plain version for every form it inlines at
     the main width (B = 64, N = 900, K = 32; the CMT form K = CMT_CHECK_K)
-    with per-lane masks and bf16 states, then on the edge grid of its block
-    layout (``scan_edge_cases``: N at the float4 group's and the warp's
-    edges, the largest N, B at the 8-lane block's edges, K = 1, 2, 37 in
-    turn; fewer for the CMT form), in both mask modes."""
+    with per-lane masks and bf16 states (the edge grid is
+    ``phase_scan_edge_grid``)."""
     import numpy as np
     import torch
 
@@ -1500,6 +1614,17 @@ def phase_scan_checks(dev) -> None:
     emit({"phase": "kernel_checks", "kernel": "dfr_scan", "shape_bkn": [b, k, n],
           "by_model": results, "bf16_states_err": err16,
           "per_lane_mask_err": err_lane, "chunk_resume_bitwise": True})
+
+
+def phase_scan_edge_grid(dev) -> None:
+    """The scan kernel vs its plain version on the edge grid of its block
+    layout (``scan_edge_cases``: N at the float4 group's and the warp's
+    edges, the largest N, B at the 8-lane block's edges, K = 1, 2, 37 in
+    turn; fewer for the CMT form), in both mask modes; MZISine one node
+    above the chain kernel's node limit, where SiliconMR raises."""
+    import torch
+
+    from repro_torch.kernels.dfr_scan import ops
 
     t0 = time.perf_counter()
     grid, cases = {}, 0
@@ -2762,7 +2887,7 @@ def phase_cmt_calibration(dev, narma, card: str) -> None:
           "streamed_twin_vs_materialized": streamed})
 
 
-def phase_device_sweep(dev, tasks, card: str) -> None:
+def phase_device_sweep(dev, card: str) -> None:
     """The (detuning × loss × power) robustness map at the benchmark's full
     size: 60 lanes on the calibrated twin, N = 64, NARMA10 of 1200 samples,
     streamed (chunk 128) on the ``fast`` path with per-lane device
@@ -2781,7 +2906,7 @@ def phase_device_sweep(dev, tasks, card: str) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.core import generate_states, make_mask
+    from repro_torch.core import generate_states, make_mask, tasks
     from repro_torch.devices import SweepGrid, run_device_sweep
     from repro_torch.pipeline import ExperimentConfig
     from repro_torch.pipeline.experiment import _canon_batch, _input_layer
@@ -3376,6 +3501,16 @@ CONTRACT_ENTRIES = 20
 COPY_SHAPE = (2048, 1024)
 COPY_TILE = (32, 256)
 CONTRACT_LONG_K = 20000
+
+
+def phase_side_checks(dev, card: str) -> dict:
+    """The side process beside the scan kernel's edge grid (none of it
+    timed): the scan kernel at the main width, K1ᵀ's and the Gram kernel's
+    edge grids, then the contracts; returns the contracts' result."""
+    phase_scan_checks(dev)
+    phase_scan_grad_checks(dev)
+    phase_gram_checks(dev)
+    return phase_contracts(dev, card)
 
 
 def phase_contracts(dev, card: str) -> dict:
@@ -4154,11 +4289,94 @@ def par_init(cfg, dev, microbatches=None):
     return run_cfg, init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
 
 
-def par_rank(rank: int, cfg, gcfg, dev_type: str, batches, gbatches, narma, exp_cfg) -> dict:
+def pdfrc_cases(chans) -> dict:
+    """The DFRC pipeline's mesh cases, name -> (kind, numpy inputs):
+    phase_wdm's channels ``chans`` per channel and, their first stream on
+    PDFRC_SHARED_R channels, shared; phase_composed's MC probe; the
+    reduced device map's NARMA10."""
+    import numpy as np
+
+    from repro_torch.core import tasks
+
+    mc = stack([tasks.memory_capacity(MC_SAMPLES, max_delay=MC_MAX_DELAY, seed=s)
+                for s in range(B_MAIN)])
+    r = PDFRC_SHARED_R
+    shared = (np.repeat(chans[0][:1], r, axis=0), chans[1][0],
+              np.repeat(chans[2][:1], r, axis=0), chans[3][0])
+    return {"wdm": ("wdm", chans), "wdm_shared": ("shared", shared),
+            "composed": ("composed", mc), "composed_wdm": ("composed_wdm", mc),
+            "device_sweep": ("sweep", tasks.narma10(PDFRC_SWEEP_SAMPLES, seed=0))}
+
+
+def pdfrc_run(kind: str, data, dev) -> dict:
+    """One case of ``pdfrc_cases`` in this process, under whatever mesh is
+    active: its numpy results, its one GCV solve (``solve``: the inputs
+    (G, c, ‖y‖², sample count, λs) and outputs (w, λ index), on the host),
+    K1's and K3's (launches, calls) and its host seconds."""
+    import numpy as np
+
+    from repro_torch.devices import SweepGrid, run_device_sweep
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.kernels.ridge_gram import ops as gram_ops
+    from repro_torch.pipeline import Experiment, WDMExperiment, ridge
+
+    topo = composed_topologies()
+    runs = {
+        "wdm": lambda: WDMExperiment(stream_config(n_nodes=N_WDM, state_noise_rel=0.0),
+                                     data[0].shape[0], device=dev).run(*data),
+        "shared": lambda: WDMExperiment(stream_config(n_nodes=N_WDM, state_noise_rel=0.0),
+                                        data[0].shape[0], shared_readout=True,
+                                        device=dev).run(*data),
+        "composed": lambda: Experiment(composed_config(topo[PDFRC_COMPOSED]),
+                                       device=dev).run(*data),
+        "composed_wdm": lambda: WDMExperiment(composed_config(topo["d2_l1"]), data[0].shape[0],
+                                              device=dev).run(*data),
+        "sweep": lambda: run_device_sweep(
+            cmt_model(power_mw=0.0), SweepGrid(**SWEEP_GRID), data, n_nodes=PDFRC_SWEEP_N,
+            washout=SWEEP_WASHOUT, stream_chunk_k=SWEEP_CHUNK, ridge_l2=SWEEP_LAMS, device=dev),
+    }
+    solves, solve = [], ridge.solve_gcv
+
+    def spy(g, c, y2, n_samples, lambdas):
+        out = solve(g, c, y2, n_samples, lambdas)
+        solves.append({"g": g.cpu(), "c": c.cpu(), "y2": y2.cpu(), "n": n_samples,
+                       "lambdas": lambdas, "w": out[0].cpu(), "idx": out[1].cpu()})
+        return out
+
+    reset_counts()
+    ridge.solve_gcv = spy
+    try:
+        res, run_s = wall(runs[kind])
+    finally:
+        ridge.solve_gcv = solve
+    check(len(solves) == 1, f"parallel dfrc {kind}: {len(solves)} solves, want one")
+    k1, k3 = scan_ops.dfr_scan, gram_ops.gram_accumulate_batched_into
+    return {"results": {k: None if getattr(res, k, None) is None else np.asarray(getattr(res, k))
+                        for k in PDFRC_RESULTS},
+            "solve": solves[0], "k1": [k1.launches, k1.calls],
+            "k3": [k3.launches, k3.calls], "run_s": run_s}
+
+
+def pdfrc_mesh_runs(cases: dict, mesh, dev) -> dict:
+    """Every case of ``cases`` under ``mesh`` (``pdfrc_run``), with the
+    collectives each recorded."""
+    from repro_torch.parallel import sharding
+
+    out = {}
+    for name, (kind, data) in cases.items():
+        with sharding.use_mesh(mesh), sharding.record_collectives() as events:
+            out[name] = pdfrc_run(kind, data, dev)
+        out[name]["collectives"] = [dict(e) for e in events]
+    return out
+
+
+def par_rank(rank: int, cfg, gcfg, dev_type: str, batches, gbatches, narma, exp_cfg,
+             dfrc) -> dict:
     """One rank of the parallel phase's two (gloo, the one card): the
     sharded steps of reservoir_lm on the (2, 1) and (1, 2) meshes from the
     seeded state, the gathered params of each written by rank 0 under
-    PAR_DIR; NARMA10 through ``Experiment`` under the (2, 1) mesh; then
+    PAR_DIR; NARMA10 through ``Experiment`` and the DFRC cases ``dfrc``
+    (``pdfrc_cases``) under the (2, 1) mesh; then
     granite-8b's sharded steps on (1, 2), each rank's param blocks held
     against its blocks of the one-process params under PAR_DIR (each
     leaf's largest gap)."""
@@ -4200,6 +4418,7 @@ def par_rank(rank: int, cfg, gcfg, dev_type: str, batches, gbatches, narma, exp_
                          "launches": list(launch_counts()),
                          "collective_bytes": collective_bytes(events)}
     del exp
+    out["dfrc"], out["dfrc_s"] = wall(lambda: pdfrc_mesh_runs(dfrc, exp_mesh, dev))
     torch.cuda.empty_cache()
     # granite-8b on (1, 2): each rank holds its blocks against the one process's
     mesh = make_mesh((1, 2), ("data", "model"), device_type=dev.type)
@@ -4218,9 +4437,10 @@ def par_rank(rank: int, cfg, gcfg, dev_type: str, batches, gbatches, narma, exp_
     return out
 
 
-def par_nccl_rank(rank: int, cfg, dev_type: str, batches) -> dict:
+def par_nccl_rank(rank: int, cfg, dev_type: str, batches, dfrc) -> dict:
     """One sharded step through NCCL at world 1 (mesh (1, 1)): its params,
-    written under PAR_DIR, and metrics."""
+    written under PAR_DIR, and metrics; then the DFRC cases ``dfrc`` on the
+    same mesh (``pdfrc_mesh_runs``)."""
     import torch
 
     from repro_torch.launch.mesh import make_mesh
@@ -4236,12 +4456,81 @@ def par_nccl_rank(rank: int, cfg, dev_type: str, batches) -> dict:
     torch.save([t.cpu() for t in tree_leaves(run.pop("state")["params"])],
                PAR_DIR / "nccl_world1.pt")
     run["backend"] = torch.distributed.get_backend()
+    run["dfrc"] = pdfrc_mesh_runs(dfrc, mesh, dev)
     return run
 
 
-def phase_parallel(dev, narma, card: str) -> None:
-    """The sharded train step and the sharded Experiment on the card (see
-    the module doc, phase 24)."""
+def pdfrc_check(name: str, one: dict, got: dict, where: str, block, dev) -> dict:
+    """Hold a run of DFRC case ``name`` over a mesh (``got``) to the one
+    process's (``one``): K1 and K3 launches == calls == the one process's;
+    its solve's inputs bitwise its block of the one process's (``block``:
+    (index, count) along the instances, None: the whole); every result
+    bitwise, but where its batch is a block and the solve alone differs:
+    the one process's solve inputs, cut to the block and solved here at the
+    rank's batch size, give the rank's w and λ bitwise (cuSOLVER's eigh
+    takes another routine at another batch size), and there NRMSE within
+    PDFRC_EIGH_NRMSE_TOL.  Returns the run's record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.pipeline import ridge
+
+    what = f"parallel dfrc {name} {where}"
+    for kernel in ("k1", "k3"):
+        check(got[kernel] == one[kernel] and got[kernel][0] == got[kernel][1],
+              f"{what}: {kernel} (launches, calls) {got[kernel]}, one process {one[kernel]}")
+
+    def part(t):
+        t = torch.as_tensor(t)
+        if block is None:
+            return t
+        b = t.shape[0] // block[1]
+        return t[block[0] * b:(block[0] + 1) * b]
+
+    mine, theirs = got["solve"], one["solve"]
+    check(all(torch.equal(torch.as_tensor(mine[k]), part(theirs[k])) for k in ("g", "c", "y2")),
+          f"{what}: the solve's inputs are not bitwise the one process's")
+    same = all(np.array_equal(got["results"][k], one["results"][k])
+               if one["results"][k] is not None else got["results"][k] is None
+               for k in PDFRC_RESULTS)
+    rec = {"case": "bitwise", "max_nrmse_gap": 0.0}
+    if not same:
+        w, idx = ridge.solve_gcv(*(part(theirs[k]).to(dev) for k in ("g", "c", "y2")),
+                                 theirs["n"], tuple(theirs["lambdas"]))
+        witness = (torch.equal(w.cpu(), torch.as_tensor(mine["w"])) and
+                   torch.equal(idx.cpu(), torch.as_tensor(mine["idx"])))
+        gap = float(np.abs(got["results"]["nrmse"] - one["results"]["nrmse"]).max())
+        check(block is not None and witness and gap <= PDFRC_EIGH_NRMSE_TOL,
+              f"{what}: not bitwise the one process's run (NRMSE gap {gap}; the block's "
+              f"solve at the rank's batch size gives the rank's bits: {witness})")
+        rec = {"case": f"eigh at batch {w.shape[0]} against {theirs['g'].shape[0]}",
+               "max_nrmse_gap": gap,
+               "lam_flips": int((got["results"]["lam"] != one["results"]["lam"]).sum())}
+    return {**rec, "run_s": got["run_s"], "k1": got["k1"], "k3": got["k3"]}
+
+
+def pdfrc_collectives(name: str, kind: str, data, got: dict, where: str, group: int) -> dict:
+    """The collectives of a DFRC case's mesh run: a per-instance case one
+    all-gather over "data" (its results); the shared readout one over
+    "data" a fit and an evaluation chunk, of the chunk's features."""
+    events = got["collectives"]
+    if kind == "shared":
+        n = sum(-(-data[i].shape[1] // STREAM_CHUNK) for i in (0, 2))
+        one = {"kind": "all-gather", "bytes": 4 * STREAM_CHUNK * data[0].shape[0] * N_WDM,
+               "group": group, "axis": "data"}
+        ok = events == [one] * n
+    else:
+        ok = len(events) == 1 and all(events[0][k] == v for k, v in
+                                      (("kind", "all-gather"), ("axis", "data"),
+                                       ("group", group)))
+    check(ok, f"parallel dfrc {name} {where}: collectives {events[:3]} ({len(events)})")
+    return {"count": len(events), "bytes": sum(e["bytes"] for e in events)}
+
+
+def phase_parallel(dev, narma, chans, card: str) -> None:
+    """The sharded train step, the sharded Experiment and the DFRC cases
+    over a mesh on the card (see the module doc, phase 24); ``chans`` are
+    phase_wdm's channels."""
     import shutil
 
     import numpy as np
@@ -4347,14 +4636,20 @@ def phase_parallel(dev, narma, card: str) -> None:
     del gfinal
     torch.cuda.empty_cache()
 
-    # NARMA10 in one process
+    # NARMA10 and the DFRC cases in one process
     exp_cfg = dataclasses.replace(ExperimentConfig.from_dfrc(main_point()),
                                   state_method="kernel", readout_use_kernel=True)
     one = Experiment(exp_cfg, device=dev).run(*narma)
+    dfrc = pdfrc_cases(chans)
+    dfrc_one = {name: pdfrc_run(kind, data, dev) for name, (kind, data) in dfrc.items()}
+    for name, run in dfrc_one.items():
+        check(run["k1"][0] == run["k1"][1] and run["k3"][0] == run["k3"][1],
+              f"parallel dfrc {name} one process: K1 {run['k1']} K3 {run['k3']}")
+    torch.cuda.empty_cache()
 
     ranks, ranks_s = wall(lambda: run_ranks(par_rank, 2, store_dir=str(PAR_DIR),
                                             args=(cfg, gcfg, dev.type, batches, gbatches,
-                                                  narma, exp_cfg),
+                                                  narma, exp_cfg, dfrc),
                                             timeout=PAR_TIMEOUT_S, threads=None))
     out = {"config": {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
                       "reservoir_nodes": cfg.reservoir_nodes, "vocab": cfg.vocab_size,
@@ -4405,8 +4700,10 @@ def phase_parallel(dev, narma, card: str) -> None:
             f"granite_1x2 rank {rank}", gpaths, run["leaf_gaps"], gtols)})
     out["granite_1x2"] = grec
     # NCCL at world 1
+    nccl_dfrc = {"wdm_shared": dfrc["wdm_shared"]}
     (nccl,) = run_ranks(par_nccl_rank, 1, store_dir=str(PAR_DIR), backend="nccl",
-                        args=(cfg, dev.type, batches), timeout=PAR_TIMEOUT_S, threads=None)
+                        args=(cfg, dev.type, batches, nccl_dfrc), timeout=PAR_TIMEOUT_S,
+                        threads=None)
     got = torch.load(PAR_DIR / "nccl_world1.pt")
     same = all(torch.equal(g.to(dev), w) for g, w in zip(got, after_one, strict=True))
     check(nccl["backend"] == "nccl" and same and nccl["metrics"][0] == ref["metrics"][0],
@@ -4430,6 +4727,32 @@ def phase_parallel(dev, narma, card: str) -> None:
                          "tol": PAR_NRMSE_TOL}
     shutil.rmtree(PAR_DIR, ignore_errors=True)
     emit({"phase": "parallel", "card": card, **out, "seconds": time.perf_counter() - t0})
+
+    # the DFRC cases over the two ranks, and the shared readout on NCCL
+    dfrc_out = {"config": {"wdm": {"R": B_MAIN, "N": N_WDM, "chunk": STREAM_CHUNK},
+                           "wdm_shared": {"R": PDFRC_SHARED_R, "F": PDFRC_SHARED_R * N_WDM + 1},
+                           "composed": PDFRC_COMPOSED, "composed_wdm": "d2_l1",
+                           "device_sweep": {"lanes": dfrc_one["device_sweep"]["results"]["nrmse"].size,
+                                            "N": PDFRC_SWEEP_N,
+                                            "samples": PDFRC_SWEEP_SAMPLES}},
+                "one_process_s": sum(run["run_s"] for run in dfrc_one.values()),
+                "ranks_s": [r["dfrc_s"] for r in ranks], "tol": PDFRC_EIGH_NRMSE_TOL}
+    for name, (kind, data) in dfrc.items():
+        rec = {"one_process_s": dfrc_one[name]["run_s"], "k1": dfrc_one[name]["k1"],
+               "k3": dfrc_one[name]["k3"], "by_rank": []}
+        for rank, r in enumerate(ranks):
+            got = r["dfrc"][name]
+            rec["by_rank"].append({
+                **pdfrc_check(name, dfrc_one[name], got, f"rank {rank}",
+                              None if kind == "shared" else (rank, len(ranks)), dev),
+                "collectives": pdfrc_collectives(name, kind, data, got, f"rank {rank}", 2)})
+        dfrc_out[name] = rec
+    got = nccl["dfrc"]["wdm_shared"]
+    dfrc_out["nccl_world1_wdm_shared"] = {
+        **pdfrc_check("wdm_shared", dfrc_one["wdm_shared"], got, "NCCL at world 1", None, dev),
+        "collectives": pdfrc_collectives("wdm_shared", "shared", dfrc["wdm_shared"][1], got,
+                                         "NCCL at world 1", 1)}
+    emit({"phase": "parallel_dfrc", "card": card, **dfrc_out})
 
 
 def pserve_configs() -> dict:
@@ -4680,13 +5003,15 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
     (vs_library = ms / library_ms).
 
     K1 (SiliconMR) is held to its plain version exactly where its paths
-    launch it: on chunk 1 of the stream, resumed from the kernel's carry
-    after chunk 0 (f32 states and carry; bf16 states the f32 states
+    launch it, each time on the first SPLIT_CHECK_K periods (the plain
+    version's node loop, tens of seconds a 256-period chunk at N = 900,
+    is the line's slowest part): on chunk 1 of the stream, resumed from the kernel's
+    carry after chunk 0 (f32 states and carry; bf16 states the f32 states
     rounded, bitwise, and within half a bf16 ulp of the plain f32 state),
     and on a whole split from a zero state, as the materialized paths
-    launch it (NARMA10 [64, 1000, 900], WDM [64, 10000, 100]), its first
-    chunk (the plain loop over a whole split took ≈ 270 s of the run).
-    ``plain_ms`` is the plain version's time on the chunk.  Beside its
+    launch it (NARMA10 [64, 1000, 900], WDM [64, 10000, 100]).
+    ``plain_ms`` is the plain version's time on the resumed periods
+    (``plain_shape_bkn``); the kernel is timed on the whole chunk.  Beside its
     roofline bound, each K1 row has its chain bound (``chain_bound_ms``:
     K·N dependent chain steps at the card's maximum SM clock, each of
     CHAIN_OPS f32 ops at the latency ``chain_cycles`` measures in this run,
@@ -4739,18 +5064,21 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         n = mask.shape[-1]
         zero = torch.zeros((b, n), dtype=torch.float32, device=dev)
         checks = []
-        # chunk 1, resumed from the kernel's carry after chunk 0
+        # chunk 1, resumed from the kernel's carry after chunk 0: its first
+        # ck periods (the plain version's node loop is the run's slowest part)
+        ck = min(chunk, SPLIT_CHECK_K)
         _, carry = scan_ops.dfr_scan(model, j[:, :chunk], mask, zero, return_final=True)
         j1 = j[:, chunk:2 * chunk].contiguous()
-        out, fin = scan_ops.dfr_scan(model, j1, mask, carry, return_final=True)
-        out16 = scan_ops.dfr_scan(model, j1, mask, carry, out_dtype=torch.bfloat16)
-        (ref, ref_fin), plain_s = wall(lambda: scan_ops.dfr_scan_plain(model, j1, mask, carry))
+        j1c = j1[:, :ck].contiguous()
+        out, fin = scan_ops.dfr_scan(model, j1c, mask, carry, return_final=True)
+        out16 = scan_ops.dfr_scan(model, j1c, mask, carry, out_dtype=torch.bfloat16)
+        (ref, ref_fin), plain_s = wall(lambda: scan_ops.dfr_scan_plain(model, j1c, mask, carry))
         err = max(max_err(out, ref), max_err(fin, ref_fin))
         # rounding an f32 state to bf16 (8 significant bits) moves it by at most
         # 2^-8 of itself
         bf16_excess = float(((out16.float() - ref).abs() - ref.abs() * 2.0 ** -8).max())
-        checks.append({"what": "chunk 1 from the carry of chunk 0",
-                       "shape_bkn": [b, chunk, n], "max_abs_err": err,
+        checks.append({"what": "chunk 1 from the carry of chunk 0, its first periods",
+                       "shape_bkn": [b, ck, n], "max_abs_err": err,
                        "bf16_err_beyond_half_ulp": bf16_excess, "plain_s": plain_s})
         check(err == 0.0, f"{name} vs plain on a resumed chunk: {err}")
         check(bf16_excess <= 2e-6, f"{name} bf16 states vs plain: {bf16_excess} beyond half an ulp")
@@ -4758,13 +5086,13 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
               f"{name}: bf16 states are not the f32 states rounded")
         del out, out16, ref
         # the whole split from a zero state, as the materialized paths
-        # launch it; its first chunk against the plain version
-        out = scan_ops.dfr_scan(model, j, mask, zero)[:, :chunk]
-        (ref, _), full_s = wall(lambda: scan_ops.dfr_scan_plain(model, j[:, :chunk].contiguous(),
+        # launch it; its first ck periods against the plain version
+        out = scan_ops.dfr_scan(model, j, mask, zero)[:, :ck]
+        (ref, _), full_s = wall(lambda: scan_ops.dfr_scan_plain(model, j[:, :ck].contiguous(),
                                                                  mask, zero))
         err_full = max_err(out, ref)
-        checks.append({"what": "whole split from zero, its first chunk", "shape_bkn": [b, k, n],
-                       "checked_k": chunk, "max_abs_err": err_full, "plain_s": full_s})
+        checks.append({"what": "whole split from zero, its first periods", "shape_bkn": [b, k, n],
+                       "checked_k": ck, "max_abs_err": err_full, "plain_s": full_s})
         check(err_full == 0.0, f"{name} vs plain on a whole split: {err_full}")
         del out, ref
         bound, by = bound_ms(4 * (b * chunk + mask.numel() + 2 * b * n + b * chunk * n),
@@ -4779,7 +5107,8 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                      "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97",
                      "launches": launches, "path": path,
                      "max_abs_err": max(c["max_abs_err"] for c in checks), **t,
-                     "plain_ms": plain_s * 1e3, "bound_ms": bound, "bound_by": by,
+                     "plain_ms": plain_s * 1e3, "plain_shape_bkn": [b, ck, n],
+                     "bound_ms": bound, "bound_by": by,
                      "library_ms": None, "chain_bound_ms": chain_bound,
                      "chain_bound_share": chain_bound / ms, "chain_cycles_per_step": cycles,
                      "sm_clock_mhz": clocks,
@@ -5247,9 +5576,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     phase_build(card)
-    phase_scan_checks(dev)
-    phase_scan_grad_checks(dev)
-    phase_gram_checks(dev)
+    # the kernel checks, the device map and the contracts time no kernel, and
+    # are host-bound: they run side by side in three processes, joined
+    # before the first timed phase
+    sides = [start_side("phase_device_sweep", card), start_side("phase_side_checks", card)]
+    phase_scan_edge_grid(dev)
+    _, contracts = join_sides(sides)
     narma, chan = main_inputs(tasks, B_MAIN)
     main = phase_main_path(dev, narma, chan, card)
     phase_stages(dev, narma, main["exp"], card)
@@ -5265,14 +5597,12 @@ def main() -> int:
     accelerator = phase_accelerator(dev, tasks, card)
     cmt = phase_cmt_main(dev, narma, card)
     phase_cmt_calibration(dev, narma, card)
-    phase_device_sweep(dev, tasks, card)
     phase_fast_path(dev, card)
     figures = phase_paper_figures(dev, tasks, card)
     composed = phase_composed(dev, tasks, card)
-    contracts = phase_contracts(dev, card)
     lm = phase_lm_serving(dev, card)
     lm_training = phase_lm_training(dev, card)
-    phase_parallel(dev, narma, card)
+    phase_parallel(dev, narma, wdm["chans"], card)
     phase_parallel_serving(dev, card)
     phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm,
                                     "serving": serving, "cmt": cmt,

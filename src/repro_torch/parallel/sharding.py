@@ -427,19 +427,25 @@ def shard_count(entry, mesh) -> int:
     return math.prod(sizes[a] for a in entry_axes(entry))
 
 
+def block_index(entry, mesh) -> int:
+    """This rank's block along a dim cut by one spec entry (row-major over
+    its axes, in the entry's order)."""
+    coords = _coords(mesh)
+    sizes = axis_sizes(mesh)
+    idx = 0
+    for a in entry_axes(entry):
+        idx = idx * sizes[a] + coords[a]
+    return idx
+
+
 def shard(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """This rank's block of ``full`` under ``spec``: a tensor of its own
     (never a view into ``full``), so the full tensor can be freed."""
-    coords = _coords(mesh)
-    sizes = axis_sizes(mesh)
     out = full
     for dim, entry in enumerate(spec):
-        axes = entry_axes(entry)
-        if not axes:
+        if not entry_axes(entry):
             continue
-        idx = 0
-        for a in axes:                                # row-major, the entry's order
-            idx = idx * sizes[a] + coords[a]
+        idx = block_index(entry, mesh)
         n = shard_count(entry, mesh)
         if full.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not divide into {n} "
@@ -814,10 +820,7 @@ class Plan:
     def block_index(self, entry) -> int:
         """This rank's block along a dim cut by ``entry`` (row-major over
         its axes)."""
-        idx = 0
-        for a in entry_axes(entry):
-            idx = idx * self.sizes[a] + self.coords[a]
-        return idx
+        return block_index(entry, self.mesh)
 
     def model_entries(self, spec: P) -> P:
         """``spec`` with only its "model" entries (the dims a recurrent

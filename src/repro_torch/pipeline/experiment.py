@@ -30,14 +30,26 @@ noise agree with the reference in distribution, and runs with
 ``state_noise_rel=0`` or diagonal noise agree to f32 round-off.
 
 Under an active mesh (``parallel.sharding.use_mesh``) the instance axis
-splits over the mesh's data axes (the reference's ``maybe_shard`` of the
-drive and the states, ``repro/pipeline/experiment.py:407-408, 481-482``):
-each rank runs its block of instances through the input layer's outputs,
-the reservoir, the fit and the evaluation, and the results are gathered,
-so every rank returns the whole batch's.  Sampled digitiser noise is drawn
-at the whole batch's shape and cut, so a run over a mesh draws what one
-process draws.  WDM ensembles, composed graphs and ``dev_params`` do not
-take a mesh yet (ROADMAP.md Queue 1 item 13e).
+(batch rows, WDM channels or sweep lanes) splits over the mesh's data axes
+by ``sharding.fit_spec`` (the reference's ``maybe_shard`` of the drive and
+the states, ``repro/pipeline/experiment.py:407-408, 481-482``): each rank
+runs its block of instances through the reservoir, the fit and the
+evaluation, and every rank returns the whole result.  A batch the data
+axes do not divide stays whole on every rank; a "model" axis replicates
+the work.  With the instances the rank cuts what is per instance: the
+drive, the targets and the carries, a WDM ensemble's [R, N] masks (a
+composed one's per-stage [R, L, N] stacks), and each [B] leaf of
+``dev_params`` (scalar leaves stay); a composed graph's [L, N] stacks under
+``Experiment`` are every instance's and stay whole.  The per-instance
+results come back in one all-gather (``_gather_instances``).  Sampled
+digitiser noise is drawn at the whole batch's shape and cut, so a run over
+a mesh draws what one process draws.  The shared WDM readout is the one
+path whose fit couples instances: its [R·N + 1]² Gram pairs channels that
+live on different ranks, which a sum of per-rank Grams would lose.  Its
+ranks all-gather each chunk's channel-major features instead, one
+collective a chunk in the fit and in the evaluation, and each folds and
+solves the whole Gram; its one target stream and its B = 1 results are
+every rank's and are neither cut nor gathered.
 
 ``Experiment.run(..., dev_params=...)`` sweeps the device's operating
 point over the batch lanes (``devices.cmt.CMTSweepParams``, leaves scalar
@@ -364,8 +376,10 @@ def _streaming_metrics(acc, t_test: int, *, channel_axis: bool):
 
 
 def _run_streaming(cfg: ExperimentConfig, mask, j_tr, tr_tg, j_te, te_tg, *,
-                   wdm: bool, shared: bool, dev_params=None):
-    """The streaming branch: chunked fit, then chunked evaluation."""
+                   wdm: bool, shared: bool, dev_params=None, cut=None):
+    """The streaming branch: chunked fit, then chunked evaluation (``cut``:
+    the shared readout's channels are this rank's block, see
+    ``ridge.fit_ridge_streaming_shared``)."""
     dev = j_tr.device
     noise_rel = cfg.state_noise_rel if cfg.state_noise_mode == "diagonal" else 0.0
     kw = dict(washout=cfg.washout, chunk_k=cfg.stream_chunk_k, lambdas=cfg.ridge_l2,
@@ -386,12 +400,13 @@ def _run_streaming(cfg: ExperimentConfig, mask, j_tr, tr_tg, j_te, te_tg, *,
     elif shared:
         # one [R·N + 1] readout; the channel axis rides the chunk loop as a
         # trailing input dim (B = 1 for the Gram)
-        w_1, lam_1, s_1 = fit_ridge_streaming_shared(cfg.model, mask, j_tr, tr_tg[0], **kw)
+        w_1, lam_1, s_1 = fit_ridge_streaming_shared(cfg.model, mask, j_tr, tr_tg[0], cut=cut,
+                                                     **kw)
         w_fit, lam_idx = w_1[None], lam_1[None]
         eval_fn = _shared_chunk_states_fn(cfg.model, mask, state_method=cfg.state_method,
                                           block_s=cfg.kernel_block_s,
                                           state_dtype=cfg._stream_state_dtype_arg,
-                                          device=dev)
+                                          device=dev, cut=cut)
         with stage("stream_eval", dev):
             y_raw3, acc = _eval_streaming(cfg, eval_fn, j_te.T[None], te_tg3, w_fit,
                                           (s_1[None],))
@@ -426,23 +441,51 @@ def _run_pipeline(cfg: ExperimentConfig, mask, tr_in, tr_tg, te_in, te_tg, *,
     readout over all channels' states, targets [1, K(, C)].
     ``dev_params``: the per-lane device operating point (single mask).
     With ``cfg.topology``, ``mask`` is the tuple of per-stage mask stacks.
+
+    Under an active mesh each rank runs its block of the instance axis
+    (module doc): per-instance masks, targets and [B] ``dev_params``
+    leaves are cut with it, and the per-instance results are gathered; the
+    shared readout gathers each chunk's features instead and returns its
+    B = 1 results as they are.
     """
     dev = tr_in.device
     with stage("input_layer", dev):
         j_tr, j_te = _input_layer(cfg, tr_in, te_in)
     mesh = sharding.active_mesh()
-    if mesh is not None:
-        if wdm or dev_params is not None or cfg.topology is not None:
-            raise NotImplementedError("under a mesh the pipeline splits a single delay loop's "
-                                      "instances; WDM, composed graphs and dev_params do "
-                                      "not take one yet")
-        # the instance axis over the data axes: this rank's block, then gathered
-        cut = (sharding.fit_spec(mesh, j_tr.shape, sharding.BATCH_AXES), mesh)
-        out = _run_from_drive(cfg, mask, *(sharding.shard(t, *cut)
-                                           for t in (j_tr, tr_tg, j_te, te_tg)), cut=cut)
-        return tuple(None if t is None else sharding.gather(t, *cut) for t in out)
-    return _run_from_drive(cfg, mask, j_tr, tr_tg, j_te, te_tg, wdm=wdm, shared=shared,
-                           dev_params=dev_params)
+    if mesh is None:
+        return _run_from_drive(cfg, mask, j_tr, tr_tg, j_te, te_tg, wdm=wdm, shared=shared,
+                               dev_params=dev_params)
+    # the instance axis (rows, channels or lanes) over the data axes
+    cut = (sharding.fit_spec(mesh, j_tr.shape, sharding.BATCH_AXES), mesh)
+
+    def local(t):
+        return sharding.shard(t, *cut)
+
+    if wdm:   # per-channel masks: [R, N], or per-stage [R, L, N] stacks
+        mask = tuple(map(local, mask)) if cfg.topology is not None else local(mask)
+    if dev_params is not None:
+        dev_params = type(dev_params)(*(leaf if np.ndim(leaf) == 0 else
+                                        local(torch.as_tensor(leaf)) for leaf in dev_params))
+    if not shared:   # the shared readout's one target stream is every rank's
+        tr_tg, te_tg = local(tr_tg), local(te_tg)
+    out = _run_from_drive(cfg, mask, local(j_tr), tr_tg, local(j_te), te_tg, wdm=wdm,
+                          shared=shared, dev_params=dev_params, cut=cut)
+    return out if shared else _gather_instances(out, cut)
+
+
+def _gather_instances(out, cut):
+    """This rank's per-instance results -> the whole batch's, on every
+    rank: every result packed a row an instance, in one all-gather over
+    each axis of the cut."""
+    spec, mesh = cut
+    if not sharding.entry_axes(spec[0]):
+        return out
+    parts = [t for t in out if t is not None]
+    b = parts[0].shape[0]
+    rows = sharding.gather(torch.cat([t.reshape(b, -1) for t in parts], dim=1), spec, mesh)
+    whole = iter(r.reshape(-1, *t.shape[1:]) for r, t in zip(
+        torch.split(rows, [t[0].numel() for t in parts], dim=1), parts))
+    return tuple(None if t is None else next(whole) for t in out)
 
 
 def _run_from_drive(cfg, mask, j_tr, tr_tg, j_te, te_tg, *, wdm=False, shared=False,
@@ -452,7 +495,7 @@ def _run_from_drive(cfg, mask, j_tr, tr_tg, j_te, te_tg, *, wdm=False, shared=Fa
     dev = j_tr.device
     if cfg.stream_chunk_k is not None:
         return _run_streaming(cfg, mask, j_tr, tr_tg, j_te, te_tg, wdm=wdm, shared=shared,
-                              dev_params=dev_params)
+                              dev_params=dev_params, cut=cut)
     with stage("states_train", dev):
         st_tr, s_carry = _gen_states(cfg, mask, j_tr, wdm=wdm, return_final=True,
                                      dev_params=dev_params)

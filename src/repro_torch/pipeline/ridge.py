@@ -38,6 +38,7 @@ import torch
 from ..core.graph import ReservoirGraph, _chain_fn
 from ..core.reservoir import generate_channel_states, generate_states
 from ..device import host_values, resolve_device
+from ..parallel import sharding
 from .stages import stage
 
 
@@ -61,7 +62,6 @@ def gram(x: torch.Tensor, y: torch.Tensor, *, use_kernel: bool = False):
 
         return gram_ops.gram_accumulate(x, y)
     from ..kernels.ridge_gram.ref import gram_ref
-    from ..parallel import sharding
 
     mesh = sharding.active_mesh()
     if mesh is None:
@@ -352,6 +352,7 @@ def _fit_streaming_core(
     s0,                    # carry matching states_fn (None = dark)
     forgetting: float = 1.0,
     carry_layout: tuple[tuple[int, int], ...] | None = None,
+    carry_cols: tuple[int, int] | None = None,
 ):
     """The chunk loop shared by the streaming fits (DESIGN.md §8/§9).
 
@@ -368,6 +369,8 @@ def _fit_streaming_core(
     solves with the decayed sample count.  ``carry_layout`` (a tuple of
     (L, N_s)) declares the carry a tuple of [B, L, N_s] tensors that a
     feature row [B, n] slices back into; None keeps one [B, n] carry.
+    ``carry_cols`` (lo, hi) are the feature columns that carry holds (a
+    rank's channels of features gathered over a mesh); None: all n.
 
     Returns (w [B, F, C], lam_idx [B], s_end) with ``s_end`` the carry
     after period K - 1: the state row of that period, or the f32 kernel
@@ -400,15 +403,16 @@ def _fit_streaming_core(
         def carry_from_row(row):          # the [B, n] feature row IS the carry
             return row
     else:
-        if sum(lp * w for lp, w in carry_layout) != n:
-            raise ValueError(f"carry_layout {carry_layout} does not cover {n} features")
+        lo, hi = carry_cols or (0, n)
+        if sum(lp * w for lp, w in carry_layout) != hi - lo:
+            raise ValueError(f"carry_layout {carry_layout} does not cover {hi - lo} features")
         s = (tuple(f32(x) for x in s0) if s0 is not None else
              tuple(torch.zeros((b, lp, w), dtype=torch.float32, device=dev)
                    for lp, w in carry_layout))
 
         def carry_from_row(row):          # [B, n] -> tuple of [B, L, N_s]
             return tuple(part.reshape(b, lp, w) for part, (lp, w) in zip(
-                torch.split(row, [lp * w for lp, w in carry_layout], dim=1),
+                torch.split(row[:, lo:hi], [lp * w for lp, w in carry_layout], dim=1),
                 carry_layout))
 
     g = torch.zeros((b, plan.f, plan.f), dtype=torch.float32, device=dev)
@@ -562,11 +566,17 @@ def fit_ridge_streaming_wdm(
 
 
 def _shared_chunk_states_fn(model, masks, *, state_method: str = "kernel",
-                            block_s: int | None = None, state_dtype=None, device=None):
+                            block_s: int | None = None, state_dtype=None, device=None,
+                            cut=None):
     """The per-chunk state producer of the shared WDM readout: ``j_c``
     [1, chunk, R] with the carry ``([1, R, N],)`` -> features [1, chunk, R·N]
     (feature r·N + i = channel r, node i) and the next carry.  Shared by the
-    fit and the streamed evaluation, so both run the same ops."""
+    fit and the streamed evaluation, so both run the same ops.
+
+    With ``cut=(spec, mesh)`` the channels (``masks``, ``j_c``, the carry)
+    are this rank's block under ``spec``: a contiguous block of the
+    channel-major feature axis, so one all-gather over the spec's axes a
+    chunk gives every rank the whole chunk of features."""
     r, n_nodes = masks.shape
 
     def states_fn(j_c, carries):
@@ -574,6 +584,8 @@ def _shared_chunk_states_fn(model, masks, *, state_method: str = "kernel",
             model, j_c[0].T, masks, s0=carries[0][0], method=state_method,
             block_s=block_s, return_final=True, state_dtype=state_dtype, device=device)
         feats = states.movedim(0, 1).reshape(j_c.shape[1], r * n_nodes)[None]
+        if cut is not None:
+            feats = sharding.gather(feats, sharding.P(None, None, cut[0][0]), cut[1])
         return feats, (s_next[None],)
 
     return states_fn
@@ -597,6 +609,7 @@ def fit_ridge_streaming_shared(
     s0=None,               # [R, N]
     forgetting: float = 1.0,
     device=None,
+    cut=None,
 ):
     """Shared-readout WDM fit: ONE readout over all R channels' features.
 
@@ -607,6 +620,13 @@ def fit_ridge_streaming_shared(
     axis rides the chunk loop as a trailing input dim (stream [1, K, R]);
     each chunk runs all R channels as ONE per-lane-mask scan launch, and
     the carry is one ((R, N),) entry.
+
+    ``cut=(spec, mesh)``: ``masks``, ``j`` and ``s0`` are this rank's block
+    of the channels, cut over the spec's data axes; each chunk's features
+    are all-gathered (``_shared_chunk_states_fn``) and every rank folds and
+    solves the whole Gram.  A sum of per-rank Grams would lose the
+    off-diagonal blocks that pair channels of two ranks.  ``s_end`` is then
+    the rank's block.
 
     Returns ``(w [F, C], lam_idx, s_end [R, N])``.
     """
@@ -626,12 +646,17 @@ def fit_ridge_streaming_shared(
         raise ValueError(f"targets {tuple(y.shape)} do not match stream length "
                          f"{j.shape[1]}")
     states_fn = _shared_chunk_states_fn(model, masks, state_method=state_method,
-                                        block_s=block_s, state_dtype=state_dtype, device=dev)
+                                        block_s=block_s, state_dtype=state_dtype, device=dev,
+                                        cut=cut)
+    # this rank's channels are block ``at`` of ``blocks`` along the features
+    blocks, at = (1, 0) if cut is None else (sharding.shard_count(cut[0][0], cut[1]),
+                                             sharding.block_index(cut[0][0], cut[1]))
     w, idx, s_end = _fit_streaming_core(
-        states_fn, r * n_nodes, j.T[None], y[None], washout=washout, chunk_k=chunk_k,
-        lambdas=lambdas, use_kernel=use_kernel, block_t=block_t, noise_rel=noise_rel,
-        s0=None if s0 is None else (torch.as_tensor(s0, device=dev)[None],),
-        forgetting=forgetting, carry_layout=((r, n_nodes),))
+        states_fn, blocks * r * n_nodes, j.T[None], y[None], washout=washout,
+        chunk_k=chunk_k, lambdas=lambdas, use_kernel=use_kernel, block_t=block_t,
+        noise_rel=noise_rel, s0=None if s0 is None else (torch.as_tensor(s0, device=dev)[None],),
+        forgetting=forgetting, carry_layout=((r, n_nodes),),
+        carry_cols=(at * r * n_nodes, (at + 1) * r * n_nodes))
     return w[0], idx[0], s_end[0][0]
 
 

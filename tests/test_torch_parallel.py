@@ -361,10 +361,13 @@ def test_gram_splits_the_samples_over_the_data_ranks(tmp_path):
 
 
 def test_experiment_under_a_mesh_refuses_what_it_does_not_split():
+    """WDM ensembles split over a mesh's ranks
+    (tests/test_torch_parallel_dfrc.py); a shape-only mesh holds no rank to
+    split them over, and the run refuses it rather than run whole."""
     from repro_torch.pipeline import WDMExperiment
 
     mesh = sharding.AbstractMesh((2, 1), ("data", "model"))
-    with sharding.use_mesh(mesh), pytest.raises(NotImplementedError, match="WDM"):
+    with sharding.use_mesh(mesh), pytest.raises(TypeError, match="DeviceMesh"):
         WDMExperiment(_exp_cfg(False), n_channels=2, device="cpu").run(*_narma(2, 200))
 
 
