@@ -205,9 +205,12 @@ Then the distribution code (``repro_torch.parallel``, ``launch.mesh``):
    order alone) for PAR_STEPS steps of PAR_BATCH from one state, on the
    (2, 1) mesh (each microbatch's rows split over the two data ranks) and
    on the (1, 2) mesh (the MLP and the vocab split over the two model
-   ranks), and on granite-8b at full width cut to PAR_GRANITE_LAYERS
+   ranks), on granite-8b at full width cut to PAR_GRANITE_LAYERS
    layers for PAR_GRANITE_STEPS steps on (1, 2) (heads, kv heads, MLP and
-   vocab split): every loss and every param leaf within twice the
+   vocab split), and on xlstm-1.3b at full width cut to one unit for one
+   step of PAR_XLSTM_BATCH on (1, 2) (the mLSTM's channels, the sLSTM's
+   heads, columns and gated projection split): every loss and every param
+   leaf (xlstm's first moments: see PAR_XLSTM_BATCH) within twice the
    unsharded step's own spread under another split of its sums (more
    microbatches of fewer rows; for the tensor-parallel runs also under a
    ±2e-7 nudge of every weight, the larger), floored at LM_TRAIN_TOL and
@@ -236,15 +239,23 @@ Then the distribution code (``repro_torch.parallel``, ``launch.mesh``):
    its cache blocks, tensor-parallel over "model") on two gloo ranks of the
    one card: reservoir_lm at full width and depth in f32 on (1, 2) and on
    (2, 1), and on (2, 1) at batch 1 (the long-context layout), granite-8b
-   at full width cut to PSERVE_GRANITE_LAYERS layers in f32 on (1, 2);
+   at full width cut to PSERVE_GRANITE_LAYERS layers in f32 on (1, 2),
+   xlstm-1.3b at full width cut to one unit (7 mLSTM + 1 sLSTM) in f32 on
+   (1, 2), the mLSTM's channels and C/n cache rows and the sLSTM's heads
+   and c/n/h cache tensor-parallel;
    each a prefill of PSERVE_BATCH then PSERVE_DECODES decode steps fed the
    unsharded run's greedy ids.  Each rank's logits within twice one
-   process's own row-split spread (``row_split_spread``, floored at
-   PSERVE_TOL_FLOOR) of the unsharded port's; every rank's greedy ids
+   process's own row-split spread (``row_split_spread``; xlstm's also
+   under the ±PAR_NUDGE weight nudge, the larger; floored at
+   PSERVE_TOL_FLOOR) of the unsharded port's; an xlstm decode step
+   all-gathers over "model" exactly the whole leaves' and the activations'
+   bytes (``pserve_model_gathers``: no weight block, no C/n/c/h cache
+   block); every rank's greedy ids
    identical (``launch.serve.gathered_ids``); K1 launches == calls ==
-   12 a step on each rank.  Each rank's prefill ms, decode ms p50 and the
-   wire bytes of a decode step by collective kind.  Then the same through
-   NCCL at world 1 on the (1, 1) mesh, bitwise the unsharded serve.
+   12 a step on each rank.  Each rank's prefill ms, decode ms p50, peak
+   device bytes and the wire bytes of a decode step by collective kind.
+   Then the same through NCCL at world 1 on the (1, 1) mesh, bitwise the
+   unsharded serve.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without that line; so it does when
@@ -1019,6 +1030,19 @@ PAR_NUDGE_SEED = 99
 PAR_NRMSE_TOL = 1e-4
 PAR_DIR = ROOT / "build" / "parallel"
 PAR_TIMEOUT_S = 300
+# xlstm-1.3b at full width cut to one unit (PSERVE_XLSTM_LAYERS), f32, one
+# step of PAR_XLSTM_BATCH (4 microbatches of two rows, remat "full") on
+# (1, 2): the mLSTM's channels and the sLSTM's heads, columns and gated
+# projection tensor-parallel.  Held as granite-8b's run is, but on its
+# first moments (the step's clipped gradients times 1 - beta1, as
+# tests/test_torch_parallel_train_archs.py holds them) rather than its
+# params: after one step AdamW moves each element by about ±lr whatever
+# its gradient's size, so a zero-initialised leaf (w_i, conv_b, the norms)
+# is the sign of its gradient, and a few elements at round-off level set
+# its largest gap (2.3 × the params' spread tolerance on the card, where
+# the moments hold each leaf's gradient)
+PAR_XLSTM_BATCH = (8, 64)
+PAR_XLSTM_STEPS = 1
 # The figures of the route this phase's step replaced (the whole param tree
 # gathered on every rank, every rank along "model" computing the same step,
 # the full gradients all-reduced), for reservoir_lm as above, a rank each:
@@ -1069,6 +1093,12 @@ PDFRC_EIGH_NRMSE_TOL = 1e-3
 PSERVE_BATCH = (8, 512)
 PSERVE_DECODES = 16
 PSERVE_GRANITE_LAYERS = 4
+# xlstm-1.3b at full width cut to one unit (7 mLSTM + 1 sLSTM blocks), its
+# sLSTM's r_rec drawn at 1/sqrt(head_dim) as lm_arch_cell draws it; its
+# tolerance also takes one process's spread under the ±PAR_NUDGE weight
+# nudge (tensor parallelism reorders every row-parallel product's sums)
+PSERVE_XLSTM_LAYERS = 8
+PSERVE_NUDGED = ("xlstm-1.3b",)
 PSERVE_SEED = 0
 PSERVE_TOL_FLOOR = 1e-5
 PSERVE_DIR = ROOT / "build" / "parallel_serving"
@@ -3783,10 +3813,7 @@ def lm_arch_cell(dev, card: str, arch: str, n_layers: int, b: int, prompt: int, 
     if any(blk.mixer == "slstm" for blk in cfg.unit):
         rep["own_init_row_split_spread"] = row_split_spread(
             dataclasses.replace(cfg, dtype="float32"), params, prompts, ctx)
-        hd = cfg.d_model // cfg.n_heads
-        for blk, unit in zip(cfg.unit, params["units"], strict=True):
-            if blk.mixer == "slstm":
-                unit["mixer/r_rec"].mul_(math.sqrt(cfg.n_heads / hd))
+        calm_slstm(cfg, params)
         rep["slstm_r_rec_scale"] = "1/sqrt(head_dim)"
     for dtype in dtypes:
         c = dataclasses.replace(cfg, dtype=dtype)
@@ -4227,6 +4254,45 @@ def phase_lm_training(dev, card: str) -> dict:
             "launches": {k: v * LM_TRAIN_STEPS for k, v in per_step.items()}}
 
 
+def calm_slstm(cfg, params) -> None:
+    """Draw each sLSTM's r_rec of ``params`` at 1/sqrt(head_dim) where
+    ``init_params`` draws it at 1/sqrt(heads) (see LM_ARCH_CELLS), in
+    place."""
+    import math
+
+    import torch
+
+    hd = cfg.d_model // cfg.n_heads
+    with torch.no_grad():
+        for blk, unit in zip(cfg.unit, params["units"], strict=True):
+            if blk.mixer == "slstm":
+                unit["mixer/r_rec"].mul_(math.sqrt(cfg.n_heads / hd))
+
+
+def xlstm_unit_config():
+    """xlstm-1.3b at full width cut to PSERVE_XLSTM_LAYERS layers (one unit
+    of 7 mLSTM and 1 sLSTM blocks), f32."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("xlstm-1.3b"), dtype="float32",
+                               n_layers=PSERVE_XLSTM_LAYERS)
+
+
+def nudge_params(params, dev) -> None:
+    """Multiply every leaf of ``params`` by 1 ± PAR_NUDGE (signs drawn on
+    ``dev`` from PAR_NUDGE_SEED), in place: a move of every sum of the
+    size tensor parallelism's reordered partial sums make."""
+    import torch
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    gen = torch.Generator(device=dev).manual_seed(PAR_NUDGE_SEED)
+    with torch.no_grad():
+        for p in tree_leaves(params):
+            sign = torch.randint(0, 2, p.shape, generator=gen, device=dev) * 2 - 1
+            p.mul_(1 + PAR_NUDGE * sign)
+
+
 def par_config():
     """reservoir_lm at full width with f32 activations (the parallel phase)."""
     from repro_torch.launch.time_parallel import config
@@ -4242,12 +4308,12 @@ def par_granite_config():
                                n_layers=PAR_GRANITE_LAYERS)
 
 
-def par_batches(cfg, steps: int = PAR_STEPS) -> list[dict]:
-    """The token stream's first ``steps`` global batches of PAR_BATCH
+def par_batches(cfg, steps: int = PAR_STEPS, shape=PAR_BATCH) -> list[dict]:
+    """The token stream's first ``steps`` global batches of ``shape``
     (numpy)."""
     from repro_torch.launch.time_parallel import batches
 
-    return batches(cfg, steps, PAR_BATCH)
+    return batches(cfg, steps, shape)
 
 
 def par_sync(dev) -> None:
@@ -4279,14 +4345,17 @@ def par_steps(cfg, state, batches, dev, mesh=None) -> dict:
 
 
 def par_init(cfg, dev, microbatches=None):
-    """The phase's train state of ``cfg`` (seed 0) on ``dev``, with
-    ``microbatches`` in its config when given."""
+    """The phase's train state of ``cfg`` (seed 0; an sLSTM's r_rec as
+    ``calm_slstm`` draws it) on ``dev``, with ``microbatches`` in its config
+    when given."""
     import torch
 
     from repro_torch.runtime.steps import init_train_state
 
     run_cfg = cfg if microbatches is None else dataclasses.replace(cfg, microbatches=microbatches)
-    return run_cfg, init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    calm_slstm(cfg, state["params"])
+    return run_cfg, state
 
 
 def pdfrc_cases(chans) -> dict:
@@ -4370,16 +4439,16 @@ def pdfrc_mesh_runs(cases: dict, mesh, dev) -> dict:
     return out
 
 
-def par_rank(rank: int, cfg, gcfg, dev_type: str, batches, gbatches, narma, exp_cfg,
-             dfrc) -> dict:
+def par_rank(rank: int, cfg, gcfg, xcfg, dev_type: str, batches, gbatches, xbatches, narma,
+             exp_cfg, dfrc) -> dict:
     """One rank of the parallel phase's two (gloo, the one card): the
     sharded steps of reservoir_lm on the (2, 1) and (1, 2) meshes from the
     seeded state, the gathered params of each written by rank 0 under
     PAR_DIR; NARMA10 through ``Experiment`` and the DFRC cases ``dfrc``
     (``pdfrc_cases``) under the (2, 1) mesh; then
-    granite-8b's sharded steps on (1, 2), each rank's param blocks held
-    against its blocks of the one-process params under PAR_DIR (each
-    leaf's largest gap)."""
+    granite-8b's and xlstm-1.3b's sharded steps on (1, 2), each rank's param
+    blocks (xlstm's first moments) held against its blocks of the one
+    process's under PAR_DIR (each leaf's largest gap)."""
     import numpy as np
     import torch
 
@@ -4420,20 +4489,24 @@ def par_rank(rank: int, cfg, gcfg, dev_type: str, batches, gbatches, narma, exp_
     del exp
     out["dfrc"], out["dfrc_s"] = wall(lambda: pdfrc_mesh_runs(dfrc, exp_mesh, dev))
     torch.cuda.empty_cache()
-    # granite-8b on (1, 2): each rank holds its blocks against the one process's
+    # granite-8b and xlstm-1.3b on (1, 2): each rank holds its blocks
+    # against the one process's
     mesh = make_mesh((1, 2), ("data", "model"), device_type=dev.type)
-    specs = state_pspecs(gcfg, mesh)
-    state = sharding.tree_shard(par_init(gcfg, dev)[1], specs, mesh)
-    torch.cuda.empty_cache()
-    run = par_steps(gcfg, state, gbatches, dev, mesh=mesh)
-    ref = torch.load(PAR_DIR / "granite_1x1.pt", mmap=True)
-    run["leaf_gaps"] = [
-        float((t.detach() - sharding.shard(w, spec, mesh).to(dev)).abs().max())
-        for t, w, spec in zip(tree_leaves(run.pop("state")["params"]), ref,
-                              sharding.spec_leaves(specs["params"]), strict=True)]
-    del ref, state
-    torch.cuda.empty_cache()
-    out["granite_1x2"] = run
+    for name, run_cfg, run_batches in (("granite", gcfg, gbatches), ("xlstm", xcfg, xbatches)):
+        specs = state_pspecs(run_cfg, mesh)
+        state = sharding.tree_shard(par_init(run_cfg, dev)[1], specs, mesh)
+        torch.cuda.empty_cache()
+        run = par_steps(run_cfg, state, run_batches, dev, mesh=mesh)
+        ref = torch.load(PAR_DIR / f"{name}_1x1.pt", mmap=True)
+        state = run.pop("state")
+        held = state["opt"]["m"] if name == "xlstm" else state["params"]
+        run["leaf_gaps"] = [
+            float((t.detach() - sharding.shard(w, spec, mesh).to(dev)).abs().max())
+            for t, w, spec in zip(tree_leaves(held), ref,
+                                  sharding.spec_leaves(specs["params"]), strict=True)]
+        del ref, state
+        torch.cuda.empty_cache()
+        out[f"{name}_1x2"] = run
     return out
 
 
@@ -4544,7 +4617,7 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    cfg, gcfg = par_config(), par_granite_config()
+    cfg, gcfg, xcfg = par_config(), par_granite_config(), xlstm_unit_config()
     check(cfg.n_layers == 12 and cfg.d_model == 768 and cfg.reservoir_nodes == 256 and
           cfg.vocab_size == 32000 and cfg.microbatches == 4 and cfg.remat == "full",
           f"the parallel phase's reservoir_lm: {cfg}")
@@ -4552,7 +4625,10 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
           gcfg.d_ff == 14336 and gcfg.vocab_size == 49152 and gcfg.n_layers ==
           PAR_GRANITE_LAYERS and gcfg.microbatches == 8 and gcfg.remat == "full",
           f"the parallel phase's granite-8b: {gcfg}")
+    check(xcfg.d_model == 2048 and xcfg.n_units == 1 and xcfg.microbatches == 4 and
+          xcfg.remat == "full", f"the parallel phase's xlstm-1.3b: {xcfg}")
     batches, gbatches = par_batches(cfg), par_batches(gcfg, PAR_GRANITE_STEPS)
+    xbatches = par_batches(xcfg, PAR_XLSTM_STEPS, PAR_XLSTM_BATCH)
     shutil.rmtree(PAR_DIR, ignore_errors=True)
     PAR_DIR.mkdir(parents=True, exist_ok=True)
 
@@ -4563,14 +4639,11 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
     # granite-8b 4 of two rows where it takes 8 of one), and under a
     # ±PAR_NUDGE relative nudge of every weight, which moves every sum as
     # tensor parallelism's reordered partial sums do
-    def unsharded(run_cfg, host_batches, microbatches: int, keep_first=False, nudge=False):
+    def unsharded(run_cfg, host_batches, microbatches: int, keep_first=False, nudge=False,
+                  moments=False):
         run_cfg, state = par_init(run_cfg, dev, microbatches)
         if nudge:
-            gen = torch.Generator(device=dev).manual_seed(PAR_NUDGE_SEED)
-            with torch.no_grad():
-                for p in tree_leaves(state["params"]):
-                    sign = torch.randint(0, 2, p.shape, generator=gen, device=dev) * 2 - 1
-                    p.mul_(1 + PAR_NUDGE * sign)
+            nudge_params(state["params"], dev)
         run = {"metrics": [], "ms": [], "k1": [], "k1t": [], "peak_bytes": 0}
         after_one = None
         for i, batch in enumerate(host_batches):
@@ -4580,7 +4653,8 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
             run["peak_bytes"] = max(run["peak_bytes"], one["peak_bytes"])
             if i == 0 and keep_first:
                 after_one = [t.detach().clone() for t in tree_leaves(state["params"])]
-        return run, after_one, [t.detach() for t in tree_leaves(state["params"])]
+        held = state["opt"]["m"] if moments else state["params"]
+        return run, after_one, [t.detach() for t in tree_leaves(held)]
 
     def spreads(run, final, other):
         """(the loss spread, each leaf's spread) of ``other`` (an
@@ -4635,6 +4709,19 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
     gpaths = [p for p, _ in tree_leaves_with_path(meta_params(gcfg))]
     del gfinal
     torch.cuda.empty_cache()
+    # xlstm-1.3b likewise (its split: 2 microbatches of four rows), its
+    # first moments held (PAR_XLSTM_BATCH)
+    xref, _, xfinal = unsharded(xcfg, xbatches, xcfg.microbatches, moments=True)
+    torch.save([t.cpu() for t in xfinal], PAR_DIR / "xlstm_1x1.pt")
+    xsplit = spreads(xref, xfinal, unsharded(xcfg, xbatches, xcfg.microbatches // 2,
+                                             moments=True))
+    torch.cuda.empty_cache()
+    xnudged = spreads(xref, xfinal, unsharded(xcfg, xbatches, xcfg.microbatches, nudge=True,
+                                              moments=True))
+    xloss_tol, xtols = tolerances(xfinal, xsplit, xnudged)
+    xpaths = [p for p, _ in tree_leaves_with_path(meta_params(xcfg))]
+    del xfinal
+    torch.cuda.empty_cache()
 
     # NARMA10 and the DFRC cases in one process
     exp_cfg = dataclasses.replace(ExperimentConfig.from_dfrc(main_point()),
@@ -4648,8 +4735,8 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
     torch.cuda.empty_cache()
 
     ranks, ranks_s = wall(lambda: run_ranks(par_rank, 2, store_dir=str(PAR_DIR),
-                                            args=(cfg, gcfg, dev.type, batches, gbatches,
-                                                  narma, exp_cfg, dfrc),
+                                            args=(cfg, gcfg, xcfg, dev.type, batches,
+                                                  gbatches, xbatches, narma, exp_cfg, dfrc),
                                             timeout=PAR_TIMEOUT_S, threads=None))
     out = {"config": {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
                       "reservoir_nodes": cfg.reservoir_nodes, "vocab": cfg.vocab_size,
@@ -4680,25 +4767,32 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
                                    tols[name][1])
         out[name] = rec
     del got
-    # granite-8b on (1, 2)
-    grec = {"config": {"arch": gcfg.name, "layers": gcfg.n_layers, "d_model": gcfg.d_model,
-                       "vocab": gcfg.vocab_size, "dtype": gcfg.dtype,
-                       "microbatches": gcfg.microbatches, "remat": gcfg.remat,
-                       "batch": list(PAR_BATCH), "steps": PAR_GRANITE_STEPS},
-            "unsharded": {"losses": [m["loss"] for m in gref["metrics"]],
-                          "step_ms": gref["ms"], "peak_bytes": gref["peak_bytes"],
-                          "loss_spread": {"half_the_microbatches": gsplit[0],
-                                          "nudged": gnudged[0]},
-                          "loss_tol": gloss_tol},
-            "by_rank": []}
-    for rank, r in enumerate(ranks):
-        run = r["granite_1x2"]
-        gaps = [abs(m["loss"] - w["loss"]) for m, w in zip(run["metrics"], gref["metrics"])]
-        check(max(gaps) <= gloss_tol, f"parallel granite_1x2 rank {rank}: loss gaps {gaps}, "
-                                      f"tolerance {gloss_tol}")
-        grec["by_rank"].append({**summary(run), "params": param_gaps(
-            f"granite_1x2 rank {rank}", gpaths, run["leaf_gaps"], gtols)})
-    out["granite_1x2"] = grec
+    # granite-8b and xlstm-1.3b on (1, 2)
+    for name, c, run_ref, split_, nudged_, loss_tol, tols_, paths_, shape_, steps_ in (
+            ("granite_1x2", gcfg, gref, gsplit, gnudged, gloss_tol, gtols, gpaths, PAR_BATCH,
+             PAR_GRANITE_STEPS),
+            ("xlstm_1x2", xcfg, xref, xsplit, xnudged, xloss_tol, xtols, xpaths,
+             PAR_XLSTM_BATCH, PAR_XLSTM_STEPS)):
+        rec = {"config": {"arch": c.name, "layers": c.n_layers, "d_model": c.d_model,
+                          "vocab": c.vocab_size, "dtype": c.dtype,
+                          "microbatches": c.microbatches, "remat": c.remat,
+                          "batch": list(shape_), "steps": steps_},
+               "unsharded": {"losses": [m["loss"] for m in run_ref["metrics"]],
+                             "step_ms": run_ref["ms"], "peak_bytes": run_ref["peak_bytes"],
+                             "loss_spread": {"half_the_microbatches": split_[0],
+                                             "nudged": nudged_[0]},
+                             "loss_tol": loss_tol},
+               "by_rank": []}
+        for rank, r in enumerate(ranks):
+            run = r[name]
+            gaps = [abs(m["loss"] - w["loss"]) for m, w in zip(run["metrics"],
+                                                              run_ref["metrics"])]
+            check(max(gaps) <= loss_tol, f"parallel {name} rank {rank}: loss gaps {gaps}, "
+                                         f"tolerance {loss_tol}")
+            held = "first_moments" if name == "xlstm_1x2" else "params"
+            rec["by_rank"].append({**summary(run), held: param_gaps(
+                f"{name} rank {rank} {held}", paths_, run["leaf_gaps"], tols_)})
+        out[name] = rec
     # NCCL at world 1
     nccl_dfrc = {"wdm_shared": dfrc["wdm_shared"]}
     (nccl,) = run_ranks(par_nccl_rank, 1, store_dir=str(PAR_DIR), backend="nccl",
@@ -4764,7 +4858,8 @@ def pserve_configs() -> dict:
     granite = get_config("granite-8b")
     return {"reservoir_lm": dataclasses.replace(get_config("reservoir_lm"), dtype="float32"),
             "granite-8b": dataclasses.replace(granite, dtype="float32",
-                                              n_layers=PSERVE_GRANITE_LAYERS)}
+                                              n_layers=PSERVE_GRANITE_LAYERS),
+            "xlstm-1.3b": xlstm_unit_config()}
 
 
 def pserve_cases() -> tuple:
@@ -4773,16 +4868,46 @@ def pserve_cases() -> tuple:
     return (("reservoir_lm_1x2", "reservoir_lm", (1, 2), b),
             ("reservoir_lm_2x1", "reservoir_lm", (2, 1), b),
             ("reservoir_lm_2x1_batch1", "reservoir_lm", (2, 1), 1),
-            ("granite-8b_1x2", "granite-8b", (1, 2), b))
+            ("granite-8b_1x2", "granite-8b", (1, 2), b),
+            ("xlstm-1.3b_1x2", "xlstm-1.3b", (1, 2), b))
 
 
 def pserve_params(cfg, dev):
-    """The phase's params of ``cfg``, drawn on ``dev`` from PSERVE_SEED."""
+    """The phase's params of ``cfg``, drawn on ``dev`` from PSERVE_SEED (an
+    sLSTM's r_rec at 1/sqrt(head_dim): ``calm_slstm``)."""
     import torch
 
     from repro_torch.models import init_params
 
-    return init_params(cfg, torch.Generator(device=dev).manual_seed(PSERVE_SEED), device=dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(PSERVE_SEED), device=dev)
+    calm_slstm(cfg, params)
+    return params
+
+
+def pserve_model_gathers(cfg, m: int, rows: int) -> int:
+    """The bytes a decode step's all-gathers over "model" return on a rank
+    of a (1, ``m``) mesh serving ``rows`` rows of xlstm ``cfg`` (f32): each
+    leaf the plan gathers whole whose spec names "model" ("gathered"), the
+    logits' vocab columns, and a layer's activations: the mLSTM's
+    ``up_proj`` product, the sLSTM's pre-activations and (its heads a
+    block) its output with the cache's m.  No weight block a block computes
+    on, and no C, n, c or h cache block."""
+    from repro_torch.models.model import meta_params
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding
+
+    mesh = sharding.AbstractMesh((1, m), ("data", "model"))
+    labels = sharding.spec_leaves(sharding.use_labels(cfg, mesh))
+    specs = sharding.spec_leaves(sharding.param_pspecs(cfg, mesh))
+    total = sum(4 * t.numel() for t, label, spec in
+                zip(tree_leaves(meta_params(cfg)), labels, specs, strict=True)
+                if label == "gathered" and any("model" in sharding.entry_axes(e) for e in spec))
+    total += 4 * rows * cfg.vocab_size
+    for blk in cfg.unit:
+        d = cfg.d_model
+        per = 2 * d * cfg.mlstm_expand if blk.mixer == "mlstm" else 4 * d + d + cfg.n_heads
+        total += 4 * rows * per * cfg.n_units
+    return total
 
 
 def pserve_run(cfg, params, prompts, dev, decodes: int, *, feed=None, batch=None) -> dict:
@@ -4791,7 +4916,7 @@ def pserve_run(cfg, params, prompts, dev, decodes: int, *, feed=None, batch=None
     steps fed the columns of ``feed`` (None: greedy).  Returns the logits
     of each step (host), the greedy ids [B, 1 + decodes],
     prefill ms, each decode step's ms, K1's (launches, calls) of each step,
-    and the collectives of the last decode step."""
+    the collectives of the last decode step and the peak device bytes."""
     import torch
 
     from repro_torch.kernels.dfr_scan import ops as scan_ops
@@ -4801,6 +4926,8 @@ def pserve_run(cfg, params, prompts, dev, decodes: int, *, feed=None, batch=None
     max_len = prompts.shape[1] + decodes
     out = {"logits": [], "decode_ms": [], "k1": []}
     ids = []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     with torch.no_grad():
         reset_counts()
         par_sync(dev)
@@ -4825,6 +4952,7 @@ def pserve_run(cfg, params, prompts, dev, decodes: int, *, feed=None, batch=None
             out["k1"].append((scan_ops.dfr_scan.launches, scan_ops.dfr_scan.calls))
     out["ids"] = torch.cat(ids, dim=1)
     out["events"] = [dict(e) for e in events]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     return out
 
 
@@ -4856,6 +4984,9 @@ def pserve_rank(rank: int, dev_type: str, cfgs: dict, cases: tuple, prompts: dic
             run = pserve_run(cfg, params, rows, dev, decodes, feed=feed, batch=batch)
         run["ids"] = gathered_ids(run["ids"], batch, mesh)
         run["decode_collective_bytes"] = collective_bytes(run["events"])
+        run["decode_model_gather_bytes"] = sum(e["bytes"] for e in run["events"]
+                                               if e["kind"] == "all-gather" and
+                                               e["axis"] == "model")
         run["decode_collectives"] = len(run.pop("events"))
         out[name] = run
         del params
@@ -4898,16 +5029,20 @@ def phase_parallel_serving(dev, card: str) -> None:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     cfgs, cases = pserve_configs(), pserve_cases()
-    res, granite = cfgs["reservoir_lm"], cfgs["granite-8b"]
+    res, granite, xl = cfgs["reservoir_lm"], cfgs["granite-8b"], cfgs["xlstm-1.3b"]
     check(res.n_layers == 12 and res.d_model == 768 and res.reservoir_nodes == 256 and
           res.vocab_size == 32000 and granite.d_model == 4096 and granite.n_heads == 32 and
-          granite.n_kv_heads == 8 and granite.d_ff == 14336 and granite.vocab_size == 49152,
+          granite.n_kv_heads == 8 and granite.d_ff == 14336 and granite.vocab_size == 49152 and
+          xl.d_model == 2048 and xl.n_heads == 4 and xl.d_model * xl.mlstm_expand == 4096 and
+          int(xl.d_model * xl.slstm_proj) == 2730 and xl.vocab_size == 50304 and
+          xl.n_units == 1 and len(xl.unit) == 8,
           f"the parallel serving phase's configs: {cfgs}")
     shutil.rmtree(PSERVE_DIR, ignore_errors=True)
     PSERVE_DIR.mkdir(parents=True, exist_ok=True)
 
     # one process: each arch's greedy serve (its ids feed the ranks) and its
-    # own row-split spread
+    # own row-split spread (PSERVE_NUDGED: and its spread under a nudge of
+    # every weight, fed the same ids)
     prompts, feeds, ref, tol = {}, {}, {}, {}
     for arch, cfg in cfgs.items():
         prompts[arch] = lm_tokens(cfg, PSERVE_BATCH, PSERVE_SEED)
@@ -4915,12 +5050,22 @@ def phase_parallel_serving(dev, card: str) -> None:
         toks = torch.as_tensor(prompts[arch], device=dev)
         with torch.no_grad():
             spread = row_split_spread(cfg, params, toks)
-        tol[arch] = {"row_split_spread": spread, "tol": max(2 * spread, PSERVE_TOL_FLOOR)}
+        tol[arch] = {"row_split_spread": spread}
         for batch in sorted({b for _, a, _, b in cases if a == arch}):
             pserve_run(cfg, params, toks[:batch, :16], dev, 2)                    # warm
             run = pserve_run(cfg, params, toks[:batch], dev, PSERVE_DECODES)
             feeds[(arch, batch)] = run["ids"][:, :PSERVE_DECODES].cpu().numpy()
             ref[(arch, batch)] = run
+        if arch in PSERVE_NUDGED:
+            nudge_params(params, dev)
+            (batch,) = {b for _, a, _, b in cases if a == arch}
+            nudged = pserve_run(cfg, params, toks[:batch], dev, PSERVE_DECODES,
+                                feed=torch.as_tensor(feeds[(arch, batch)], device=dev))
+            tol[arch]["nudged_spread"] = max(
+                float((g - w).abs().max())
+                for g, w in zip(nudged["logits"], ref[(arch, batch)]["logits"], strict=True))
+        tol[arch]["tol"] = max(PAR_SPREAD_FACTOR * max(v for v in tol[arch].values()),
+                               PSERVE_TOL_FLOOR)
         del params
         torch.cuda.empty_cache()
     per_step = res.n_layers
@@ -4941,7 +5086,8 @@ def phase_parallel_serving(dev, card: str) -> None:
     for (arch, batch), run in ref.items():
         out["unsharded"][f"{arch}_batch{batch}"] = {
             "prefill_ms": run["prefill_ms"],
-            "decode_ms_p50": float(np.percentile(run["decode_ms"], 50))}
+            "decode_ms_p50": float(np.percentile(run["decode_ms"], 50)),
+            "peak_bytes": run["peak_bytes"]}
     for name, arch, shape, batch in cases:
         want = ref[(arch, batch)]
         rec = {"mesh": list(shape), "batch": batch, "by_rank": []}
@@ -4961,11 +5107,19 @@ def phase_parallel_serving(dev, card: str) -> None:
                 check(all(tuple(c) == (per_step, per_step) for c in run["k1"]),
                       f"parallel serving {name} rank {rank}: K1 (launches, calls) "
                       f"{run['k1']}, want {per_step} each a step")
+            if arch == "xlstm-1.3b":
+                want_bytes = pserve_model_gathers(cfgs[arch], shape[1], rows.stop - rows.start)
+                check(run["decode_model_gather_bytes"] == want_bytes,
+                      f"parallel serving {name} rank {rank}: a decode step all-gathered "
+                      f"{run['decode_model_gather_bytes']} bytes over \"model\", want "
+                      f"{want_bytes} (the whole leaves and the activations alone)")
             rec["by_rank"].append({
                 "max_logit_gap": gap, "prefill_ms": run["prefill_ms"],
                 "decode_ms_p50": float(np.percentile(run["decode_ms"], 50)),
+                "peak_bytes": run["peak_bytes"],
                 "k1_launches_calls_per_step": list(run["k1"][-1]),
                 "decode_collective_bytes": run["decode_collective_bytes"],
+                "decode_model_gather_bytes": run["decode_model_gather_bytes"],
                 "decode_collectives": run["decode_collectives"]})
         rec["ids_share_equal_unsharded"] = float((ids0 == want["ids"].cpu()).float().mean())
         out[name] = rec

@@ -187,23 +187,30 @@ def main(argv=None) -> int:
     if args.worker:
         _worker(args.steps)
         return 0
+    return compare_checkouts(__file__, ["--steps", str(args.steps)], args.parent, args.out)
+
+
+def compare_checkouts(script, worker_args: list, parent, out) -> int:
+    """Run ``script --worker *worker_args`` against this checkout's ``src``
+    (and, with ``parent``, that checkout's: parent, this, this, parent),
+    each in a process of its own; print each run's last output line (JSON)
+    and write them all to ``out`` when given."""
     here = Path(__file__).resolve().parents[3]
-    order = [here] if args.parent is None else [Path(args.parent).resolve(), here, here,
-                                                  Path(args.parent).resolve()]
+    order = [here] if parent is None else [Path(parent).resolve(), here, here,
+                                           Path(parent).resolve()]
     results = []
     for checkout in order:
         env = {**os.environ, "PYTHONPATH": str(checkout / "src")}
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
-                               "--steps", str(args.steps)], env=env, capture_output=True,
-                              text=True)
+        proc = subprocess.run([sys.executable, str(Path(script).resolve()), "--worker",
+                               *worker_args], env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return proc.returncode
         results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(results[-1]), flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in results))
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text("".join(json.dumps(r) + "\n" for r in results))
     return 0
 
 

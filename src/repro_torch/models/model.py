@@ -36,16 +36,16 @@ Under a mesh every entry point takes the plan explicitly (``plan``: a
 ``parallel.sharding.Plan``; nothing here reads the active mesh).  The
 params are this rank's stored blocks (``param_pspecs``); each block
 gathers the leaves it uses at entry (``Plan.leaves``) and runs
-tensor-parallel over "model" (``layers``, ``moe``, ``mamba``).  The mLSTM /
-sLSTM and reservoir blocks run whole on the rank's rows (K1 a layer on the
+tensor-parallel over "model" (``layers``, ``moe``, ``mamba``, ``xlstm``).
+The reservoir blocks run whole on the rank's rows (K1 a layer on the
 rank's B_local·R lanes).  In ``forward`` (a train plan) a unit's leaves are
 gathered inside the function ``remat`` wraps, so a ``"full"`` recompute
 gathers them again, and under ``"none"`` autograd keeps the gathered unit
 for the backward; the logits are this rank's vocab block of every
 position.  In serving the cache holds this rank's blocks under
 ``cache_pspecs``, allocated as such (``init_cache(plan=...)``), its spec
-tree under ``"specs"``; the recurrent caches of the mLSTM / sLSTM blocks
-are gathered over "model" for the step and cut back after, and the logits
+tree under ``"specs"``; each block computes on its cache blocks where they
+lie (a replicated sLSTM cell gathers its own for the step), and the logits
 are the last position's, every vocab column on every "model" rank.
 """
 
@@ -225,9 +225,9 @@ def _apply_block(cfg, blk, p, x, *, positions, context=None, cache=None, plan=No
     elif blk.mixer == "mamba":
         y, new_cache = mamba.apply_mamba(cfg, mp, h, cache=cache, plan=plan)
     elif blk.mixer == "mlstm":
-        y, new_cache = xlstm.apply_mlstm(cfg, mp, h, cache=cache)
+        y, new_cache = xlstm.apply_mlstm(cfg, mp, h, cache=cache, plan=plan)
     elif blk.mixer == "slstm":
-        y, new_cache = xlstm.apply_slstm(cfg, mp, h, cache=cache)
+        y, new_cache = xlstm.apply_slstm(cfg, mp, h, cache=cache, plan=plan)
     elif blk.mixer == "reservoir":
         y, new_cache = reservoir_layer.apply_reservoir(cfg, mp, h, cache=cache)
     else:
@@ -468,16 +468,10 @@ def _sharded_block(cfg, blk, p, x, *, positions, unit_cache, unit_specs, u, pos0
         for leaf, new in zip(leaves, blk_cache, strict=True):
             leaf.copy_(new[:, seq.offset:seq.offset + span])
         seq = None
-    elif blk.mixer in ("mlstm", "slstm"):
-        blk_cache = tuple(plan.gather_to(leaf, spec, plan.without_model(spec))
-                          for leaf, spec in zip(leaves, specs, strict=True))
     else:
         blk_cache = leaves
     x, nc, _ = _apply_block(cfg, blk, p, x, positions=positions, cache=blk_cache, plan=plan,
                             seq=seq)
-    if blk.mixer in ("mlstm", "slstm"):
-        nc = tuple(sharding.shard(new, plan.model_entries(spec), plan.mesh)
-                   for new, spec in zip(nc, specs, strict=True))
     if blk.mixer not in ("attn", "cross_attn"):
         for leaf, new in zip(leaves, nc, strict=True):
             leaf.copy_(new)

@@ -64,20 +64,24 @@ block, for ``models.losses.lm_loss``'s vocab-parallel route).
             rows, K1 on its B_local·R lanes), the fsdp fallback's leaves
             (their "model" entry folded into "embed" / "ctx": starcoder2,
             xlstm, reservoir_lm), attention's ``wk`` / ``wv`` where the kv
-            heads do not divide "model", and two leaves whose axis is a TP
-            axis but whose block does not split over it:
+            heads do not divide "model", and leaves whose axis is a TP axis
+            but whose block does not split over it:
             - the MoE router (embed, expert): every rank routes every token
               over all experts, and d × E is small;
-            - every leaf of the mLSTM and sLSTM blocks: their "mlp" dims
-              straddle gate blocks (``up_proj`` and ``w_in`` concatenate
-              [x | z] and [i | f | z | o] along the sharded dim), and "mlp"
-              takes "model" away from the heads of ``wq``/``wk``/``wv``, so
-              the blocks run replicated over "model"; their cache blocks are
-              all-gathered over "model" for the step and cut back after.
-              Mamba's ``in_proj`` straddles [x | z] too, but stays local:
-              its product is all-gathered over "model" ([B, S, 2·d_in], far
-              smaller than the weight at decode) and each rank keeps x and z
-              of its own channels.
+            - the mLSTM's gate biases ``b_i`` / ``b_f`` (heads): added once
+              to the gates' summed row-parallel products, [H] each;
+            - every leaf of an mLSTM block where "model" does not divide
+              d_in: the block runs replicated.
+            The mLSTM and sLSTM blocks are otherwise local
+            (``models/xlstm.py``): the mLSTM's channels over d_in, the
+            sLSTM's ``w_in`` columns, its heads where "model" divides them
+            and its gated projection where "model" divides f (elsewhere the
+            fsdp fold gathers those leaves).  ``up_proj`` and ``w_in``
+            straddle gate blocks ([x | z], [i | f | z | o]) along their
+            sharded dim, as Mamba's ``in_proj`` straddles [x | z]: their
+            products are all-gathered over "model" ([B, S, 2·d_in] and
+            [B, S, 4·d], far smaller than the weights at decode), and each
+            rank keeps the channels it computes on.
 
 ``use_pspecs`` is the layout each leaf is used in (the "model" entry of a
 local leaf, nothing else), so a block's gathers are its spec's axes minus
@@ -110,9 +114,12 @@ The caches hold this rank's blocks under ``cache_pspecs``
 (``local_shape``): batch rows over the batch axes where they divide the
 batch, else the attention sequence over "data"; kv heads over "model"
 where they divide it, else the sequence over "model"; the recurrent
-states' inner dims over "model".  A sequence-sliced cache is attended in
-pieces: each rank's partial softmax over its slice, combined over the
-slice's axes by a max and a sum all-reduce.
+states' inner dims over "model" (the mLSTM's C and n on the k index),
+each block computed on where it lies; only a replicated sLSTM cell (heads
+"model" does not divide) gathers its c, n, h blocks for the step.  A
+sequence-sliced cache is attended in pieces: each rank's partial softmax
+over its slice, combined over the slice's axes by a max and a sum
+all-reduce.
 """
 
 from __future__ import annotations
@@ -609,10 +616,15 @@ def coordinate(mesh, axis: str) -> int:
 
 # Logical axes whose "model" block a block computes over.
 _TP_AXES = frozenset({"heads", "kv", "mlp", "vocab", "expert"})
-# Mixers that run replicated over "model", and single leaves gathered whole
-# although their axis is a TP axis (module doc).
-_WHOLE_MIXERS = ("mlstm", "slstm")
-_WHOLE_LEAVES = ("mlp/router",)
+# Single leaves gathered whole although their axis is a TP axis (module doc).
+_WHOLE_LEAVES = ("mlp/router", "mixer/b_i", "mixer/b_f")
+
+
+def _replicated_mixer(cfg, blk, mesh) -> bool:
+    """An mLSTM block where "model" does not divide d_in runs replicated
+    (module doc)."""
+    model = _axis_size(mesh, "model")
+    return blk.mixer == "mlstm" and model > 1 and (cfg.d_model * cfg.mlstm_expand) % model != 0
 
 
 def use_pspecs(cfg, mesh, *, tp: bool = True):
@@ -628,8 +640,8 @@ def use_pspecs(cfg, mesh, *, tp: bool = True):
                    else None for entry, ax in zip(spec, logical, strict=True)))
 
     def leaves(spec_d, axes_d, blk=None):
-        return {k: use(s, axes_d[k], k in _WHOLE_LEAVES or (
-                    blk is not None and blk.mixer in _WHOLE_MIXERS and k.startswith("mixer/")))
+        whole = blk is not None and _replicated_mixer(cfg, blk, mesh)
+        return {k: use(s, axes_d[k], k in _WHOLE_LEAVES or (whole and k.startswith("mixer/")))
                 for k, s in spec_d.items()}
 
     out = {"embed": leaves(specs["embed"], axes["embed"]),
@@ -822,14 +834,6 @@ class Plan:
         its axes)."""
         return block_index(entry, self.mesh)
 
-    def model_entries(self, spec: P) -> P:
-        """``spec`` with only its "model" entries (the dims a recurrent
-        state's cache block cuts over "model")."""
-        return P(*("model" if entry == "model" else None for entry in spec))
-
-    def without_model(self, spec: P) -> P:
-        return P(*(None if entry == "model" else entry for entry in spec))
-
     def reduce(self, x: torch.Tensor, axes, *, op: str = "sum") -> torch.Tensor:
         """``all_reduce`` in place over those of ``axes`` with more than one
         rank (no autograd)."""
@@ -850,6 +854,11 @@ class Plan:
         """The "model" ranks' blocks of ``x`` joined along ``dim``; its
         gradient ``backward`` ("slice" or "reduce-scatter", module doc)."""
         return _Gather.apply("model", (dim,), backward, self, x)[0] if self.tp > 1 else x
+
+    def gather_models(self, xs: tuple, dims: tuple, backward: str) -> tuple:
+        """``gather_model`` of each of ``xs`` (one dtype) along its dim of
+        ``dims``, in one collective."""
+        return _Gather.apply("model", dims, backward, self, *xs) if self.tp > 1 else xs
 
     def mean_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of ``x`` over the ranks of the axes that cut the rows

@@ -15,10 +15,12 @@ attention caches are cut along the sequence over "model".  The spawn's
 results are shared by the tests of its mesh.
 
 * Each rank's logits are within LOGIT_TOL (1e-5, tests/test_torch_lm_model.py)
-  of the reference's rows; the caches, gathered from every rank's blocks,
-  within LOGIT_TOL of the reference's, the recurrent states (Mamba's,
-  mLSTM's, sLSTM's) also within STATE_RTOL of their buffer's largest
-  |value|.  A recurrent state sums the whole prefix of a residual stream
+  of the reference's rows (xlstm's within twice the reference's own spread
+  under a ±2e-7 weight nudge where that is larger: its sLSTM is chaotic at
+  the smoke init, and tensor parallelism reorders its sums); the caches,
+  gathered from every rank's blocks, within LOGIT_TOL of the reference's,
+  the recurrent states (Mamba's, mLSTM's, sLSTM's) also within STATE_RTOL
+  of their buffer's largest |value|.  A recurrent state sums the whole prefix of a residual stream
   that tensor parallelism rounds in another order, so a rounding gap
   reaches every element at the buffer's scale, not at each element's own:
   on jamba's deepest Mamba h the sharded route is 1.9e-5 from the
@@ -31,8 +33,8 @@ results are shared by the tests of its mesh.
   while the ranks serve), and the all-gathered bytes of a decode step are
   exactly the plan's: each leaf's gathers at its block, once each, the
   logits' vocab columns, and the activations the plan gathers (q heads
-  before a sequence-sliced cache, Mamba's ``in_proj`` product, the xLSTM
-  cache blocks).
+  before a sequence-sliced cache, Mamba's ``in_proj`` product, the mLSTM's
+  ``up_proj`` product, the sLSTM's pre-activations, output and cache m).
 * ``launch.serve.main`` on two ranks gives the one-process launcher's ids.
 * ``sharding.use_labels`` on the pod mesh: each leaf "local" or
   "gathered" as the plan in ``parallel/sharding.py``'s doc says.
@@ -65,6 +67,11 @@ ARCHS = ["reservoir_lm", "granite-8b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b", "x
          "llama-3.2-vision-11b", "seamless-m4t-medium"]
 MESHES = [(1, 2), (2, 1), (2, 2), (1, 4)]
 PROMPT, DECODES = 7, 3
+# xlstm's sLSTM is chaotic at its smoke init (r_rec drawn at 1/sqrt(heads)):
+# its logits are held to twice the reference's own spread under the weight
+# nudge of tests/test_torch_lm_train_archs.py where that passes LOGIT_TOL
+SPREAD_ARCHS = ("xlstm-1.3b",)
+NUDGE, NUDGE_SEED = 2e-7, 99
 MAX_LEN = 12                     # divides into the slices of every mesh's sequence axes
 AXES = ("data", "model")
 TP_AXES = ("heads", "kv", "mlp", "vocab", "expert")
@@ -92,10 +99,14 @@ def _inputs(arch, batch):
             None if ctx is None else ctx[:batch])
 
 
-def _run_reference(arch, batch):
+def _run_reference(arch, batch, nudge=False):
     jcfg = jsmoke_config(arch)
     host, toks, ctx = _inputs(arch, batch)
     jp = jax.tree.map(jnp.asarray, host)
+    if nudge:
+        rng = np.random.default_rng(NUDGE_SEED)
+        jp = jax.tree.map(lambda a: jnp.asarray(
+            a * (1 + NUDGE * rng.choice((-1.0, 1.0), a.shape)), jnp.float32), host)
     prefill = jax.jit(lambda p, t, c: jsteps.serve_prefill(jcfg, p, t, c, max_len=MAX_LEN))
     decode = jax.jit(lambda p, c, t: jsteps.serve_decode(jcfg, p, c, t))
     logit, cache = prefill(jp, jnp.asarray(toks[:, :PROMPT], jnp.int32),
@@ -113,8 +124,8 @@ def _pool():
 
 
 @functools.cache
-def _reference_future(arch, batch):
-    return _pool().submit(_run_reference, arch, batch)
+def _reference_future(arch, batch, nudge=False):
+    return _pool().submit(_run_reference, arch, batch, nudge)
 
 
 def _reference(arch, batch):
@@ -129,6 +140,8 @@ def _served(shape):
     for mesh in MESHES:                       # the reference runs while the ranks serve
         for arch, batch in _cases(mesh):
             _reference_future(arch, batch)
+            if arch in SPREAD_ARCHS:
+                _reference_future(arch, batch, nudge=True)
     cases = [(arch, batch, *_inputs(arch, batch)) for arch, batch in _cases(shape)]
     with tempfile.TemporaryDirectory() as store:
         ranks = run_ranks(serve_rank, math.prod(shape), store_dir=store,
@@ -145,23 +158,34 @@ def _rows(shape, rank, batch):
     return slice(d * n, (d + 1) * n)
 
 
+def _logit_tol(arch, batch) -> float:
+    """LOGIT_TOL, or for SPREAD_ARCHS twice the reference's own logit
+    spread under a ±NUDGE relative nudge of every weight where that is
+    larger."""
+    if arch not in SPREAD_ARCHS:
+        return LOGIT_TOL
+    ref, nudged = _reference(arch, batch)[0], _reference_future(arch, batch, True).result()[0]
+    return max(LOGIT_TOL, 2 * max(float(np.abs(a - b).max()) for a, b in zip(ref, nudged)))
+
+
 @pytest.mark.parametrize("shape", MESHES)
 def test_sharded_serving_logits_and_ids_match_the_reference(shape):
     for (arch, batch), ranks in _served(shape).items():
         ref = _reference(arch, batch)[0]
+        tol = _logit_tol(arch, batch)
         for rank, got in enumerate(ranks):
             rows = _rows(shape, rank, batch)
             assert len(got["logits"]) == 1 + DECODES
             for step, (t, j) in enumerate(zip(got["logits"], ref, strict=True)):
                 assert t.shape == (rows.stop - rows.start, j.shape[-1])
-                np.testing.assert_allclose(t, j[rows], atol=LOGIT_TOL, rtol=0,
+                np.testing.assert_allclose(t, j[rows], atol=tol, rtol=0,
                                            err_msg=f"{arch} batch {batch} rank {rank} "
                                                    f"step {step}")
             np.testing.assert_array_equal(got["ids"], ranks[0]["ids"])
         # the greedy ids are the reference's wherever its top two differ by more than the tolerance
         ref_ids = np.stack([j.argmax(-1) for j in ref], axis=1)
         top2 = np.stack([np.sort(j, -1)[:, -2:] for j in ref], axis=1)
-        decided = (top2[..., 1] - top2[..., 0]) > 2 * LOGIT_TOL
+        decided = (top2[..., 1] - top2[..., 0]) > 2 * tol
         np.testing.assert_array_equal(ranks[0]["ids"][decided], ref_ids[decided])
 
 
@@ -251,9 +275,12 @@ def _leaf_gather_bytes(arch, shape):
         held += cur if cur > first else 0
 
     def flat(tree_p, tree_s, tree_a, kind=None):
+        # the router and the mLSTM's gate biases are used whole, and so is
+        # every leaf of an mLSTM whose d_in "model" does not divide
+        replicated = kind == "mlstm" and (jcfg.d_model * jcfg.mlstm_expand) % shape[1] != 0
         for name, arr in tree_p.items():
-            whole = name == "mlp/router" or (kind in ("mlstm", "slstm")
-                                             and name.startswith("mixer/"))
+            whole = name in ("mlp/router", "mixer/b_i", "mixer/b_f") or (
+                replicated and name.startswith("mixer/"))
             leaf(arr, tree_s[name], tree_a[name], whole)
 
     flat(params["embed"], specs["embed"], axes["embed"])
@@ -266,7 +293,9 @@ def _leaf_gather_bytes(arch, shape):
 def _activation_gather_bytes(arch, shape, batch):
     """The bytes the plan's activation all-gathers return in one decode
     step: the logits' vocab columns, q heads before a cache sliced over
-    "model", Mamba's ``in_proj`` product, the xLSTM cache blocks."""
+    "model", Mamba's ``in_proj`` product, the mLSTM's ``up_proj`` product,
+    the sLSTM's pre-activations and, where "model" divides its heads, its
+    output and the cache's m, else its c, n, h cache blocks."""
     cfg = configs.smoke_config(arch)
     d, m = shape
     if m == 1:
@@ -285,11 +314,14 @@ def _activation_gather_bytes(arch, shape, batch):
             total += f * 2 * d_in if (2 * d_in) % m == 0 else 0
         if blk.mixer == "mlstm":
             d_in = cfg.d_model * cfg.mlstm_expand
-            hd = d_in // cfg.n_heads
-            total += f * 3 * d_in if d_in % m == 0 else 0
-            total += f * cfg.n_heads * (hd * hd + hd) if hd % m == 0 else 0
+            total += f * 2 * d_in if d_in % m == 0 else 0
         if blk.mixer == "slstm":
-            total += f * 3 * cfg.d_model if cfg.d_model % m == 0 else 0
+            d = cfg.d_model
+            total += f * 4 * d if (4 * d) % m == 0 else 0
+            if cfg.n_heads % m == 0:
+                total += f * (d + cfg.n_heads)
+            elif d % m == 0:
+                total += f * 3 * d
     return total
 
 
@@ -322,9 +354,11 @@ def test_the_serving_plan_labels_each_leaf_as_its_block_uses_it(arch):
     """On the 16 × 16 pod mesh at full width: a leaf is "local" where its
     block computes over its "model" block (heads, kv, mlp, vocab, expert),
     else "gathered" (a leaf no axis shards is stored whole: "local"); the
-    router and every mLSTM / sLSTM leaf keep no "model" block although
-    their axes are TP axes; each use keeps at most a "model" entry, and
-    only on a TP axis."""
+    router and the mLSTM's gate biases keep no "model" block although their
+    axes are TP axes; xlstm's mLSTM leaves keep their d_in block, the
+    sLSTM's ``w_in`` and ``bias`` their columns, its ``r_rec`` (4 heads on
+    16) is stored whole and its gated projection (f = 2730) gathered; each
+    use keeps at most a "model" entry, and only on a TP axis."""
     cfg = configs.get_config(arch)
     mesh = sharding.AbstractMesh((16, 16), AXES)
     specs, uses = sharding.param_pspecs(cfg, mesh), sharding.use_pspecs(cfg, mesh)
@@ -337,12 +371,20 @@ def test_the_serving_plan_labels_each_leaf_as_its_block_uses_it(arch):
             assert all(e in (None, "model") for e in use)
             assert label == ("local" if kept else "gathered") or not any(spec), (name, label)
             assert all(ax in TP_AXES for ax in kept)
-            if blk.mixer in ("mlstm", "slstm") and name.startswith("mixer/") or \
-                    name == "mlp/router":
+            if name in ("mlp/router", "mixer/b_i", "mixer/b_f"):
                 assert not kept and (label == "gathered" or not any(spec)), name
             if name.startswith("norm_") or name.startswith("mixer/readout") or \
-                    name == "mixer/w_in":
+                    (name == "mixer/w_in" and blk.mixer == "reservoir"):
                 assert label == "gathered", name
+            if blk.mixer == "mlstm" and name.startswith("mixer/") and \
+                    name not in ("mixer/b_i", "mixer/b_f"):
+                assert kept == ["mlp"] and label == "local", name
+            if blk.mixer == "slstm" and name.startswith("mixer/"):
+                want = {"mixer/w_in": "local", "mixer/bias": "local", "mixer/r_rec": "local"}
+                assert label == want.get(name, "gathered"), name
+                assert (kept == ["mlp"]) == (name in ("mixer/w_in", "mixer/bias")), name
+                if name == "mixer/r_rec":
+                    assert not any(spec), spec                 # stored whole
     assert labels["embed"]["embedding"] == "local"          # vocab-parallel
     if arch == "granite-8b":                                # 8 kv heads on a 16-wide axis
         unit = labels["units"][0]
