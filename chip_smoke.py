@@ -234,6 +234,15 @@ Then the distribution code (``repro_torch.parallel``, ``launch.mesh``):
    NRMSE within 1e-3; K1 and K3 launches == calls == one process's; the
    collectives exact (one all-gather of the results, or one of features a
    chunk).  The shared readout also through NCCL at world 1, bitwise.
+   First in the ranks' spawn, GPipe (``parallel.pipeline.pipeline_apply``,
+   each send and receive staged through the host under gloo): the same
+   reservoir_lm without grad cut into PIPE_STAGES stages of six units, one
+   a rank, PAR_BATCH's first batch as PIPE_MICRO microbatches of 2 × 512
+   tokens, embedded on every rank and normed into logits after the
+   broadcast; every rank's outputs and logits bitwise one process's fold
+   of the same microbatches, greedy ids equal, K1 launches == calls == 6
+   units × 5 ticks a call, the permutes and the broadcast exact; a rank's
+   ms a call against the fold's, the bubble, peak bytes.
 25. ``parallel_serving`` — sharded serving (``runtime.steps.serve_prefill``
    / ``serve_decode`` under a mesh: each rank its param blocks, its rows,
    its cache blocks, tensor-parallel over "model") on two gloo ranks of the
@@ -1043,6 +1052,15 @@ PAR_TIMEOUT_S = 300
 # the moments hold each leaf's gradient)
 PAR_XLSTM_BATCH = (8, 64)
 PAR_XLSTM_STEPS = 1
+# GPipe on the card: reservoir_lm (``par_config``, no grad) cut into
+# PIPE_STAGES stages of contiguous units over the two gloo ranks, PAR_BATCH's
+# first batch cut into PIPE_MICRO microbatches (2 × 512 tokens each): every
+# rank's outputs and logits bitwise one process's fold of the same
+# microbatches (the same shapes, so cuBLAS and K1 take the same paths),
+# PIPE_CALLS calls timed after one more
+PIPE_STAGES = 2
+PIPE_MICRO = 4
+PIPE_CALLS = 3
 # The figures of the route this phase's step replaced (the whole param tree
 # gathered on every rank, every rank along "model" computing the same step,
 # the full gradients all-reduced), for reservoir_lm as above, a rank each:
@@ -4439,6 +4457,223 @@ def pdfrc_mesh_runs(cases: dict, mesh, dev) -> dict:
     return out
 
 
+def pipe_tokens(batch):
+    """PAR_BATCH's tokens ``batch["tokens"]`` [B, S] cut into PIPE_MICRO
+    microbatches, [PIPE_MICRO, B / PIPE_MICRO, S] (numpy)."""
+    toks = batch["tokens"]
+    return toks.reshape(PIPE_MICRO, toks.shape[0] // PIPE_MICRO, toks.shape[1])
+
+
+def pipe_stage_params(params: dict, stage: int, n_stages: int) -> tuple:
+    """Stage ``stage``'s units of ``params``: its slice of U / ``n_stages``
+    contiguous units of each stacked [U, ...] unit leaf, copied, so the
+    rest of the tree can be freed."""
+    units = params["units"]
+    per = next(iter(units[0].values())).shape[0] // n_stages
+    return tuple({k: v[stage * per:(stage + 1) * per].clone() for k, v in pos.items()}
+                 for pos in units)
+
+
+def pipe_stage_fn(cfg):
+    """``stage_fn(units, h)``: the stage's units (``pipe_stage_params``, or
+    the whole stack) folded over h [mb, S, d], each block as
+    ``models.model.forward`` applies it without a plan."""
+    import torch
+
+    from repro_torch.models.model import _apply_block, _unit_params
+
+    def stage_fn(units, h):
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        for u in range(next(iter(units[0].values())).shape[0]):
+            for blk, p in zip(cfg.unit, _unit_params(units, u), strict=True):
+                h, _, _ = _apply_block(cfg, blk, p, h, positions=positions)
+        return h
+
+    return stage_fn
+
+
+def pipe_embed(cfg, params, tokens):
+    """Token embeddings of microbatched tokens [M, mb, S]: [M, mb, S, d]."""
+    from repro_torch.models import layers
+
+    m, mb, s = tokens.shape
+    return layers.embed_tokens(cfg, params["embed"], tokens.reshape(m * mb, s)).view(
+        m, mb, s, -1)
+
+
+def pipe_head(cfg, params, h):
+    """The final norm and logits of microbatched hidden states [M, mb, S, d]:
+    [M, mb, S, V]."""
+    from repro_torch.models import layers
+
+    m, mb, s, d = h.shape
+    x = layers.rmsnorm(h.reshape(m * mb, s, d), params["final_norm"]["scale"], cfg.norm_eps)
+    return layers.logits_from_hidden(cfg, params["embed"], x).view(m, mb, s, -1)
+
+
+def pipe_fold(cfg, params, x):
+    """One process's fold: every unit over each microbatch x[m] in turn,
+    [M, mb, S, d]."""
+    import torch
+
+    fn = pipe_stage_fn(cfg)
+    return torch.stack([fn(params["units"], x[m]) for m in range(x.shape[0])])
+
+
+def pipe_run(cfg, params, tokens, dev, apply) -> dict:
+    """Embed ``tokens`` [M, mb, S], run ``apply(x)`` on them 1 + PIPE_CALLS
+    times (each call timed on the host between device synchronises, with
+    K1's (launches, calls) and the collectives it records as (kind, bytes,
+    axis)), then the head.  Returns the calls, the last outputs and their
+    logits, the bytes of ``params`` and the case's peak device bytes: the
+    params and the most the run held beside them (what else the process
+    held at the start left out)."""
+    import torch
+
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding
+
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    other = 0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        other = torch.cuda.memory_allocated(dev) - param_bytes
+    calls = []
+    with torch.no_grad():
+        x = pipe_embed(cfg, params, torch.as_tensor(tokens, device=dev))
+        for _ in range(1 + PIPE_CALLS):
+            scan_ops.dfr_scan.launches = scan_ops.dfr_scan.calls = 0
+            par_sync(dev)
+            t0 = time.perf_counter()
+            with sharding.record_collectives() as events:
+                h = apply(x)
+            par_sync(dev)
+            calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "k1": (scan_ops.dfr_scan.launches, scan_ops.dfr_scan.calls),
+                          "collectives": [(e["kind"], e["bytes"], e["axis"]) for e in events]})
+        logits = pipe_head(cfg, params, h)
+    return {"calls": calls, "h": h, "logits": logits, "param_bytes": param_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) - other if dev.type == "cuda"
+            else 0}
+
+
+def pipe_one_process(cfg, tokens, dev) -> dict:
+    """The pipeline case in one process (``pipe_run`` of ``pipe_fold`` on
+    the whole tree, drawn as ``pserve_params`` draws it); its outputs and
+    logits saved under PAR_DIR for the ranks to hold theirs against.
+    Returns the calls, the peak and param bytes and the greedy ids."""
+    import torch
+
+    params = pserve_params(cfg, dev)
+    run = pipe_run(cfg, params, tokens, dev, lambda x: pipe_fold(cfg, params, x))
+    torch.save({"h": run["h"].cpu(), "logits": run["logits"].cpu()}, PAR_DIR / "pipe_fold.pt")
+    return {"calls": run["calls"], "peak_bytes": run["peak_bytes"],
+            "param_bytes": run["param_bytes"], "ids": run["logits"].argmax(-1).cpu()}
+
+
+def pipe_rank(cfg, tokens, dev) -> dict:
+    """This rank's side of the pipeline case: a ("stage",) mesh of
+    PIPE_STAGES over the two ranks on ``dev``, the rank's stage's units of
+    the tree ``pserve_params`` draws (the rest freed), ``pipe_run`` of
+    ``pipeline.pipeline_apply``; its outputs and logits held against the
+    one process's under PAR_DIR.  Returns the rank's stage and units, the
+    calls, the peak and param bytes, whether the outputs lay on ``dev``,
+    bitwise flags and gaps, the greedy ids and the case's seconds."""
+    import torch
+
+    from repro_torch.parallel import pipeline, sharding
+
+    t_case = time.perf_counter()
+    mesh = pipeline.make_stage_mesh(PIPE_STAGES, device_type=dev.type)
+    stage = sharding.coordinate(mesh, "stage")
+    full = pserve_params(cfg, dev)
+    params = {"embed": full["embed"], "final_norm": full["final_norm"],
+              "units": pipe_stage_params(full, stage, PIPE_STAGES)}
+    del full
+    fn = pipe_stage_fn(cfg)
+    run = pipe_run(cfg, params, tokens, dev,
+                   lambda x: pipeline.pipeline_apply(fn, params["units"], x, mesh=mesh))
+    ref = torch.load(PAR_DIR / "pipe_fold.pt", mmap=True)
+    h, logits = run.pop("h"), run.pop("logits")
+    h_host, logits_host = h.cpu(), logits.cpu()
+    out = {**run, "stage": stage, "units": next(iter(params["units"][0].values())).shape[0],
+           "on_device": h.device == dev,
+           "h_bitwise": torch.equal(h_host, ref["h"]),
+           "logits_bitwise": torch.equal(logits_host, ref["logits"]),
+           "h_gap": float((h_host - ref["h"]).abs().max()),
+           "logit_gap": float((logits_host - ref["logits"]).abs().max()),
+           "ids": logits.argmax(-1).cpu()}
+    del ref, h_host, logits_host, params, h, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["case_s"] = time.perf_counter() - t_case
+    return out
+
+
+def pipe_report(cfg, tokens, one: dict, one_s: float, ranks: list) -> dict:
+    """Hold each rank's pipeline case (``pipe_rank``) to the one process's
+    (``pipe_one_process``): outputs and logits bitwise and on the card,
+    greedy ids equal, K1 launches == calls == the stage's units × the T =
+    M + S − 1 ticks on every call (every stage computes on every tick, as
+    in the reference), the collectives exact (a stage but the last sends T
+    permutes of one microbatch's activations over "stage", every rank gets
+    all M outputs in one broadcast).  Returns the line's figures: host ms a
+    call (p50) against the fold's, the bubble (S − 1)/T, peak and param
+    bytes."""
+    import statistics
+
+    import numpy as np
+
+    m, mb, seq = tokens.shape
+    n_stages, per_stage = PIPE_STAGES, cfg.n_units // PIPE_STAGES
+    ticks = m + n_stages - 1
+    act = mb * seq * cfg.d_model * 4
+    check(all(tuple(c["k1"]) == (cfg.n_units * m,) * 2 and not c["collectives"]
+              for c in one["calls"]),
+          f"pipeline one process: K1 (launches, calls) a fold "
+          f"{[c['k1'] for c in one['calls']]}, want {cfg.n_units * m}; no collectives")
+    by_rank = []
+    for rank, r in enumerate(ranks):
+        where = f"pipeline rank {rank} (stage {r['stage']})"
+        check(r["stage"] == rank and r["units"] == per_stage and r["on_device"],
+              f"{where}: stage, units {r['units']}, on the card {r['on_device']}")
+        check(r["h_bitwise"] and r["logits_bitwise"],
+              f"{where}: not bitwise the one process's fold (outputs {r['h_gap']}, "
+              f"logits {r['logit_gap']} off)")
+        check(np.array_equal(r["ids"], one["ids"]), f"{where}: greedy ids differ")
+        want = ([("collective-permute", act, "stage")] * (ticks if r["stage"] < n_stages - 1
+                                                          else 0)
+                + [("broadcast", m * act, "stage")])
+        for i, c in enumerate(r["calls"]):
+            check(tuple(c["k1"]) == (per_stage * ticks,) * 2,
+                  f"{where} call {i}: K1 (launches, calls) {c['k1']}, want "
+                  f"{per_stage * ticks}")
+            check([tuple(e) for e in c["collectives"]] == want,
+                  f"{where} call {i}: collectives {c['collectives']}, want {want}")
+        ms = [c["ms"] for c in r["calls"][1:]]
+        by_rank.append({"stage": r["stage"], "units": r["units"], "apply_ms": ms,
+                        "apply_ms_p50": statistics.median(ms), "first_ms": r["calls"][0]["ms"],
+                        "peak_bytes": r["peak_bytes"], "param_bytes": r["param_bytes"],
+                        "k1_launches_calls": list(r["calls"][-1]["k1"]),
+                        "permutes": len(want) - 1, "permute_bytes": act,
+                        "broadcast_bytes": m * act, "outputs_bitwise": True,
+                        "logits_bitwise": True, "case_s": r["case_s"]})
+    fold_ms = [c["ms"] for c in one["calls"][1:]]
+    fold_p50 = statistics.median(fold_ms)
+    return {"stages": n_stages, "microbatches": m, "microbatch_tokens": [mb, seq],
+            "units_per_stage": per_stage, "ticks": ticks, "bubble": (n_stages - 1) / ticks,
+            "backend": "gloo", "greedy_ids_equal": True,
+            "one_process": {"fold_ms": fold_ms, "fold_ms_p50": fold_p50,
+                            "first_ms": one["calls"][0]["ms"], "peak_bytes": one["peak_bytes"],
+                            "param_bytes": one["param_bytes"],
+                            "k1_launches_calls": list(one["calls"][-1]["k1"]), "s": one_s},
+            "by_rank": by_rank,
+            "rank_over_one_process_p50": max(r["apply_ms_p50"] for r in by_rank) / fold_p50,
+            "seconds": one_s + max(r["case_s"] for r in by_rank)}
+
+
 def par_rank(rank: int, cfg, gcfg, xcfg, dev_type: str, batches, gbatches, xbatches, narma,
              exp_cfg, dfrc) -> dict:
     """One rank of the parallel phase's two (gloo, the one card): the
@@ -4460,7 +4695,7 @@ def par_rank(rank: int, cfg, gcfg, xcfg, dev_type: str, batches, gbatches, xbatc
     from repro_torch.runtime.steps import state_pspecs
 
     dev = par_device(dev_type)
-    out = {}
+    out = {"pipeline": pipe_rank(cfg, pipe_tokens(batches[0]), dev)}
     for shape in ((2, 1), (1, 2)):
         name = f"mesh_{shape[0]}x{shape[1]}"
         mesh = make_mesh(shape, ("data", "model"), device_type=dev.type)
@@ -4734,6 +4969,11 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
               f"parallel dfrc {name} one process: K1 {run['k1']} K3 {run['k3']}")
     torch.cuda.empty_cache()
 
+    # the pipeline case's fold in one process, its outputs under PAR_DIR
+    pipe_toks = pipe_tokens(batches[0])
+    pipe_one, pipe_one_s = wall(lambda: pipe_one_process(cfg, pipe_toks, dev))
+    torch.cuda.empty_cache()
+
     ranks, ranks_s = wall(lambda: run_ranks(par_rank, 2, store_dir=str(PAR_DIR),
                                             args=(cfg, gcfg, xcfg, dev.type, batches,
                                                   gbatches, xbatches, narma, exp_cfg, dfrc),
@@ -4747,7 +4987,9 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
                          "peak_bytes": ref["peak_bytes"],
                          "loss_spread": {"one_row_microbatches": split[0], "nudged": nudged[0]},
                          "loss_tol": {k: v[0] for k, v in tols.items()}},
-           "ranks_s": ranks_s, "pr23_route": PAR_PR23_ROUTE}
+           "ranks_s": ranks_s, "pr23_route": PAR_PR23_ROUTE,
+           "pipeline": pipe_report(cfg, pipe_toks, pipe_one, pipe_one_s,
+                                   [r["pipeline"] for r in ranks])}
     for name in ("mesh_2x1", "mesh_1x2"):
         got = torch.load(PAR_DIR / f"{name}.pt")
         rec = {"by_rank": []}
@@ -4847,6 +5089,7 @@ def phase_parallel(dev, narma, chans, card: str) -> None:
         "collectives": pdfrc_collectives("wdm_shared", "shared", dfrc["wdm_shared"][1], got,
                                          "NCCL at world 1", 1)}
     emit({"phase": "parallel_dfrc", "card": card, **dfrc_out})
+    return {"pipeline": out["pipeline"]}
 
 
 def pserve_configs() -> dict:
@@ -4873,8 +5116,9 @@ def pserve_cases() -> tuple:
 
 
 def pserve_params(cfg, dev):
-    """The phase's params of ``cfg``, drawn on ``dev`` from PSERVE_SEED (an
-    sLSTM's r_rec at 1/sqrt(head_dim): ``calm_slstm``)."""
+    """The phase's params of ``cfg`` (and the parallel phase's pipeline
+    case's), drawn on ``dev`` from PSERVE_SEED (an sLSTM's r_rec at
+    1/sqrt(head_dim): ``calm_slstm``)."""
     import torch
 
     from repro_torch.models import init_params
@@ -5503,6 +5747,17 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
              lm["decode_launches"], f"lm_serving: reservoir_lm decode, one launch a layer a "
              f"step ({lm['decode_launches']} over {LM_SERVE_NEW - 1} steps)", chunk=1,
              model=lm["model"])
+    # the pipelined reservoir_lm (phase_parallel): K1 on a microbatch's B·R
+    # = 6 lanes, a stage's unit at a tick, on layer 0's drive of the
+    # prefill's first two rows
+    pipe = paths["parallel"]["pipeline"]
+    pipe_rank0 = pipe["by_rank"][0]
+    pipe_lanes = lm["j"].shape[0] // LM_SERVE_B * pipe["microbatch_tokens"][0]
+    split_row("dfr_scan_lm_pipeline", lm["model"], lm["j"][:pipe_lanes].contiguous(),
+              lm["mask"], pipe_rank0["k1_launches_calls"][0],
+              f"parallel: reservoir_lm over {pipe['stages']} gloo pipeline stages, one launch "
+              f"a unit a tick on each rank ({pipe_rank0['units']} units x {pipe['ticks']} "
+              f"ticks a call)", SPLIT_CHECK_K, 0.0, cycles["least_step"], SCAN_OPS_PER_STEP)
 
     # the LM's training step (phase_lm_training): K1 emitting f32 states at
     # layer 0's first forward, from zero, as the step launches it (12 layers
@@ -5756,13 +6011,13 @@ def main() -> int:
     composed = phase_composed(dev, tasks, card)
     lm = phase_lm_serving(dev, card)
     lm_training = phase_lm_training(dev, card)
-    phase_parallel(dev, narma, wdm["chans"], card)
+    parallel = phase_parallel(dev, narma, wdm["chans"], card)
     phase_parallel_serving(dev, card)
     phase_kernels_line(dev, narma, {"main": main, "streaming": streaming, "wdm": wdm,
                                     "serving": serving, "cmt": cmt,
                                     "accelerator": accelerator, "figures": figures,
                                     "composed": composed, "contracts": contracts, "lm": lm,
-                                    "lm_training": lm_training})
+                                    "lm_training": lm_training, "parallel": parallel})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,12 @@ always feeds from the input), is not posted.  The last stage's outputs
 then go to every stage (the reference's final ``psum`` of outputs that are
 zero off the last stage) by one broadcast.
 
-gloo sends host tensors only, and NCCL refuses two ranks on one device, so
-on one card this runs on the CPU; on the card it needs a card a stage.
+Under gloo the stages' activations may lie on the card:
+``sharding.send_recv`` stages each send and receive through host memory
+(gloo has no point-to-point route for CUDA tensors) and gloo stages the
+broadcast itself, so S gloo ranks may share one card.  Under NCCL a send
+goes card to card, which needs a card a stage: NCCL refuses two ranks on
+one device.
 """
 
 from __future__ import annotations
@@ -61,9 +65,10 @@ def pipeline_apply(stage_fn, stage_params, x: torch.Tensor, *, mesh, axis: str =
     return sharding.broadcast(outputs, axis, mesh, src=n_stages - 1)
 
 
-def make_stage_mesh(n_stages: int, *, device_type: str = "cpu"):
-    """A 1-D ``("stage",)`` mesh over the first ``n_stages`` ranks of the
-    initialised process group."""
+def make_stage_mesh(n_stages: int, *, device_type: str = "cuda"):
+    """A 1-D ``("stage",)`` mesh over the ``n_stages`` ranks of the
+    initialised process group (``launch.mesh.make_mesh`` raises on another
+    world size), on the cards unless ``device_type`` says otherwise."""
     from ..launch.mesh import make_mesh
 
     return make_mesh((n_stages,), ("stage",), device_type=device_type)

@@ -28,11 +28,15 @@ between a full tensor and its shard.
 
 Every collective of the port goes through this module (``gather``,
 ``all_reduce``, ``all_gather``, ``reduce_scatter``, ``send``/``recv``,
-``broadcast``), on the tensors where they lie: nothing is copied to the
-host on the way (gloo stages CUDA tensors itself), and no single-process
-fallback stands in for a mesh.  Each one is recorded as (kind, result
-bytes, group size) for the recorders ``record_collectives`` opens, which
-is how the dry run counts the bytes a step moves.
+``broadcast``), on the tensors where they lie: gloo stages CUDA tensors
+through the host itself in every collective, and no single-process
+fallback stands in for a mesh.  The one exception is ``send_recv``: gloo
+has no point-to-point route for CUDA tensors, so under gloo a card's send
+is copied to a host buffer before it is posted and its receive lands in a
+host buffer copied onto the card after the wait.  Each one is recorded as
+(kind, result bytes, group size, mesh axis) for the recorders
+``record_collectives`` opens, which is how the dry run counts the bytes a
+step moves.
 
 ``use_mesh`` / ``active_mesh`` stand for the reference's ``compat.use_mesh``
 / ``get_abstract_mesh``; ``maybe_shard`` is a no-op when no mesh is
@@ -521,8 +525,8 @@ def record_collectives():
     autograd's threads too, as a dict ``{"kind", "bytes", "group",
     "axis"}``: ``bytes`` is the result's size on this rank (the reference's
     HLO result-shape convention), ``group`` the number of ranks taking
-    part, ``axis`` the mesh axis it ran over (None for a point-to-point
-    send)."""
+    part, ``axis`` the mesh axis it ran over (a send's: the axis of its
+    permute)."""
     events: list[dict] = []
     _RECORDERS.append(events)
     try:
@@ -593,16 +597,28 @@ def send_recv(send: torch.Tensor | None, recv: torch.Tensor | None, axis: str, m
               to: int | None, frm: int | None) -> None:
     """Send ``send`` to coordinate ``to`` of ``axis`` and receive ``recv``
     from coordinate ``frm``, both posted before either is waited on (a
-    pipeline's collective permute)."""
+    pipeline's collective permute).
+
+    Under gloo a CUDA tensor goes through the host (module doc): ``send``
+    by a blocking copy, complete before gloo's thread reads it, and
+    ``recv`` from a fresh host buffer after the wait."""
     g = mesh.get_group(axis)
-    works = []
+    staged = dist.get_backend(g) == "gloo"
+    works, landing = [], recv
     if send is not None:
-        _record("collective-permute", _nbytes(send), 2)
-        works.append(dist.isend(send.contiguous(), dst=dist.get_global_rank(g, to), group=g))
+        _record("collective-permute", _nbytes(send), 2, axis)
+        out = send.contiguous()
+        if staged and out.is_cuda:
+            out = out.cpu()
+        works.append(dist.isend(out, dst=dist.get_global_rank(g, to), group=g))
     if recv is not None:
-        works.append(dist.irecv(recv, src=dist.get_global_rank(g, frm), group=g))
+        if staged and recv.is_cuda:
+            landing = torch.empty(recv.shape, dtype=recv.dtype)
+        works.append(dist.irecv(landing, src=dist.get_global_rank(g, frm), group=g))
     for w in works:
         w.wait()
+    if landing is not recv:
+        recv.copy_(landing)
 
 
 def coordinate(mesh, axis: str) -> int:

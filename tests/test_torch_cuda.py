@@ -36,7 +36,12 @@ within 1e-5 of the same code on the CPU (cuBLAS sums in another order).
 Sharded serving of reservoir_lm on two gloo ranks of the card, on (1, 2)
 and (2, 1): each rank's logits within twice one process's own row-split
 spread (floored at 1e-5, the CPU tests' logit tolerance) of the unsharded
-serve's, K1 launched once a layer a step on each rank.
+serve's, K1 launched once a layer a step on each rank.  GPipe on two gloo
+ranks of the card: a device tensor sent by ``sharding.send_recv`` arrives
+bitwise, on the card, with only host tensors handed to gloo's
+point-to-point calls; the reference test's toy pipeline (S = 2, M = 6, D =
+16) bitwise the card's fold of the same microbatches on every rank, and
+within the reference's 1e-5 of the sequential fold on the host.
 """
 
 import dataclasses
@@ -1176,3 +1181,69 @@ def test_sharded_serving_on_two_ranks_of_the_card_is_one_process_within_its_spre
                                          args=(shape,), timeout=300, threads=None):
         assert gap <= max(2 * spread, 1e-5), (gap, spread)
         assert all(tuple(c) == (layers, layers) for c in counts), counts
+
+
+def _toy_stage(p, x):
+    return torch.tanh(x @ p["w"])
+
+
+def _card_pipeline_rank(rank, w, x, sent):
+    """Two gloo ranks on the one card, ``dist.isend``/``irecv`` refusing
+    CUDA tensors throughout: ``sharding.send_recv`` of ``sent`` from rank 0
+    to rank 1 on the card, then the toy pipeline (``_toy_stage`` a stage,
+    this rank's ``w``) on ``make_stage_mesh``'s default mesh.  Returns the
+    tensor received, the pipeline's outputs, the fold of each microbatch
+    through both stages on the card, whether each lay on the card, and the
+    device types gloo's point-to-point calls were handed."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import pipeline, sharding
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    handed = []
+    isend, irecv = dist.isend, dist.irecv
+
+    def refusing(fn):
+        def call(tensor, *args, **kw):
+            handed.append(tensor.device.type)
+            if tensor.is_cuda:
+                raise AssertionError("a CUDA tensor reached gloo's point-to-point")
+            return fn(tensor, *args, **kw)
+        return call
+
+    dist.isend, dist.irecv = refusing(isend), refusing(irecv)
+    try:
+        mesh = pipeline.make_stage_mesh(2)
+        got = torch.full(sent.shape, float("nan"), device=dev)
+        sharding.send_recv(torch.as_tensor(sent, device=dev) if rank == 0 else None,
+                           got if rank == 1 else None, "stage", mesh, to=1, frm=0)
+        ws, xs = torch.as_tensor(w, device=dev), torch.as_tensor(x, device=dev)
+        out = pipeline.pipeline_apply(_toy_stage, {"w": ws[rank]}, xs, mesh=mesh)
+    finally:
+        dist.isend, dist.irecv = isend, irecv
+    fold = torch.stack([_toy_stage({"w": ws[1]}, _toy_stage({"w": ws[0]}, xs[m]))
+                        for m in range(xs.shape[0])])
+    return {"got": got, "out": out, "fold": fold, "handed": handed,
+            "on_card": [t.is_cuda for t in (got, out)]}
+
+
+def test_gpipe_on_two_gloo_ranks_of_the_card_stages_its_sends_through_the_host(dev, tmp_path):
+    from repro_torch.launch.mesh import run_ranks
+
+    s, m, d = 2, 6, 16
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal((s, d, d)) / np.sqrt(d)).astype(np.float32)
+    x = rng.standard_normal((m, 3, d), dtype=np.float32)
+    sent = rng.standard_normal((5, 7), dtype=np.float32)
+    host = x.astype(np.float64)
+    for i in range(s):
+        host = np.tanh(host @ w[i])
+    r0, r1 = run_ranks(_card_pipeline_rank, 2, store_dir=str(tmp_path), args=(w, x, sent),
+                       timeout=300, threads=None)
+    np.testing.assert_array_equal(r1["got"].view(np.int32), sent.view(np.int32))
+    for r in (r0, r1):
+        assert all(r["on_card"])
+        assert r["handed"] and set(r["handed"]) == {"cpu"}, r["handed"]
+        np.testing.assert_array_equal(r["out"].view(np.int32), r["fold"].view(np.int32))
+        np.testing.assert_allclose(r["out"], host, atol=1e-5, rtol=0)

@@ -26,6 +26,7 @@ test's process.  Tolerances:
 """
 
 import dataclasses
+import inspect
 import os
 
 import jax
@@ -144,7 +145,7 @@ def _stage_fn(p, x):
 
 
 def _pipeline_rank(rank, w, x):
-    mesh = pipeline.make_stage_mesh(4)
+    mesh = pipeline.make_stage_mesh(4, device_type="cpu")
     with sharding.record_collectives() as events:
         out = pipeline.pipeline_apply(_stage_fn, {"w": torch.as_tensor(w[rank])},
                                       torch.as_tensor(x), mesh=mesh)
@@ -164,6 +165,14 @@ def test_pipeline_apply_matches_the_sequential_fold_over_four_ranks(tmp_path):
         # T = M + S - 1 ticks, a send on every stage but the last
         assert kinds.count("collective-permute") == (m + s - 1 if rank < s - 1 else 0)
         assert kinds[-1] == "broadcast"
+
+
+def test_make_stage_mesh_puts_the_stages_on_the_cards_by_default():
+    # as launch.mesh.make_mesh: an entry point runs on the card unless the
+    # caller asks for the CPU, and nothing falls back to it
+    default = inspect.signature(pipeline.make_stage_mesh).parameters["device_type"].default
+    assert default == "cuda"
+    assert default == inspect.signature(make_mesh).parameters["device_type"].default
 
 
 # ---------------------------------------------------------------------------
