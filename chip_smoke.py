@@ -16,8 +16,10 @@ Phases, each printing one JSON line:
    2, 37 in turn (1, 2 above N = 100), both mask modes, every model (the
    CMT cavity up to N = 100, then N = 900 and the largest N at K = 1):
    SiliconMR exact, bf16 states the f32 states rounded, resume at an uneven
-   split bitwise;
-   MZISine above the chain kernel's node limit, which SiliconMR raises at);
+   split bitwise; MackeyGlass on its helper-warp route, also bitwise the
+   chain kernel's MackeyGlass route, f32 and bf16 states and carry;
+   MZISine above the chain kernel's node limit, which SiliconMR raises at;
+   MackeyGlass at its own route's node limit, one above raising);
    the adjoint scan K1ᵀ on its edge grid (N ∈ {1, 31, 32, 33, 256, 900} ×
    B ∈ {1, 33, 64} × K ∈ {1, 2, 37} × beta 0 and 0.5, a non-zero gradient
    of the final state), at the LM's [24, 512, 256] and at its node limit,
@@ -73,7 +75,9 @@ Phases, each printing one JSON line:
    periods, with its chain bound), K1's MackeyGlass form at the Fig. 5/6
    splits [64, 1000, 900] and [64, 6000, 400] and MZISine at
    [64, 1000, 400] (checked on their first periods; MackeyGlass with its
-   chain bound, MZISine, which has no node chain, with its byte bound), K1
+   chain bound, its route and lanes a block, and bitwise the chain
+   kernel's MackeyGlass route on the whole split, whose time it prints
+   beside its own; MZISine, which has no node chain, with its byte bound), K1
    per-lane and K3 at the composed path's chunk; the time of one bare
    ``torch.linalg.eigh`` of the main path's Gram and of the serving
    refresh tick's Gram stacks (B = 4096 and 512, F = 65), and of the SVD
@@ -301,8 +305,10 @@ SCAN_OPS_PER_STEP = 9
 CHAIN_OPS = 3
 # f32 ops of one MackeyGlass node step (powf and the division one each): u,
 # gamma_in·u, x, |x|, |x|^p, 1 + ·, eta·x, the division, 1 - c, the drive's
-# mul, and the chain's mul and add; of one MZISine step: u, beta·u,
-# alpha·s, two adds, sinf, the square
+# mul — these 10 chain-free ops issued by the helper warps of K1's
+# helper-warp route, off the chain — and the chain's mul and add, the chain
+# warp's only work (its chain bound counts those two, ``mg_step``); of one
+# MZISine step: u, beta·u, alpha·s, two adds, sinf, the square
 MG_OPS_PER_STEP = 12
 MZI_OPS_PER_STEP = 7
 CHAIN_PROBE_STEPS = 1 << 20
@@ -1330,6 +1336,17 @@ def cmt_ops_per_step(m: int) -> int:
     return 12 + 29 * m + 10 * (m - 1)
 
 
+def same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bit patterns (f32 or bf16; a NaN or an inf
+    state compares as its bits)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(a.view(view), b.view(view))
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -1587,7 +1604,10 @@ def scan_edge_check(dev, model, levels, tol, relative, b, k, n, per_lane, seed) 
     version within ``tol`` (× the largest state if ``relative``); bf16
     states equal the f32 states rounded, with the same f32 carry, bitwise;
     the scan resumed from its carry at an uneven split equals one call
-    bitwise; one launch a call.  Returns the error vs the plain version."""
+    bitwise; one launch a call.  MackeyGlass, which runs the helper-warp
+    route, is also held bitwise to the chain kernel's MackeyGlass route
+    (``dfr_scan_at`` under ``scan_layout``): f32 and bf16 states and the
+    carry, as int patterns.  Returns the error vs the plain version."""
     import numpy as np
     import torch
 
@@ -1609,6 +1629,12 @@ def scan_edge_check(dev, model, levels, tol, relative, b, k, n, per_lane, seed) 
     out16, fin16 = ops.dfr_scan(model, j, mask, s0, out_dtype=torch.bfloat16, return_final=True)
     check(torch.equal(out16, out.to(torch.bfloat16)) and torch.equal(fin16, fin),
           f"{what}: bf16 states are not the f32 states rounded")
+    if ops.scan_route(model) == "helpers" and n <= ops.max_nodes(per_lane):
+        chain_layout = ops.scan_layout(b, n, per_lane)
+        for got, dtype in (((out, fin), torch.float32), ((out16, fin16), torch.bfloat16)):
+            want = ops.dfr_scan_at(model, j, mask, s0, chain_layout, out_dtype=dtype)
+            check(all(same_bits(x, y) for x, y in zip(got, want)),
+                  f"{what}: the helper-warp route is not the chain route bitwise ({dtype})")
     if k > 1:
         cut = k // 3 + 1
         st1, f1 = ops.dfr_scan(model, j[:, :cut], mask, s0, return_final=True)
@@ -1668,8 +1694,11 @@ def phase_scan_edge_grid(dev) -> None:
     """The scan kernel vs its plain version on the edge grid of its block
     layout (``scan_edge_cases``: N at the float4 group's and the warp's
     edges, the largest N, B at the 8-lane block's edges, K = 1, 2, 37 in
-    turn; fewer for the CMT form), in both mask modes; MZISine one node
-    above the chain kernel's node limit, where SiliconMR raises."""
+    turn; fewer for the CMT form), in both mask modes, MackeyGlass's
+    helper-warp route also bitwise the chain kernel's MackeyGlass route;
+    MZISine one node above the chain kernel's node limit, where SiliconMR
+    raises; MackeyGlass at its own route's node limit (K = 1), and one node
+    above it, where it raises."""
     import torch
 
     from repro_torch.kernels.dfr_scan import ops
@@ -1698,11 +1727,28 @@ def phase_scan_edge_grid(dev) -> None:
             pass
         else:
             check(False, f"SiliconMR at N = {n_above} did not raise")
+    # MackeyGlass's helper-warp route keeps fewer rows a lane than the chain
+    # kernel: its own node limit
+    mg_top = {}
+    name, model, levels, tol, relative = next(m for m in scan_models() if m[0] == "MackeyGlass")
+    for per_lane in (False, True):
+        n_top = ops.max_helper_nodes(per_lane)
+        mg_top[f"{'per-lane' if per_lane else 'broadcast'}"] = {"N": n_top, "err": scan_edge_check(
+            dev, model, levels, tol, relative, 33, 1, n_top, per_lane, seed=cases)}
+        cases += 1
+        z = torch.zeros((2, n_top + 1), device=dev)
+        try:
+            ops.dfr_scan(model, z[:, :1], z if per_lane else z[0], z)
+        except ValueError:
+            pass
+        else:
+            check(False, f"MackeyGlass at N = {n_top + 1} did not raise")
     emit({"phase": "kernel_checks", "kernel": "dfr_scan", "edge_grid": {
               "N": [*SCAN_EDGE_N, "max"], "max_nodes": {"broadcast": ops.max_nodes(False),
                                                         "per_lane": ops.max_nodes(True)},
               "B": SCAN_EDGE_B, "K": SCAN_EDGE_K, "cases": cases,
               "max_err_vs_plain_by_form": grid, "mzi_above_node_limit": above,
+              "mg_helper_route_node_limit": mg_top, "mg_helper_route_is_chain_route_bitwise": True,
               "bf16_is_f32_rounded_bitwise": True,
               "resume_bitwise": True, "seconds": time.perf_counter() - t0}})
 
@@ -5653,20 +5699,42 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
         launches it: timed at its full shape, held to its plain version on
         the first ``check_k`` periods (whose time is ``plain_ms``).  A form
         with no node chain (MZISine: ``step_cycles`` None) has no chain
-        bound."""
+        bound.  MackeyGlass's helper-warp route is also held bitwise to the
+        chain kernel's MackeyGlass route on the whole split (states and
+        carry; that one call's device time is ``chain_route_ms``)."""
         b, k = j.shape
         n = mask.shape[-1]
+        per_lane = mask.ndim == 2
         zero = torch.zeros((b, n), dtype=torch.float32, device=dev)
         jk = j[:, :check_k].contiguous()
         out = scan_ops.dfr_scan(model, jk, mask, zero)
         (ref, _), plain_s = wall(lambda: scan_ops.dfr_scan_plain(model, jk, mask, zero))
         err = max_err(out, ref)
         check(err <= tol, f"{name} vs plain on the first {check_k} periods: {err} > {tol}")
+        del out, ref
+        route = scan_ops.scan_route(model)
+        layout = scan_ops.launch_layout(model, b, n, per_lane)
+        vs_chain = {}
+        if route == "helpers":
+            got = scan_ops.dfr_scan(model, j, mask, zero, return_final=True)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            want = scan_ops.dfr_scan_at(model, j, mask, zero, scan_ops.scan_layout(b, n, per_lane))
+            end.record()
+            end.synchronize()
+            bitwise = all(same_bits(x, y) for x, y in zip(got, want))
+            check(bitwise, f"{name}: the helper-warp route is not the chain route bitwise on "
+                           f"the whole split {[b, k, n]}")
+            vs_chain = {"chain_route_bitwise_whole_split": bitwise,
+                        "chain_route_ms": start.elapsed_time(end)}
+            del got, want
         bound, by = bound_ms(4 * (b * k + mask.numel() + 2 * b * n + b * k * n), ops * b * k * n)
         t = times(lambda: scan_ops.dfr_scan(model, j, mask, zero), 3, bound)
         ms = t["ms"]
         chain_bound = (None if step_cycles is None
                        else k * n * step_cycles / (clocks["max"] * 1e3))
+        if vs_chain:
+            vs_chain["chain_route_share_of_chain_bound"] = chain_bound / vs_chain["chain_route_ms"]
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/dfr_scan.cu",
                      "replaces": "src/repro/kernels/dfr_scan/dfr_scan.py:97",
@@ -5677,9 +5745,9 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
                      "chain_bound_share": None if chain_bound is None else chain_bound / ms,
                      "chain_cycles_per_step": cycles,
                      "cycles_per_node_at_max_clock": ms * clocks["max"] * 1e3 / (k * n),
-                     "sm_clock_mhz": clocks,
-                     "lanes_per_block": scan_ops.scan_layout(b, n, mask.ndim == 2).lanes,
-                     "shape_bkn": [b, k, n]})
+                     "sm_clock_mhz": clocks, "kernel_route": route,
+                     "lanes_per_block": None if layout is None else layout.lanes,
+                     "shape_bkn": [b, k, n], **vs_chain})
 
     # the materialized NARMA10 path's train split, as Experiment.run launches
     # it (twice a run: train and test)
@@ -5698,8 +5766,11 @@ def phase_kernels_line(dev, narma, paths: dict) -> None:
               paths["accelerator"]["launches"][0], "DFRCAccelerator fit + predict, B = 1",
               SPLIT_CHECK_K, 0.0, cycles["least_step"], SCAN_OPS_PER_STEP)
     # the Fig. 5/6 cells' other forms, each at a train split of its cells:
-    # MackeyGlass (its chain bound from the MG chain step that chain_cycles
-    # measures) and MZISine (no node chain: its byte bound)
+    # MackeyGlass on its helper-warp route (its chain bound from the MG chain
+    # step that chain_cycles measures, the mul-add the chain warp runs alone;
+    # the helper warps issue the chain-free powf and division beside it,
+    # which the bound does not count) and MZISine (no node chain: its byte
+    # bound)
     figs = paths["figures"]
     for name, key, task, acc, ops in (
             ("dfr_scan_mg", "narma10", "narma10", "Electronic (MG)", MG_OPS_PER_STEP),

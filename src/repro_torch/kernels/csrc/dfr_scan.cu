@@ -52,7 +52,8 @@
 //     k-1), so it runs one thread per (node, lane) pair, its carry in a
 //     register, and no shared memory;
 //   * states are written in the [K, N, B] layout, lanes contiguous, which
-//     the wrapper permutes to [B, K, N].
+//     the wrapper permutes to [B, K, N] (the helper-warp route below writes
+//     [B, K, N] itself).
 //
 // Tried and dropped (PERF.md PR 14; ms at [64, 256, 900], where this kernel
 // takes 2.18 and the PR 13 kernel 10.90): one warp a block that also writes
@@ -64,13 +65,53 @@
 // 2.37 / 2.25 (not unrolled, 1.5x slower); 16 lanes a block (more
 // shared-memory wavefronts a chain step), 3.58; the barrier ids as
 // compile-time constants behind a branch, 24 % slower at the per-lane
-// [64, 10000, 100].  A second kernel whose helper warps computed the
-// chain-free part behind the chain, handed over by segments through
-// acquire/release counters: the TPA form 3.12 and MackeyGlass 2.69, against
-// about 10.9 and 39.1 here, where the chain warp issues the division and
-// powf itself; SiliconMR on it, 2.94 (a segment's handoff costs a release
-// fence and a pipeline fill, more than its cheap chain-free part saves).
-// No path runs the TPA form or MackeyGlass, so that kernel went.
+// [64, 10000, 100].  SiliconMR on helper warps, 2.94 (a handoff costs more
+// than its cheap chain-free part saves).
+//
+// MackeyGlass takes a kernel of its own, `dfr_scan_helper_kernel` (PERF.md,
+// its findings).  Its chain is one mul and add (about 8.2 cycles a step), but its
+// chain-free part is a powf and an IEEE division: one thread a lane issuing
+// both, as the chain kernel does, took about 340 cycles a node of the SM's
+// issue, 41x the chain.  Node i's chain-free part in period k needs only node
+// i of period k-1, so it can run a period behind the chain on other warps:
+//   * one lane a block while the batch's blocks fit the card's 132 SMs
+//     (ops.helper_layout; up to 8 lanes beyond, fewer where rows do not
+//     fit).  Warp 0, the chain, runs only chain<MG>: each node it reads
+//     a[k, i] = free_part<MG>(...).a from the lane's a row in shared memory
+//     and writes s[k, i] into carry buffer k % 2.  It is alone on its
+//     sub-partition (warp 4 exits at once), every lane of it runs (lanes
+//     past the live ones shadow lane 0 and store nothing), so it never
+//     diverges, and it issues no warp barrier and no fence;
+//   * a period's nodes fall into groups of whole chunks (ops.helper_group,
+//     about 64 nodes).  Warps 1-3 and 5-7, the helpers, take the groups of
+//     every period in turn: once the chain has written group q of period
+//     k-1, a helper computes a[k, .] of its nodes, one node a thread, with
+//     free_part<MG> unchanged, and writes s[k-1, .] out (and `fin` after
+//     the last period), so no warp writes the states beside the chain: in
+//     the caller's [B, K, N], a lane's period a contiguous row, so the
+//     wrapper permutes nothing.  A
+//     helper has the period's other nodes of chain time for a group;
+//   * handoffs: the chain arrives on an mbarrier a group (`done`, one
+//     arrival a live lane, for its own stores) and tests one (`paired`)
+//     before it needs a group's a; helpers chain a group's items through
+//     a monotonic count (`ready`, release store, acquire load) and sleep
+//     between polls.  A wait of seconds traps;
+//   * the chain's loop: chunks of C float4s (C = 5, 4 or 3, the largest
+//     that tiles the period), each unrolled, the float4 two on loaded into
+//     a ring of C registers whose slots are compile-time, and a group's
+//     last chunk peeled off with the group's bookkeeping, so the loop over
+//     the other chunks steps two addresses and nothing else.  N that no
+//     chunk tiles, or one group a period, steps node by node.
+// Its states are the chain kernel's bit for bit (the same ops on the same
+// values), which chip_smoke.py and tests/test_torch_cuda.py check.  On the
+// way (PERF.md): the stream of float4s rotated through two registers
+// (`r0 = r1; r1 = nx`), whose moves waited on the load just issued; every
+// group's and period's bookkeeping in the chunk loop's body, which ptxas put
+// between one chunk's last add and the next one's first mul; the wait
+// inside the chunk loop, costly even when not taken.  Each was several
+// cycles a node slower.  At [64, 6000, 400] this kernel takes 15.15 ms, 0.66
+// of the chain bound, against 412.4 for the chain kernel's MackeyGlass
+// route (NVIDIA H100 80GB HBM3, 700 W; launch/time_kernels.py).
 
 // Numerics: compute is f32 whatever the output type.  Every product and
 // sum is a separately rounded __fmul_rn/__fadd_rn (and the build passes
@@ -87,6 +128,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -421,9 +463,373 @@ dfr_scan_parallel_kernel(const float* __restrict__ j, const float* __restrict__ 
   fin[e] = s;
 }
 
-struct Layout {
-  int lanes, blocks, stride, smem;
+// ---- The helper-warp route (MackeyGlass): a chain warp that runs only
+// chain<MG>, six helper warps that compute free_part<MG> behind it and write
+// the states out.  See the top of the file.
+constexpr int kHelperBlockWarps = 8;
+constexpr int kHelperThreads = kHelperBlockWarps * kWarp;
+// Warp w runs on sub-partition w % 4: the chain's, warp 0, is alone on its
+// sub-partition (warp 4 exits at once); warps 1-3 and 5-7 are the helpers.
+constexpr int kHelperWarps = 6;
+constexpr int kMinHelperGroup = 8;           // nodes: two float4s
+constexpr long long kWaitLimit = 1LL << 34;  // cycles: 8.7 s at 1980 MHz
+constexpr int kHelperSleepNs = 32;           // a helper's poll (a group is ≈ 0.4 us of chain)
+constexpr int kChainAhead = 2;               // float4s the chain loads ahead of their use
+
+// The helper index of a warp, -1 for the chain's and the idle one.
+__device__ __forceinline__ int helper_of(int warp) {
+  if (warp == 0 || warp == 4) return -1;
+  return warp < 4 ? warp - 1 : warp - 2;
+}
+
+// The node groups of a period: N / group of them (at least one), the last
+// taking the remainder, so that every group but a lone one has at least
+// `group` nodes.  ops.helper_groups computes the same.
+__host__ __device__ __forceinline__ int helper_groups(int N, int group) {
+  return N / group > 1 ? N / group : 1;
+}
+
+// The block's shared memory: mbarriers `done` and `paired` (shared-window
+// addresses of the first of each), the counts `ready`, then rows of `stride`
+// floats: the mask (one row, or one a lane), each lane's a row (the
+// chain-free values a[k, .] of the period the chain runs next), and two
+// carry buffers of a row a lane (period k in buffer k % 2; s0 in buffer 1).
+//   done[q]:   the chain has written a period's states of node group q
+//              (one arrival a live chain lane, each for its own stores);
+//   paired[q]: a helper has written a period's a of node group q (one arrival);
+//   ready[q]:  items of node group q done (a count that only grows).
+// An mbarrier's wait names a phase by its parity, so a waiter must know that
+// the phase before has completed: the chain waits on `paired` in order, and a
+// helper waits on `done` of a group only once `ready` shows the group's item
+// before done, which waited on the phase before.
+struct HelperShared {
+  uint32_t done, paired;
+  unsigned* ready;
+  float *mask, *a, *carry;
+  int rows;  // floats of L rows
 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t mbar_at(uint32_t base, int index) { return base + 8 * index; }
+
+__device__ __forceinline__ void mbar_init(uint32_t b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(b) : "memory");
+}
+
+// Whether the phase of parity `parity` of mbarrier `b` has completed (no wait).
+__device__ __forceinline__ bool mbar_test(uint32_t b, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{ .reg .pred p; mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;"
+      " selp.u32 %0, 1, 0, p; }"
+      : "=r"(done)
+      : "r"(b), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned get_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.cta.shared::cta.u32 %0, [%1];" : "=r"(v) : "r"(smem_addr(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void put_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.cta.shared::cta.u32 [%0], %1;" ::"r"(smem_addr(p)), "r"(v) : "memory");
+}
+
+// A wait of more than kWaitLimit cycles (seconds: no handoff of a working
+// block takes more than a period) traps, so that a broken handoff ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void check_wait(long long t0) {
+  if (clock64() - t0 > kWaitLimit) __trap();
+}
+
+// Waits for a phase of an mbarrier: the chain spins (kSleepNs 0), a helper
+// sleeps between polls, leaving the issue slots to the warps at work.
+template <int kSleepNs>
+__device__ __forceinline__ void mbar_wait(uint32_t b, uint32_t parity) {
+  if (mbar_test(b, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_test(b, parity)) {
+    if constexpr (kSleepNs > 0) __nanosleep(kSleepNs);
+    check_wait(t0);
+  }
+}
+
+// Waits until count `p` is at least `v`, sleeping between polls.
+__device__ __forceinline__ void wait_count(const unsigned* p, unsigned v) {
+  if (get_acquire(p) >= v) return;
+  const long long t0 = clock64();
+  while (get_acquire(p) < v) {
+    __nanosleep(kHelperSleepNs);
+    check_wait(t0);
+  }
+}
+
+// Shared-memory float4s for the chain at shared-window addresses, issued in
+// program order (volatile), so that the compiler keeps each prefetch two
+// float4s before its use.
+__device__ __forceinline__ float4 lds4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts4(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float mg_step(float a, float s, const Params& p) {
+  return chain<MG>(Free{0.0f, a, 0.0f}, s, p);
+}
+
+// The chain when N is whole chunks of C float4s and a period has two groups
+// or more, groups being whole chunks: one stream of float4s over every chunk
+// of every period, each chunk's body unrolled with no branch in it, the
+// float4 kAhead places on loaded into a ring of C registers (compile-time
+// slots, so no register move waits on a load) before this one's chain
+// runs, across chunk and group edges.  A group's last chunk, whose body
+// loads the next group's first float4s, is peeled off: the loop over the
+// others only steps two addresses, and before the last one the chain waits
+// until a helper has written the next group's a, which it tests when the
+// group starts (a test's result is read a group later, so its latency stays
+// off the chain) and spins for only if it was not written.  `c0`, `c1`: the
+// lane's rows of carry buffers 0 and 1; `s` is s0[N-1].
+template <int C, int kAhead>
+__device__ void helper_chain_chunks(const HelperShared& sh, const float* arow, float* c0,
+                                    float* c1, int K, int N, int ng, int group, bool mine,
+                                    float s, const Params& p) {
+  static_assert(0 < kAhead && kAhead < C, "a ring slot is reloaded only after its use");
+  constexpr uint32_t kChunkBytes = 16u * C;
+  const int nchunk = N / (4 * C), gc = group / (4 * C), total = K * ng;
+  const int last_gc = nchunk - (ng - 1) * gc;  // chunks of the last group
+  // shared-window addresses of the lane's a row and carry rows
+  const uint32_t a_row = smem_addr(arow), s_row0 = smem_addr(c0), s_row1 = smem_addr(c1);
+  mbar_wait<0>(mbar_at(sh.paired, 0), 0);
+  float4 r[C];
+#pragma unroll
+  for (int d = 0; d < kAhead; ++d) r[d] = lds4(a_row + 16 * d);
+  uint32_t ga = a_row, gs = s_row0;  // the chunk's a and states (buffer k % 2)
+  // one chunk: its float4s' chain, the next chunk's first kAhead float4s
+  // loaded from `na`
+  const auto chunk = [&](uint32_t na) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      r[(j + kAhead) % C] = j + kAhead < C ? lds4(ga + 16 * (j + kAhead))
+                                           : lds4(na + 16 * (j + kAhead - C));
+      float4 o;
+      o.x = s = mg_step(r[j].x, s, p);
+      o.y = s = mg_step(r[j].y, s, p);
+      o.z = s = mg_step(r[j].z, s, p);
+      o.w = s = mg_step(r[j].w, s, p);
+      if (mine) sts4(gs + 16 * j, o);
+    }
+    ga = na;
+    gs += kChunkBytes;
+  };
+  int q = 0, k = 0;
+  for (int g = 0; g < total; ++g) {
+    const bool last_q = q + 1 == ng;  // the next group is the next period's first
+    const int n_chunks = last_q ? last_gc : gc;
+    const uint32_t pn = mbar_at(sh.paired, last_q ? 0 : q + 1);
+    const uint32_t parity = (last_q ? k + 1 : k) & 1;
+    const bool more = g + 1 < total;
+    const bool ready = !more || mbar_test(pn, parity);
+    for (int cc = 0; cc + 1 < n_chunks; ++cc) chunk(ga + kChunkBytes);
+    if (!ready) mbar_wait<0>(pn, parity);
+    chunk(last_q ? a_row : ga + kChunkBytes);  // at the period's end, the next period's first
+    if (mine) mbar_arrive(mbar_at(sh.done, q));  // each lane for its own stores: no warp barrier
+    if (last_q) {
+      q = 0;
+      ++k;
+      gs = (k & 1) ? s_row1 : s_row0;
+    } else {
+      ++q;
+    }
+  }
+}
+
+// The chain otherwise (N not whole chunks, or one group a period): group by
+// group, each waited for before its first node, its nodes one by one.
+__device__ void helper_chain_nodes(const HelperShared& sh, const float* arow, float* c0, float* c1,
+                                   int K, int N, int ng, int group, bool mine, float s,
+                                   const Params& p) {
+  for (int k = 0; k < K; ++k) {
+    float* const cur = (k & 1) ? c1 : c0;
+    for (int q = 0; q < ng; ++q) {
+      mbar_wait<0>(mbar_at(sh.paired, q), k & 1);
+      const int lo = q * group, hi = q + 1 < ng ? lo + group : N;
+      for (int i = lo; i < hi; ++i) {
+        s = mg_step(arow[i], s, p);
+        if (mine) cur[i] = s;
+      }
+      if (mine) mbar_arrive(mbar_at(sh.done, q));
+    }
+  }
+}
+
+// Helper warp h: items h, h + kHelperWarps, ... of the sequence of every
+// period's node groups, (k, q) in order for k = 0 .. K.  Item (k, q) waits
+// until the chain has written period k-1 of group q (s0 at k = 0), then for
+// every live lane and node i of the group, one node a thread: a[k, i] =
+// free_part<MG>(j[k] m[i], s[k-1, i]) into the lane's a row (k < K), and
+// s[k-1, i] out to `out` (k > 0) and, at k = K, to `fin`.  The chain comes
+// back to a group N nodes after it left it, so a helper has the period's
+// other nodes of chain time for its item, and up to six items are in flight.
+template <typename OutT>
+__device__ void helper_items(const HelperShared& sh, const float* __restrict__ j, int per_lane,
+                             float* __restrict__ fin, OutT* __restrict__ out, int B, int K, int N,
+                             int ng, int group, int stride, int lane0, int live, int h, int tl,
+                             const Params& p) {
+  const size_t lanes = static_cast<size_t>(B);
+  const int total = (K + 1) * ng;
+  for (int seq = h; seq < total; seq += kHelperWarps) {
+    const int k = seq / ng, q = seq - k * ng;
+    if (k > 0) {
+      wait_count(sh.ready + q, k);                                   // item (k-1, q) done
+      mbar_wait<kHelperSleepNs>(mbar_at(sh.done, q), (k - 1) & 1);  // s[k-1] of the group written
+    }
+    const int lo = q * group, hi = q + 1 < ng ? lo + group : N;
+    const float* const prev = sh.carry + ((k + 1) & 1) * sh.rows;  // buffer (k-1) % 2
+    for (int l = 0; l < live; ++l) {
+      const float* const sp = prev + l * stride;
+      float* const ar = sh.a + l * stride;
+      const float* const mr = sh.mask + (per_lane ? l * stride : 0);
+      const size_t b = lane0 + l;
+      const float jk = k < K ? j[static_cast<size_t>(k) * lanes + b] : 0.0f;
+      // out is [B, K, N]: the lane's row of period k-1, contiguous
+      for (int i = lo + tl; i < hi; i += kWarp) {
+        const float s = sp[i];
+        if (k < K) ar[i] = free_part<MG>(__fmul_rn(jk, mr[i]), s, p).a;
+        if (k > 0) store(out + (b * K + (k - 1)) * N + i, s);
+        if (k == K) fin[static_cast<size_t>(i) * lanes + b] = s;
+      }
+    }
+    __syncwarp();
+    if (tl == 0) {
+      put_release(sh.ready + q, k + 1);
+      if (k < K) mbar_arrive(mbar_at(sh.paired, q));
+    }
+  }
+}
+
+// j [K, B]; mask [N] or [N, B]; fin [N, B] (s0 in, final state out);
+// out [B, K, N] (the caller's layout: a helper writes a lane's period row
+// contiguously, and the wrapper permutes nothing).  Block x holds lanes
+// [x*L, x*L + L): warp 0 runs their chains (one thread a lane), warps 1-3
+// and 5-7 the helpers.
+template <typename OutT>
+__global__ void __launch_bounds__(kHelperThreads)
+dfr_scan_helper_kernel(const float* __restrict__ j, const float* __restrict__ mask, int per_lane,
+                       float* __restrict__ fin, OutT* __restrict__ out, int B, int K, int N,
+                       int L, int stride, int group, Params p) {
+  extern __shared__ float4 smem4[];
+  unsigned char* const base = reinterpret_cast<unsigned char*>(smem4);
+  const int ng = helper_groups(N, group);
+  HelperShared sh;
+  sh.done = smem_addr(base);
+  sh.paired = mbar_at(sh.done, ng);
+  sh.ready = reinterpret_cast<unsigned*>(base + 16 * ng);
+  sh.mask = reinterpret_cast<float*>(base + ((20 * ng + 15) & ~15));
+  sh.rows = L * stride;
+  sh.a = sh.mask + (per_lane ? sh.rows : stride);
+  sh.carry = sh.a + sh.rows;
+  const int t = threadIdx.x, warp = t / kWarp, tl = t % kWarp;
+  const int lane0 = blockIdx.x * L;
+  const int live = min(L, B - lane0);
+  const size_t lanes = static_cast<size_t>(B);
+  if (t == 0) {
+    for (int q = 0; q < ng; ++q) {
+      mbar_init(mbar_at(sh.done, q), live);  // one arrival a live chain lane
+      mbar_init(mbar_at(sh.paired, q), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int q = t; q < ng; q += kHelperThreads) sh.ready[q] = 0;
+  // stage in: s0 into buffer 1, the "previous period" of period 0
+  for (int e = t; e < N * live; e += kHelperThreads) {
+    const int i = e / live, l = e - i * live;
+    const size_t g = static_cast<size_t>(i) * lanes + lane0 + l;
+    sh.carry[sh.rows + l * stride + i] = fin[g];
+    if (per_lane) sh.mask[l * stride + i] = mask[g];
+  }
+  if (!per_lane) {
+    for (int i = t; i < N; i += kHelperThreads) sh.mask[i] = mask[i];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // every lane of the warp runs, so that it never diverges; lanes past the
+    // block's live lanes shadow lane 0 and store nothing
+    const bool mine = tl < live;
+    const int l = mine ? tl : 0;
+    float* const c0 = sh.carry + l * stride;
+    float* const c1 = c0 + sh.rows;
+    const float* const arow = sh.a + l * stride;
+    const float s0 = c1[N - 1];
+    // the unrolled chunk of the largest C of 5, 4, 3 float4s that tiles the
+    // period and the groups (ops.helper_chunk); else node by node
+    const auto tiles = [&](int c) { return ng >= 2 && N % (4 * c) == 0 && group % (4 * c) == 0; };
+    if (tiles(5)) {
+      helper_chain_chunks<5, kChainAhead>(sh, arow, c0, c1, K, N, ng, group, mine, s0, p);
+    } else if (tiles(4)) {
+      helper_chain_chunks<4, kChainAhead>(sh, arow, c0, c1, K, N, ng, group, mine, s0, p);
+    } else if (tiles(3)) {
+      helper_chain_chunks<3, kChainAhead>(sh, arow, c0, c1, K, N, ng, group, mine, s0, p);
+    } else {
+      helper_chain_nodes(sh, arow, c0, c1, K, N, ng, group, mine, s0, p);
+    }
+  } else if (helper_of(warp) >= 0) {
+    helper_items(sh, j, per_lane, fin, out, B, K, N, ng, group, stride, lane0, live,
+                 helper_of(warp), tl, p);
+  }
+}
+
+// Routes of the C entry point's `route`: the chain kernel, or the helper-warp
+// kernel (MackeyGlass only).
+enum Route { kRouteChain = 0, kRouteHelpers = 1 };
+
+struct Layout {
+  int lanes, blocks, stride, group, smem;
+};
+
+// The helper-warp kernel at the layout ops.helper_layout chose:
+// cudaErrorInvalidValue for a layout that does not cover the batch, a row or
+// the block's shared memory, else the error of the attribute call or the
+// launch.
+template <typename OutT>
+int launch_helpers(const float* j, const float* mask, int per_lane, float* fin, OutT* out, int B,
+                   int K, int N, const Layout& lay, Params p, cudaStream_t stream) {
+  if (lay.lanes < 1 || lay.lanes > kWarp || lay.group < kMinHelperGroup || lay.group % kGroup != 0 ||
+      static_cast<long long>(lay.lanes) * lay.blocks < B || lay.stride < N ||
+      lay.stride % kGroup != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long ng = helper_groups(N, lay.group);
+  const long long head = (20 * ng + 15) / 16 * 16;
+  const long long rows = (per_lane ? lay.lanes : 1) + 3LL * lay.lanes;
+  if (lay.smem < head + 4 * rows * lay.stride) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = dfr_scan_helper_kernel<OutT>;
+  if (lay.smem > kStaticSmem) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<lay.blocks, kHelperThreads, lay.smem, stream>>>(j, mask, per_lane, fin, out, B, K, N,
+                                                           lay.lanes, lay.stride, lay.group, p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The chain kernel at the layout ops.scan_layout chose: cudaErrorInvalidValue
 // for a layout that does not cover the batch or a row, else the error of the
@@ -448,8 +854,13 @@ int launch_chain(const float* j, const float* mask, int per_lane, float* fin, Ou
 }
 
 template <typename OutT>
-int dispatch(int model_id, const float* j, const float* mask, int per_lane, float* fin, OutT* out,
-             int B, int K, int N, const Layout& lay, Params p, cudaStream_t stream) {
+int dispatch(int model_id, int route, const float* j, const float* mask, int per_lane, float* fin,
+             OutT* out, int B, int K, int N, const Layout& lay, Params p, cudaStream_t stream) {
+  if (route == kRouteHelpers) {
+    if (model_id != MACKEY_GLASS) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_helpers(j, mask, per_lane, fin, out, B, K, N, lay, p, stream);
+  }
+  if (route != kRouteChain) return static_cast<int>(cudaErrorInvalidValue);
   switch (model_id) {
     case SILICON_MR:
       if (p.v[2] != 0.0f) {
@@ -529,31 +940,36 @@ __global__ void chain_probe_kernel(const float* in, float* out, long long* cycle
 
 // j [K, B] f32; mask [N] (per_lane = 0) or [N, B] (per_lane = 1) f32;
 // fin [N, B] f32 holds s0 on entry and the final state on exit;
-// out [K, N, B] f32 (out_bf16 = 0) or bf16 (out_bf16 = 1).
-// lanes, blocks, stride, smem_bytes: the block layout of ops.scan_layout
-// (lanes a block, blocks, carry-row pitch in floats, dynamic shared bytes);
-// MZISine, which keeps no rows, ignores it.  params: the model's n_params
-// (at most 16) f32 constants, its kernel_spec(), copied into the launch.
-// Returns the cudaError_t of the attribute call and the launch (0 on
-// success); cudaErrorInvalidValue for more than 16 constants or a layout
-// that does not cover the batch or a row.
+// out f32 (out_bf16 = 0) or bf16 (out_bf16 = 1), [K, N, B] on the chain
+// route and [B, K, N] on the helper-warp route.
+// lanes, blocks, stride, group, smem_bytes: the block layout (lanes a
+// block, blocks, carry-row pitch in floats, nodes a handoff between the
+// chain and the helpers, dynamic shared bytes) of ops.scan_layout for the
+// chain kernel (route 0, group unused) or of ops.helper_layout for the
+// helper-warp kernel (route 1, MackeyGlass only); MZISine, which keeps no
+// rows, ignores it.  params: the model's n_params (at most 16) f32
+// constants, its kernel_spec(), copied into the launch.  Returns the
+// cudaError_t of the attribute call and the launch (0 on success);
+// cudaErrorInvalidValue for more than 16 constants, a route the model has
+// not, or a layout that does not cover the batch or a row.
 extern "C" int dfr_scan_launch(const void* j, const void* mask, int per_lane, void* fin, void* out,
                                int out_bf16, int B, int K, int N, int lanes, int blocks,
-                               int stride, int smem_bytes, int model_id, const float* params,
-                               int n_params, void* stream) {
+                               int stride, int group, int smem_bytes, int route, int model_id,
+                               const float* params, int n_params, void* stream) {
   if (n_params < 0 || n_params > kMaxParams) return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   for (int c = 0; c < n_params; ++c) p.v[c] = params[c];
-  const Layout lay{lanes, blocks, stride, smem_bytes};
+  const Layout lay{lanes, blocks, stride, group, smem_bytes};
   const auto* jf = static_cast<const float*>(j);
   const auto* mf = static_cast<const float*>(mask);
   auto* ff = static_cast<float*>(fin);
   auto s = static_cast<cudaStream_t>(stream);
   if (out_bf16) {
-    return dispatch(model_id, jf, mf, per_lane, ff, static_cast<__nv_bfloat16*>(out), B, K, N, lay,
-                    p, s);
+    return dispatch(model_id, route, jf, mf, per_lane, ff, static_cast<__nv_bfloat16*>(out), B, K,
+                    N, lay, p, s);
   }
-  return dispatch(model_id, jf, mf, per_lane, ff, static_cast<float*>(out), B, K, N, lay, p, s);
+  return dispatch(model_id, route, jf, mf, per_lane, ff, static_cast<float*>(out), B, K, N, lay, p,
+                  s);
 }
 
 // in (on the card, f32): 8 inputs u, 8 chain-free values (SiliconMR's

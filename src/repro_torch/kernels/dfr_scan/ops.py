@@ -4,19 +4,26 @@ Port of ``repro/kernels/dfr_scan/ops.py:71`` (``dfr_scan``), which tiles
 the batch onto the TPU's (sublane × 128-lane) vregs and calls the Pallas
 kernel ``dfr_scan_tiled`` (``dfr_scan.py:97``).  Here:
 
-* a CUDA tensor launches the hand-written kernel or raises.  The kernel
-  runs each lane's node chain in one thread of a block's first warp, with
-  the block's carry rows in shared memory, while the block's second warp
-  writes the states out; ``scan_layout`` gives the blocks of 8 lanes, the
-  row pitch and the shared-memory bytes from (B, N, mask mode), and raises
-  above the N whose rows do not fit (see the source for what bounds the
-  kernel and why).  MZISine, whose kernel keeps no rows, has no such limit;
+* a CUDA tensor launches the hand-written kernel or raises.  The chain
+  kernel runs each lane's node chain in one thread of a block's first warp,
+  with the block's carry rows in shared memory, while the block's second
+  warp writes the states out; ``scan_layout`` gives the blocks of 8 lanes,
+  the row pitch and the shared-memory bytes from (B, N, mask mode), and
+  raises above the N whose rows do not fit (see the source for what bounds
+  the kernel and why).  MackeyGlass takes the helper-warp kernel instead (a
+  chain warp that runs only the mul-add, helper warps that compute each
+  node's powf and division behind it), at ``helper_layout``'s one lane a
+  block while the batch's blocks fit the card's SMs; ``dfr_scan_at``
+  launches it on the chain kernel under ``scan_layout``, the route it is
+  held to bitwise.  MZISine, whose kernel keeps no rows, has no node limit;
 * a CPU tensor takes ``dfr_scan_plain``, the plain PyTorch version (the
   sequential oracle of ``ref.py`` plus the output casts).
 
 The wrapper transposes to the kernel's lane-contiguous layout (j [K, B],
 carry [N, B], states [K, N, B]) and back to [B, K, N], as the reference
-wrapper does for its [K, S, L] tiling.  ``block_s`` (the TPU sublane tile)
+wrapper does for its [K, S, L] tiling; the helper-warp kernel writes the
+states as [B, K, N] itself, so MackeyGlass's states are not permuted (a
+call's peak is one state tensor, not two).  ``block_s`` (the TPU sublane tile)
 is validated for API parity and otherwise unused: the CUDA blocks need no
 sublane tile and no padding.
 
@@ -55,7 +62,7 @@ from typing import NamedTuple
 
 import torch
 
-from ...core.nonlinear import KERNEL_MZI_SINE
+from ...core.nonlinear import KERNEL_MACKEY_GLASS, KERNEL_MZI_SINE
 from ...device import resolve_dtype
 from .. import _build, _calls
 from .ref import dfr_scan_ref
@@ -64,6 +71,8 @@ BLOCK_S_CHOICES = (1, 2, 4, 8, 16, 32)
 
 # Shared memory one block may use on sm_90 (227 KB, dynamic, after opting in).
 SMEM_PER_BLOCK = 232_448
+# The H100's streaming multiprocessors.
+SMS = 132
 # Lanes a block: B = 64 spreads over 8 SMs, the fastest a lane of 8, 16 and
 # 32 (PERF.md PR 14).
 LANES_PER_BLOCK = 8
@@ -75,8 +84,22 @@ MAX_PARAMS = 16
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-             ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p)
+
+# The C entry point's routes (``Route`` in dfr_scan.cu).
+ROUTE_CHAIN = 0
+ROUTE_HELPERS = 1
+
+# The helper-warp kernel (csrc/dfr_scan.cu, MackeyGlass): the chain hands a
+# group of about HELPER_GROUP nodes at a time to one of six helper warps and
+# back (the last group of a period takes the remainder), a group being whole
+# chunks of the chain's unrolled loop (``helper_chunk``).  One lane a block while
+# the batch's blocks fit the card's SMS SMs (a block's helpers then serve
+# one lane's chain), up to HELPER_MAX_LANES lanes a block beyond, fewer
+# where the rows would not fit; as grad_layout chooses for K1ᵀ.
+HELPER_GROUP = 64
+HELPER_MAX_LANES = 8
 
 
 class ScanLayout(NamedTuple):
@@ -87,6 +110,19 @@ class ScanLayout(NamedTuple):
     lanes: int
     blocks: int
     stride: int
+    smem_bytes: int
+
+
+class HelperLayout(NamedTuple):
+    """Block layout of the helper-warp kernel: ``lanes`` a block,
+    ``blocks``, ``stride`` (floats a row), ``group`` (nodes a handoff
+    between the chain and the helpers) and ``smem_bytes`` (dynamic shared
+    memory a block)."""
+
+    lanes: int
+    blocks: int
+    stride: int
+    group: int
     smem_bytes: int
 
 
@@ -123,16 +159,112 @@ def scan_layout(b: int, n_nodes: int, per_lane: bool) -> ScanLayout:
                       4 * stride * _rows(LANES_PER_BLOCK, per_lane))
 
 
+def helper_chunk(n_nodes: int) -> int:
+    """Nodes a chunk of the helper-warp kernel's unrolled chain: 4·C for the
+    largest C of 5, 4, 3 float4s that tiles the period, else one float4 (the
+    kernel then steps node by node)."""
+    return next((4 * c for c in (5, 4, 3) if n_nodes % (4 * c) == 0), 4)
+
+
+def helper_group(n_nodes: int) -> int:
+    """Nodes a handoff of the helper-warp kernel: the whole chunks nearest
+    HELPER_GROUP."""
+    chunk = helper_chunk(n_nodes)
+    return chunk * max(1, HELPER_GROUP // chunk)
+
+
+def helper_groups(n_nodes: int, group: int) -> int:
+    """Node groups of a period on the helper-warp kernel: N // group, at
+    least one, the last taking the remainder (``helper_groups`` in
+    dfr_scan.cu)."""
+    return max(1, n_nodes // group)
+
+
+def helper_smem_bytes(lanes: int, n_nodes: int, per_lane: bool, group: int) -> int:
+    """Shared memory of a helper-warp block: two mbarriers and a count a
+    node group, in whole 16 bytes; then rows of ``row_stride(N)`` floats:
+    the mask (one row, or one a lane), and a lane's a row and two carry
+    rows."""
+    groups = helper_groups(n_nodes, group)
+    rows = (lanes if per_lane else 1) + 3 * lanes
+    return -(-20 * groups // 16) * 16 + 4 * row_stride(n_nodes) * rows
+
+
+@functools.cache
+def max_helper_nodes(per_lane: bool) -> int:
+    """The largest N whose rows fit a block of the helper-warp kernel (one
+    lane)."""
+    n = SMEM_PER_BLOCK // 16
+    while helper_smem_bytes(1, n, per_lane, helper_group(n)) > SMEM_PER_BLOCK:
+        n -= 1
+    return n
+
+
+def _helper_layout(b: int, n_nodes: int, per_lane: bool) -> HelperLayout:
+    """``helper_layout`` without the node limit."""
+    group = helper_group(n_nodes)
+    lanes = next((la for la in (1, 2, 4) if -(-b // la) <= SMS), HELPER_MAX_LANES)
+    while lanes > 1 and helper_smem_bytes(lanes, n_nodes, per_lane, group) > SMEM_PER_BLOCK:
+        lanes //= 2
+    return HelperLayout(lanes, -(-b // lanes), row_stride(n_nodes), group,
+                        helper_smem_bytes(lanes, n_nodes, per_lane, group))
+
+
+def helper_layout(b: int, n_nodes: int, per_lane: bool) -> HelperLayout:
+    """The helper-warp kernel's block layout for B lanes of N nodes (the
+    rule at HELPER_MAX_LANES, ``helper_group``); raises ValueError above
+    ``max_helper_nodes``."""
+    limit = max_helper_nodes(per_lane)
+    if n_nodes > limit:
+        mode = "per-lane" if per_lane else "broadcast"
+        raise ValueError(f"the scan kernel's helper-warp route keeps a block's rows in shared "
+                         f"memory: N = {n_nodes} exceeds its limit of {limit} nodes ({mode} mask)")
+    return _helper_layout(b, n_nodes, per_lane)
+
+
+def _route_of(model_id: int) -> str:
+    if model_id == KERNEL_MACKEY_GLASS:
+        return "helpers"
+    return "parallel" if model_id == KERNEL_MZI_SINE else "chain"
+
+
+def _layout_of(model_id: int, b: int, n_nodes: int, per_lane: bool):
+    route = _route_of(model_id)
+    if route == "parallel":
+        return None
+    if route == "helpers":
+        return helper_layout(b, n_nodes, per_lane)
+    return scan_layout(b, n_nodes, per_lane)
+
+
+def scan_route(model) -> str:
+    """The route a CUDA call of ``model`` takes: "helpers" (MackeyGlass),
+    "parallel" (MZISine) or "chain" (every other form)."""
+    return _route_of(model.kernel_spec()[0])
+
+
+def launch_layout(model, b: int, n_nodes: int, per_lane: bool):
+    """The layout a CUDA call of ``model`` launches under (``HelperLayout``,
+    ``ScanLayout``, or None for MZISine's kernel, which keeps no rows);
+    raises ValueError above the route's node limit."""
+    return _layout_of(model.kernel_spec()[0], b, n_nodes, per_lane)
+
+
 def scan_plan(model, b: int, n_nodes: int, per_lane: bool) -> dict:
     """The launch plan of one call, read on either route (``_calls``): a
     block's dynamic shared memory and the bytes of one of its rows, whole
-    float4s.  Unlike ``scan_layout`` it does not raise above the node
-    limit: the contract checker's ``SmemBudget`` reports that.  MZISine's
-    kernel keeps no rows."""
+    float4s, of the kernel the call launches.  Unlike ``scan_layout`` it
+    does not raise above the node limit: the contract checker's
+    ``SmemBudget`` reports that.  MZISine's kernel keeps no rows."""
     spec = getattr(model, "kernel_spec", None)
-    if spec is not None and spec()[0] == KERNEL_MZI_SINE:
+    model_id = spec()[0] if spec is not None else None
+    if model_id == KERNEL_MZI_SINE:
         return {"smem_bytes": 0, "row_bytes": 0, "multi_tile": False}
     stride = row_stride(n_nodes)
+    if model_id == KERNEL_MACKEY_GLASS:
+        lay = _helper_layout(b, n_nodes, per_lane)
+        return {"smem_bytes": lay.smem_bytes, "row_bytes": 4 * stride,
+                "multi_tile": b > lay.lanes}
     return {"smem_bytes": 4 * stride * _rows(LANES_PER_BLOCK, per_lane),
             "row_bytes": 4 * stride, "multi_tile": b > LANES_PER_BLOCK}
 
@@ -164,17 +296,33 @@ def _op_args(model, out_dtype):
 def _scan_cuda(j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, model_id: int,
                params: list[float], out_bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's launch: (states [B, K, N], final state [B, N] in j's dtype)."""
+    # MZISine's kernel runs a thread a (node, lane) and keeps no rows
+    layout = (_layout_of(model_id, j.shape[0], s0.shape[1], mask.ndim == 2)
+              or ScanLayout(0, 0, 0, 0))
+    return _scan_launch(j, mask, s0, model_id, params, out_bf16, layout)
+
+
+def _scan_launch(j, mask, s0, model_id: int, params: list[float], out_bf16: bool, layout):
+    """K1 under ``layout``: a ``ScanLayout`` launches the chain kernel (or
+    MZISine's), whose [K, N, B] states are permuted to [B, K, N] after; a
+    ``HelperLayout`` the helper-warp kernel, which writes [B, K, N]
+    itself."""
     b, k_periods = j.shape
     n_nodes = s0.shape[1]
     per_lane = mask.ndim == 2
     out_dtype = torch.bfloat16 if out_bf16 else torch.float32
-    # MZISine's kernel runs a thread a (node, lane) and keeps no rows
-    layout = (ScanLayout(0, 0, 0, 0) if model_id == KERNEL_MZI_SINE
-              else scan_layout(b, n_nodes, per_lane))
+    # the helper-warp kernel writes [B, K, N] itself; the chain kernel
+    # [K, N, B], permuted after
+    helpers = isinstance(layout, HelperLayout)
+    if helpers:
+        route, (lanes, blocks, stride, group, smem) = ROUTE_HELPERS, layout
+    else:
+        route, group, (lanes, blocks, stride, smem) = ROUTE_CHAIN, 0, layout
     dev = j.device
     fin = torch.empty((n_nodes, b), dtype=torch.float32, device=dev)
     fin.copy_(s0.t())                   # the kernel updates the carry in place
-    out = torch.empty((k_periods, n_nodes, b), dtype=out_dtype, device=dev)
+    shape = (b, k_periods, n_nodes) if helpers else (k_periods, n_nodes, b)
+    out = torch.empty(shape, dtype=out_dtype, device=dev)
     if b and k_periods:
         jt = j.to(torch.float32).t().contiguous()
         mt = (mask.to(torch.float32).t() if per_lane else mask.to(torch.float32)).contiguous()
@@ -182,10 +330,12 @@ def _scan_cuda(j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, model_id: 
         consts = (ctypes.c_float * len(params))(*params)
         err = _build.launch(fn, dev, jt.data_ptr(), mt.data_ptr(), int(per_lane),
                             fin.data_ptr(), out.data_ptr(), int(out_bf16), b, k_periods,
-                            n_nodes, *layout, model_id, consts, len(params))
+                            n_nodes, lanes, blocks, stride, group, smem, route, model_id,
+                            consts, len(params))
         _build.check(err, "dfr_scan")
         dfr_scan.launches += 1
-    return out.permute(2, 0, 1).contiguous(), fin.t().to(j.dtype).contiguous()
+    states = out if helpers else out.permute(2, 0, 1).contiguous()
+    return states, fin.t().to(j.dtype).contiguous()
 
 
 # K1 as an operator, ``torch.ops.repro_torch.dfr_scan``: its CUDA kernel is
@@ -208,10 +358,25 @@ def _launch(model, j, mask, s0, out_dtype):
     on ``meta``.  Raises before anything is allocated for a model the
     kernel has no form of, an f16 output or an N above the node limit."""
     model_id, params, out_bf16 = _op_args(model, out_dtype)
-    if model_id != KERNEL_MZI_SINE:
-        scan_layout(j.shape[0], s0.shape[1], mask.ndim == 2)
+    launch_layout(model, j.shape[0], s0.shape[1], mask.ndim == 2)
     run = _scan_cuda if j.device.type == "cuda" else _scan_op
     return run(j, mask, s0, model_id, params, out_bf16)
+
+
+def dfr_scan_at(model, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, layout, *,
+                out_dtype=None):
+    """K1 on CUDA tensors under an explicit ``layout``: (states [B, K, N],
+    final state [B, N]).  ``scan_layout(B, N, per_lane)`` launches
+    MackeyGlass on the chain kernel, the route its helper-warp kernel is
+    held to bitwise on the card; a ``HelperLayout`` with other lanes a
+    block or another group (``_replace``, its ``smem_bytes`` from
+    ``helper_smem_bytes``) times the helper-warp kernel under it.  Counts a
+    launch as ``dfr_scan`` does; no caller of the package uses it."""
+    if j.device.type != "cuda":
+        raise ValueError(f"dfr_scan_at launches the CUDA kernel: j is on {j.device}")
+    out_dtype = resolve_dtype(out_dtype) or j.dtype
+    model_id, params, out_bf16 = _op_args(model, out_dtype)
+    return _scan_launch(j, mask, s0, model_id, params, out_bf16, layout)
 
 
 def dfr_scan(model, j: torch.Tensor, mask: torch.Tensor, s0: torch.Tensor, *,
@@ -277,7 +442,6 @@ GRAD_GROUP_WIDE = 128
 GRAD_PREFETCH_NODES = 512
 GRAD_MAX_DEPTH = 32
 GRAD_MAX_LANES = 8
-SMS = 132
 
 
 class GradLayout(NamedTuple):

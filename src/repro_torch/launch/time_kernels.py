@@ -23,7 +23,10 @@ times count host time).  ``chip_smoke.py``'s kernels line times every row with
 it.
 
 The command times the block copy, the readout apply, the adjoint scan
-K1ᵀ and K1 at the LM's decode shape, at the shapes of the paths they ride
+K1ᵀ, K1 at the LM's decode shape and K1's MackeyGlass form at the Fig. 5/6
+splits ([64, 1000, 900] and [64, 6000, 400], with its chain bound and the
+sha256 of its states' and final state's bytes, so that two checkouts'
+outputs compare bit for bit), at the shapes of the paths they ride
 (the ``contracts`` fixture's [2048, 1024] f32 with a 32 × 256 tile; the
 bf16 streamed evaluation's [64, 256, 900] and the serving tick's
 [4096, 32, 64] f32, C = 1; the LM train step's [24, 512, 256], beta 0 and
@@ -44,6 +47,7 @@ takes TMA (``plan_variants``).  Needs a GPU.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -155,6 +159,7 @@ def _rows(reps: int) -> list[dict]:
                      "read_floor": kernel_times(lambda: x.sum(-1), reps)})
     rows += _adjoint_rows(dev, gen, reps)
     rows.append(_decode_row(dev, gen, reps))
+    rows += _mg_rows(dev, reps)
     x = torch.randn((2048, 1024), generator=gen, device=dev)
     tile = (32, 256)
     out = copy_ops.block_copy(x, tile)
@@ -224,6 +229,72 @@ def _decode_row(dev, gen, reps: int) -> dict:
     return {"name": "dfr_scan_lm_decode", "shape": [b, 1, n],
             **kernel_times(lambda: scan_ops.dfr_scan(model, j, mask, s0, return_final=True),
                            reps)}
+
+
+def _mg_step_cycles(dev) -> float:
+    """Cycles of MackeyGlass's chain step (a mul and an add) on the card:
+    ``dfr_scan_chain_probe`` form 3, one thread, 2^20 dependent steps, the
+    least of three runs."""
+    import ctypes
+
+    from repro_torch.core import MackeyGlass
+    from repro_torch.kernels import _build
+
+    fn = _build.load("dfr_scan").dfr_scan_chain_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    consts = list(MackeyGlass().kernel_spec()[1])
+    # 8 inputs u, 8 chain-free values, s0, then the 16 constants
+    x = torch.tensor([0.5] * 8 + [0.1] * 8 + [0.1] + consts + [0.0] * (16 - len(consts)),
+                     dtype=torch.float32, device=dev)
+    last = torch.empty(1, dtype=torch.float32, device=dev)
+    cyc = torch.empty(1, dtype=torch.int64, device=dev)
+    steps, runs = 1 << 20, []
+    for _ in range(3):
+        _build.check(fn(3, x.data_ptr(), last.data_ptr(), cyc.data_ptr(), steps,
+                        torch.cuda.current_stream(dev).cuda_stream), "dfr_scan_chain_probe")
+        torch.cuda.synchronize(dev)
+        runs.append(int(cyc.item()) / steps)
+    return min(runs)
+
+
+def _sha256(x: torch.Tensor) -> str:
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _mg_rows(dev, reps: int) -> list[dict]:
+    """K1's MackeyGlass form at the Fig. 5/6 splits ([64, 1000, 900] and
+    [64, 6000, 400], from a zero state, ±1 mask) on seeded inputs: its three
+    times, its chain bound (K·N MackeyGlass chain steps at the card's
+    maximum SM clock) and the sha256 of its f32 states' and final state's
+    bytes, which show two checkouts' bits equal.  At most 5 timed calls a
+    loop (the chain route takes 0.4 s a call)."""
+    from repro_torch.core import MackeyGlass
+    from repro_torch.kernels.dfr_scan import ops as scan_ops
+
+    model = MackeyGlass()
+    route = getattr(scan_ops, "scan_route", lambda m: "chain")(model)
+    cycles = _mg_step_cycles(dev)
+    clock = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True, check=True).stdout.split()[0])
+    rows = []
+    for name, (b, k, n) in (("dfr_scan_mg_narma10", (64, 1000, 900)),
+                            ("dfr_scan_mg_channel_eq", (64, 6000, 400))):
+        gen = torch.Generator(device=dev).manual_seed(30 + n)
+        j = torch.rand((b, k), generator=gen, device=dev) - 0.5
+        mask = torch.where(torch.rand((n,), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+        s0 = torch.zeros((b, n), device=dev)
+        states, fin = scan_ops.dfr_scan(model, j, mask, s0, return_final=True)
+        digests = {"states_sha256": _sha256(states), "fin_sha256": _sha256(fin)}
+        del states, fin
+        t = kernel_times(lambda: scan_ops.dfr_scan(model, j, mask, s0), min(reps, 5))
+        chain = k * n * cycles / (clock * 1e3)
+        rows.append({"name": name, "shape": [b, k, n], "kernel_route": route, **digests,
+                     "chain_bound_ms": chain, "chain_bound_share": chain / t["ms"],
+                     "mg_step_cycles": cycles, "sm_clock_max_mhz": clock, **t})
+    return rows
 
 
 def _launch_with(plan: dict, x, w, y):

@@ -25,7 +25,9 @@ sum's magnitude (f32 products and sums, in another order), the same bits
 from call to call, at N on either side of its chunk and lane edges and
 rows off 16 bytes; the block copy bitwise on both its routes (TMA and
 SIMT), each case asserting the route it took; the LM's
-reservoir mixer on K1 bitwise its plain route; an LM's decode within the
+reservoir mixer on K1 bitwise its plain route; MackeyGlass's helper-warp
+route of K1 bitwise the chain kernel's MackeyGlass route (f32 and bf16
+states, the carry, resume) at the Fig. 5/6 splits and on per-lane masks; an LM's decode within the
 reference's 2e-4 / 2e-3 of its forward.  The adjoint scan K1ᵀ bitwise its
 plain version; a reservoir_lm's gradients through K1 and K1ᵀ bitwise the
 plain route's; K1ᵀ allocates only dj and ds0; K1's f32 states cast to
@@ -150,6 +152,46 @@ def test_scan_kernel_mzi_sine_has_no_node_limit(dev, per_lane):
     assert max(float((out - ref).abs().max()), float((fin - ref_fin).abs().max())) <= 1e-5
     with pytest.raises(ValueError, match="limit"):
         scan_ops.dfr_scan(SiliconMR(), j, mask, s0)
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("b,k,n,per_lane", [(64, 1000, 900, False), (64, 6000, 400, False),
+                                            (64, 256, 100, True)],
+                         ids=["fig56_n900", "fig56_n400", "per_lane"])
+def test_mackey_glass_helper_route_is_the_chain_route_bitwise(dev, b, k, n, per_lane):
+    """MackeyGlass launches K1's helper-warp kernel, once a call; at the Fig.
+    5/6 splits and on per-lane masks its states (f32, and bf16 the f32
+    states rounded) and carry are the chain kernel's MackeyGlass route's bit
+    for bit, and resuming from its carry at cuts 37 and 38 is one call's."""
+    model = MackeyGlass()
+    rng = np.random.default_rng(k + n)
+    j = torch.as_tensor(rng.uniform(-0.5, 0.5, (b, k)), dtype=torch.float32, device=dev)
+    s0 = torch.as_tensor(rng.uniform(0, 0.3, (b, n)), dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(rng.choice((-1.0, 1.0), (b, n) if per_lane else (n,)),
+                           dtype=torch.float32, device=dev)
+    assert scan_ops.scan_route(model) == "helpers"
+    before = scan_ops.dfr_scan.launches
+    out, fin = scan_ops.dfr_scan(model, j, mask, s0, return_final=True)
+    assert scan_ops.dfr_scan.launches == before + 1
+    chain = scan_ops.scan_layout(b, n, per_lane)
+    want, want_fin = scan_ops.dfr_scan_at(model, j, mask, s0, chain)
+    assert torch.equal(_bits(out), _bits(want)) and torch.equal(_bits(fin), _bits(want_fin))
+    del want
+    out16, fin16 = scan_ops.dfr_scan(model, j, mask, s0, out_dtype=torch.bfloat16,
+                                     return_final=True)
+    assert torch.equal(_bits(out16), _bits(out.to(torch.bfloat16)))
+    assert torch.equal(_bits(fin16), _bits(fin))
+    want16, _ = scan_ops.dfr_scan_at(model, j, mask, s0, chain, out_dtype=torch.bfloat16)
+    assert torch.equal(_bits(out16), _bits(want16))
+    del out16, want16
+    for cut in (37, 38):
+        st1, f1 = scan_ops.dfr_scan(model, j[:, :cut], mask, s0, return_final=True)
+        st2, f2 = scan_ops.dfr_scan(model, j[:, cut:], mask, f1, return_final=True)
+        assert torch.equal(_bits(torch.cat([st1, st2], dim=1)), _bits(out)), cut
+        assert torch.equal(_bits(f2), _bits(fin)), cut
 
 
 def test_scan_kernel_bf16_states_and_per_lane_masks(dev):
